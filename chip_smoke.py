@@ -5,20 +5,32 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version, runs the full-width ResNet-50 +
-SelfNorm (pos='post', 16 sites) eval forward on the card against the
-CPU, then drives the serving path a user calls (build_classifier →
-export_classifier → save_artifact → load_artifact → requests at b=1 and
-b=64) with launch counts read around it, and times and profiles bf16
-serving at b=64 224².  Weights are random, drawn from a seed.  Every
-phase prints one JSON line; any failure raises and exits non-zero.  The
-last lines are the kernel summary, the card's name and power limit from
-nvidia-smi, and ``{"ok": true, "device": {...}}``.
+It builds the port's CUDA kernels (K1 instance statistics, K2 BatchNorm
+sums, K3 eval SelfNorm) from the sources in the checkout, all at once,
+and holds each kernel, forward and backward, against its plain PyTorch
+version at the shapes ResNet-50 gives it, with times beside its bound.
+Then it drives the port's two main paths with the launch counts read
+around each:
+
+  * training, the flagship recipe (``cnsn_tpu/configs/imagenet/resnet50/
+    cnsn.yaml``: SelfNorm at pos='post', image CrossNorm gated per batch
+    at cn_prob 0.5), full-width ResNet-50 at b=128 224² bf16 for 35 SGD
+    steps, timed as ``bench.py`` times its JAX twin, profiled, and then
+    evaluated through K3 (after a reduced-depth model's three steps on the
+    card and on the CPU are each held against a float64 twin);
+  * serving (build_classifier → export_classifier → save_artifact →
+    load_artifact → requests at b=1 and b=64), timed and profiled, after
+    the full-width eval forward is held against the CPU's.
+
+Weights and data are random, drawn from seeds.  Every phase prints one
+JSON line; any failure raises and exits non-zero.  The last lines are
+the kernel summary, the card's name and power limit from nvidia-smi, and
+``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or where the
 ``cnsn_tpu_torch`` package is not beside it.
 """
+import collections
 import json
 import os
 import statistics
@@ -26,15 +38,31 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+# H100 SXM published peaks (NVIDIA data sheet, dense): memory rate, bf16
+# tensor-core rate, fp32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 BATCH = 64
 IMAGE = 224
-# (H·W, C, sites) of the 16 SelfNorm sites of ResNet-50 at 224², pos='post'
+# (H = W, C, sites) of the 16 SelfNorm sites of ResNet-50 at 224², pos='post'
 SN_SHAPES = ((56, 256, 3), (28, 512, 4), (14, 1024, 6), (7, 2048, 3))
+RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "imagenet", "resnet50",
+                      "cnsn.yaml")
+# bench.py's loop: 5 warm-up steps, then 3 timed windows of 10, gated by
+# np.random.RandomState(7).rand(35) < cn_prob
+WARMUP, WINDOWS, WINDOW, GATE_SEED = 5, 3, 10, 7
+TRAIN_STEPS = WARMUP + WINDOWS * WINDOW
+# ImageNet-1k's 1,281,167 training images at b=128: the epoch of the step LR
+STEPS_PER_EPOCH = 10_009
+# ResNet-50: 53 BatchNorm2d layers, 16 SelfNorm sites
+BN_LAYERS, SN_SITES = 53, 16
 # one bf16 ulp is at most 2^-7 of the value; fp32 sums in another order
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
@@ -42,6 +70,14 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # in other orders on each side, relative to the logits' scale.
 LOGIT_TOL = 1e-3
 ARTIFACT_TOL = 1e-3
+# A float32 training run against its mask-replaying float64 twin: two
+# float32 implementations round differently, and the three steps amplify
+# it, so the card's error is held to a multiple of the CPU's.  Set from a
+# reading before the bound existed (card/CPU ratios 0.7-3.2 over the
+# losses and the step-1 and step-3 tensors); the floor, ~16 float32 ulps,
+# keeps a loss that the CPU rounds luckily from setting the bound.
+CARD_VS_CPU_ROUNDING = 8
+ROUNDING_FLOOR = 1e-6
 SERVE_REQUESTS = 100  # timed requests per (batch, path): p90 has 10 beyond
 SPIN_CYCLES = 2_000_000  # ~1 ms of card clock: host head start per launch
 
@@ -82,23 +118,56 @@ def time_ms(fn, iters, flush):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def bound(nbytes, flops):
+    """The least time the card could take, in ms, and what sets it: the
+    bytes moved at the memory rate, or the fp32 operations (the stats and
+    SelfNorm kernels use no tensor cores) at the fp32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_build():
-    from cnsn_tpu_torch.ops.kernels import build
+    """Every library, one nvcc each, all started together."""
+    from cnsn_tpu_torch.ops.kernels import LIBRARIES, build
     t0 = time.perf_counter()
-    lib = build("selfnorm")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        libs = dict(zip(LIBRARIES, pool.map(build, LIBRARIES)))
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in open(str(lib) + ".log").read().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in
+                    open(str(lib) + ".log").read().splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, lib in libs.items()}
     emit({"phase": "build", "seconds": seconds,
-          "libraries": {"selfnorm": os.path.relpath(str(lib), ROOT)},
-          "ptxas": {"selfnorm": ptxas}})
+          "libraries": {n: os.path.relpath(str(p), ROOT)
+                        for n, p in libs.items()},
+          "ptxas": ptxas})
 
 
-def phase_kernel_vs_plain(dev):
+def _row(kernel, shape, dtype, sites, err, tol, flush, run, plain,
+         library, library_call, nbytes, flops, cn_sites=0):
+    """One kernel_vs_plain line: the error, then times on the card.
+    ``sites``: launches at this shape per training step (K3: per serving
+    forward); ``cn_sites``: launches added on a cn_image step."""
+    k_ms = time_ms(run, 20, flush)
+    p_ms = time_ms(plain, 10, flush)
+    lib_ms = time_ms(library, 10, flush) if library is not None else None
+    b_ms, b_by = bound(nbytes, flops)
+    row = {"phase": "kernel_vs_plain", "kernel": kernel,
+           "shape": list(shape), "dtype": str(dtype).split(".")[1],
+           "sites": sites, "cn_sites": cn_sites, "max_abs_err": err,
+           "tol": tol,
+           "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / k_ms,
+           "library_ms": lib_ms, "library_call": library_call}
+    emit(row)
+    return row
+
+
+def phase_k3_vs_plain(dev, flush):
     from cnsn_tpu_torch.ops import (selfnorm_infer_cuda,
                                     selfnorm_infer_reference)
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for hw_side, c, sites in SN_SHAPES:
@@ -116,21 +185,133 @@ def phase_kernel_vs_plain(dev):
                                        **TOL[dtype])
             check(torch.isfinite(got).all().item(), f"finite K3 {shape}")
             del got, want
-            k_ms = time_ms(lambda: selfnorm_infer_cuda(x, w, a, b), 20, flush)
-            p_ms = time_ms(lambda: selfnorm_infer_reference(x, w, a, b), 10,
-                           flush)
-            nbytes = 2 * x.numel() * x.element_size() + 4 * c * 4
-            row = {"phase": "kernel_vs_plain", "kernel": "selfnorm_infer",
-                   "shape": list(shape), "dtype": str(dtype).split(".")[1],
-                   "sites": sites, "max_abs_err": err, "tol": TOL[dtype],
-                   "kernel_ms": k_ms, "plain_ms": p_ms,
-                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                   "library_ms": None}
-            row["bound_share"] = row["bound_ms"] / k_ms
-            emit(row)
-            rows.append(row)
+            rows.append(_row(
+                "selfnorm_infer", shape, dtype, sites, err, TOL[dtype], flush,
+                lambda: selfnorm_infer_cuda(x, w, a, b),
+                lambda: selfnorm_infer_reference(x, w, a, b), None,
+                "null: no single PyTorch call computes the fused SelfNorm",
+                2 * x.numel() * x.element_size() + 4 * c * 4,
+                5 * x.numel()))
             del x
-    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bn_shapes():
+    """{(H = W, C): layers} of ResNet-50's BatchNorm2d inputs at 224²."""
+    from cnsn_tpu_torch.models.resnet import block_plan
+    shapes = collections.Counter({(IMAGE // 2, 64): 1})  # the stem's BN
+    hw = IMAGE // 4
+    for blk in block_plan((3, 4, 6, 3)):
+        out_hw = hw // blk["stride"]
+        shapes[(hw, blk["planes"])] += 1            # bn1, after a 1x1
+        shapes[(out_hw, blk["planes"])] += 1        # bn2, after the 3x3
+        shapes[(out_hw, 4 * blk["planes"])] += 1 + blk["has_downsample"]
+        hw = out_hw
+    return shapes
+
+
+def phase_k1_vs_plain(dev, flush):
+    """K1 forward and backward at the 16 SelfNorm sites (b=128 bf16) and
+    at the image CrossNorm statistics (b=128 224² fp32, once per cn_image
+    step; its backward is not on the path, no gradient reaches images)."""
+    from cnsn_tpu_torch.ops import (ins_stats_bwd_cuda,
+                                    ins_stats_bwd_reference, ins_stats_cuda,
+                                    ins_stats_reference)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    shapes = [((n, n, c), torch.bfloat16, sites) for n, c, sites in SN_SHAPES]
+    shapes.append(((IMAGE, IMAGE, 3), torch.float32, 0))
+    for (h, w, c), dtype, sites in shapes:
+        shape = (128, h, w, c)
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5
+             + 0.3).to(dtype)
+        elems, itemsize, stats = x.numel(), x.element_size(), 128 * c * 4
+        got, want = ins_stats_cuda(x), ins_stats_reference(x)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, want))
+        # both sum fp32 in other orders: 1e-5 relative
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+        rows.append(_row(
+            "ins_stats", shape, dtype, sites, err,
+            {"rtol": 1e-5, "atol": 1e-5}, flush, lambda: ins_stats_cuda(x),
+            lambda: ins_stats_reference(x),
+            lambda: torch.std_mean(x, dim=(1, 2)), "torch.std_mean",
+            elems * itemsize + 2 * stats, 3 * elems,
+            cn_sites=0 if sites else 1))
+        mean, std = want
+        gm = torch.randn(128, c, generator=gen, device=dev)
+        gs = torch.randn(128, c, generator=gen, device=dev)
+        got = ins_stats_bwd_cuda(x, mean, std, gm, gs)
+        want = ins_stats_bwd_reference(x, mean, std, gm, gs)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        # one fp32 expression per element, rounded once to x's type
+        rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-6
+        check(err <= rel * want.float().abs().max().item(),
+              f"K1 backward {shape} {dtype}: {err}")
+        rows.append(_row(
+            "ins_stats_bwd", shape, dtype, sites, err,
+            {"of_max_abs": rel}, flush,
+            lambda: ins_stats_bwd_cuda(x, mean, std, gm, gs),
+            lambda: ins_stats_bwd_reference(x, mean, std, gm, gs), None,
+            "null: no single PyTorch call computes this backward",
+            2 * elems * itemsize + 4 * stats, 4 * elems))
+        del x, got, want, mean, std
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k2_vs_plain(dev, flush):
+    """K2 forward and backward at the 12 distinct BatchNorm2d input shapes
+    of ResNet-50 at b=128 224² bf16, with a warm running mean."""
+    from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
+                                    bn_sums_cuda, bn_sums_reference)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    shapes = bn_shapes()
+    check(len(shapes) == 12 and sum(shapes.values()) == BN_LAYERS,
+          f"ResNet-50 BN shapes {dict(shapes)}")
+    for (hw, c), sites in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
+        shape = (128, hw, hw, c)
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5
+             + 0.5).to(torch.bfloat16)
+        m0 = torch.randn(c, generator=gen, device=dev) * 0.3
+        elems = x.numel()
+        s1, s2 = bn_sums_cuda(x, m0)
+        w1, w2 = bn_sums_reference(x, m0)
+        torch.cuda.synchronize()
+        d_abs = (x.float() - m0).abs().sum(dim=(0, 1, 2))
+        err = max((s1 - w1).abs().max().item(), (s2 - w2).abs().max().item())
+        # fp32 sums of up to 1.6M terms in other orders: 1e-5 of Σ|x−m0|
+        # (s1 may cancel to near 0) and of s2
+        check(bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
+              and bool(((s2 - w2).abs() <= 1e-5 * w2).all()),
+              f"K2 forward {shape}: {err}")
+        rows.append(_row(
+            "bn_sums", shape, torch.bfloat16, sites, err,
+            {"s1_of_sum_abs": 1e-5, "s2_rtol": 1e-5}, flush,
+            lambda: bn_sums_cuda(x, m0), lambda: bn_sums_reference(x, m0),
+            lambda: torch.var_mean(x, dim=(0, 1, 2)), "torch.var_mean",
+            elems * 2 + 3 * c * 4, 4 * elems))
+        g1 = torch.randn(c, generator=gen, device=dev)
+        g2 = torch.randn(c, generator=gen, device=dev) * 1e-3
+        got = bn_sums_bwd_cuda(x, m0, g1, g2)
+        want = bn_sums_bwd_reference(x, m0, g1, g2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        # each product and sum rounded as the plain version rounds it
+        check(err <= 2 ** -7 * want.float().abs().max().item(),
+              f"K2 backward {shape}: {err}")
+        rows.append(_row(
+            "bn_sums_bwd", shape, torch.bfloat16, sites, err,
+            {"of_max_abs": 2 ** -7}, flush,
+            lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
+            lambda: bn_sums_bwd_reference(x, m0, g1, g2), None,
+            "null: no single PyTorch call computes this backward",
+            2 * elems * 2 + 3 * c * 4, 4 * elems))
+        del x, got, want
     torch.cuda.empty_cache()
     return rows
 
@@ -252,6 +433,205 @@ def phase_serving(dev):
     return counts
 
 
+def phase_train_card_vs_cpu(dev):
+    """Three SGD steps (plain, cn_image with a fixed permutation, plain) of
+    a reduced-depth ResNet-50+SN (layers (1,1,1,1), full widths, b=4 64²,
+    10 classes) in float32 with TF32 off, on the card and on the CPU, each
+    held to a float64 twin on the CPU that replays its ReLU masks and
+    max-pool choices (``cnsn_tpu_torch.train.rounding``).  Without the
+    replay a single ReLU input within rounding of 0 changes a gradient
+    element by its whole value (the line's ``step1_sign_flips``); with it,
+    what is left is rounding, and the card's run may lie no farther from
+    its twin than ``CARD_VS_CPU_ROUNDING`` times the CPU's run from its
+    own: in each step's loss, and after steps 1 and 3 in the worst tensor
+    of the state and of the momentum buffers (each over its max-abs)."""
+    from cnsn_tpu_torch.train.rounding import (compare_runs, compare_traces,
+                                               run_steps)
+    f32, f64 = torch.float32, torch.float64
+    card = run_steps(dev, f32, trace=True)
+    cpu = run_steps("cpu", f32)
+    errs = {"card": compare_runs(card, run_steps("cpu", f64,
+                                                 replay=card.tape)),
+            "cpu": compare_runs(cpu, run_steps("cpu", f64, replay=cpu.tape))}
+    flips = {row["module"]: row["sign_flips"] for row in compare_traces(
+        card, run_steps("cpu", f64, trace=True)) if row.get("sign_flips")}
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in card.states[3].values())
+    emit({"phase": "train_card_vs_cpu", "model": "resnet50 layers (1,1,1,1)"
+          " sn post", "batch": 4, "image": 64, "dtype": "float32",
+          "tf32": False, "losses_card": card.losses, "losses_cpu": cpu.losses,
+          "vs_replaying_float64": errs, "step1_sign_flips": flips,
+          "bound": f"card <= {CARD_VS_CPU_ROUNDING} x max(cpu, "
+                   f"{ROUNDING_FLOOR})", "finite": finite})
+    check(finite, "finite parameters after three card steps")
+    for key, cpu_err in errs["cpu"].items():
+        card_err = errs["card"][key]
+        pairs = (zip(card_err, cpu_err) if key == "loss_rel_err"
+                 else [(card_err[0], cpu_err[0])])
+        for got, ref in pairs:
+            check(got <= CARD_VS_CPU_ROUNDING * max(ref, ROUNDING_FLOOR),
+                  f"card vs float64 {key}: {got} against the CPU's {ref}")
+
+
+def train_flops_per_step(model, batch):
+    """Analytic FLOPs of one training step: 2 per multiply-add of every
+    conv and the fc, three times (forward, input gradient, weight
+    gradient), less the stem's input gradient, which nothing needs.  The
+    normalisation and elementwise work is not counted."""
+    from cnsn_tpu_torch.models.common import Conv2d, Linear
+    macs = {}
+
+    def hook(module, inputs, out):
+        if isinstance(module, Conv2d):
+            _, cin, k, _ = module.weight.shape
+            macs[module] = out[0].numel() * cin * k * k
+        else:
+            macs[module] = out[0].numel() * module.weight.shape[1]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv2d, Linear))]
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, IMAGE, IMAGE, 3,
+                                     device=next(model.parameters()).device))
+    finally:
+        for h in handles:
+            h.remove()
+        model.train()
+    total = sum(macs.values())
+    return batch * 2 * (3 * total - macs[model.conv1])
+
+
+def phase_train(dev):
+    """The training main path: the flagship recipe at full width, b=128
+    224² bf16, 35 gated steps timed as bench.py times them, with every
+    kernel launch counted; profiles of a plain and a cn_image step; then
+    one b=64 eval step through K3."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train import (StepFns, create_train_state,
+                                      imagenet_step_lr)
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    cfg = load_config(RECIPE, compute_dtype="bf16")
+    check(cfg.regime == "cn_image" and cfg.schedule == "imagenet_step",
+          f"recipe resolves to {cfg.regime}, {cfg.schedule}")
+    model = build_model(cfg.model, cfg.num_classes,
+                        generator=torch.Generator().manual_seed(cfg.seed),
+                        pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
+                        cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16)
+    state = create_train_state(
+        model, imagenet_step_lr(cfg.lr, cfg.epochs, cfg.batch_size,
+                                STEPS_PER_EPOCH),
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        nesterov=cfg.nesterov, device=dev)
+    steps = StepFns(image_crop=cfg.crop)
+    b = cfg.batch_size
+    gen = torch.Generator().manual_seed(cfg.seed)
+    images = torch.randn(b, IMAGE, IMAGE, 3, generator=gen).to(dev)
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).to(dev)
+    perm_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < cfg.cn_prob
+    flops = train_flops_per_step(state.model, b)
+
+    def step(cn):
+        if cn:
+            return steps.cn_image(state, images, labels, generator=perm_gen)
+        return steps.plain(state, images, labels)
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    losses, window_ms = [], []
+    t0 = time.perf_counter()
+    for i in range(WARMUP):
+        losses.append(step(gates[i])[1]["loss"])
+    float(losses[-1])  # the host waits for the step, as bench.py does
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for w in range(WINDOWS):
+        t0 = time.perf_counter()
+        for i in range(WARMUP + w * WINDOW, WARMUP + (w + 1) * WINDOW):
+            losses.append(step(gates[i])[1]["loss"])
+        float(losses[-1])
+        window_ms.append((time.perf_counter() - t0) * 1e3 / WINDOW)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_cn = int(gates.sum())
+    want = {"bn_sums": BN_LAYERS * TRAIN_STEPS,
+            "bn_sums_bwd": BN_LAYERS * TRAIN_STEPS,
+            "ins_stats": SN_SITES * TRAIN_STEPS + n_cn,
+            "ins_stats_bwd": SN_SITES * TRAIN_STEPS}
+    losses = torch.stack(losses).float().cpu()
+    emit({"phase": "train_main_path", "recipe": os.path.relpath(RECIPE, ROOT),
+          "regime": cfg.regime, "batch": b, "image": IMAGE,
+          "dtype": "bfloat16", "steps": TRAIN_STEPS, "cn_image_steps": n_cn,
+          "gates": [int(g) for g in gates], "launches": counts,
+          "expected": want, "loss_first": losses[0].item(),
+          "loss_last": losses[-1].item(),
+          "losses_finite": bool(torch.isfinite(losses).all())})
+    check(counts == want, f"training launches {counts}, expected {want}")
+    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+
+    med = statistics.median(window_ms)
+    emit({"phase": "train_rate", "model": "resnet50 sn post",
+          "recipe": "cnsn.yaml", "batch": b, "image": IMAGE,
+          "dtype": "bfloat16", "warmup_steps": WARMUP,
+          "warmup_s": warmup_s, "windows_ms_per_step": window_ms,
+          "ms_per_step": med, "img_per_s": b / med * 1e3,
+          "spread_img_per_s": b * 1e3 * (1 / min(window_ms)
+                                         - 1 / max(window_ms)),
+          "flops_per_step": flops,
+          "bf16_peak_share": flops / (med / 1e3) / BF16_FLOPS,
+          "peak_mem_gib": peak, "host_loadavg": os.getloadavg(),
+          "card": nvidia_smi_name_power()})
+
+    for kind in ("plain", "cn_image"):
+        prof = device_time_breakdown(lambda: step(kind == "cn_image"),
+                                     iters=3, warmup=1, top=12)
+        # the profiler slows the host; idle share against the plain timing
+        prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
+        emit({"phase": "train_profile", "step": kind, "batch": b,
+              "dtype": "bfloat16", **prof})
+
+    LAUNCHES.clear()
+    out = steps.eval_step(state, images[:BATCH], labels[:BATCH])
+    torch.cuda.synchronize()
+    k3 = dict(LAUNCHES)
+    logits = out["logits"]
+    emit({"phase": "train_then_eval", "batch": BATCH, "launches": k3,
+          "loss": out["loss"].item(), "correct": out["correct"].item()})
+    check(k3 == {"selfnorm_infer": SN_SITES}, f"eval launches {k3}")
+    check(logits.shape == (BATCH, 1000)
+          and bool(torch.isfinite(logits).all()), "finite eval logits")
+    del state, model, images
+    torch.cuda.empty_cache()
+    return counts, n_cn
+
+
+def summarize(rows, name, route, source, replaces, launches, steps, n_cn):
+    """A kernel's line: ms, plain, bound and library time per main-path
+    step, each row's time by its launches in the main-path run (mean over
+    its steps)."""
+    rows = [r for r in rows if r["kernel"] == name]
+    runs = [r["sites"] * steps + r["cn_sites"] * n_cn for r in rows]
+
+    def per_step(key):
+        if any(r[key] is None for r in rows):
+            return None
+        return sum(r[key] * k for r, k in zip(rows, runs)) / steps
+
+    heaviest = max(zip(rows, runs), key=lambda rk: rk[0]["bound_ms"] * rk[1])
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per_step("kernel_ms"), "plain_ms": per_step("plain_ms"),
+            "bound_ms": per_step("bound_ms"),
+            "bound_by": heaviest[0]["bound_by"],
+            "library_ms": per_step("library_ms"),
+            "per": f"main-path training step (mean over {steps})"}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -269,23 +649,41 @@ def main():
           "host_cpus": os.cpu_count(), "host_loadavg": os.getloadavg()})
     t0 = time.perf_counter()
     phase_build()
-    rows = phase_kernel_vs_plain(dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
+    k3_rows = phase_k3_vs_plain(dev, flush)
+    rows = phase_k1_vs_plain(dev, flush) + phase_k2_vs_plain(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu(dev)
+    train_counts, n_cn = phase_train(dev)
     phase_model_vs_cpu(dev)
     counts = phase_serving(dev)
 
-    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
-    summary = {"name": "selfnorm_infer", "route": "cuda",
-               "source": "cnsn_tpu_torch/csrc/selfnorm.cu",
-               "replaces": "cnsn_tpu/ops/pallas/selfnorm.py:64",
-               "launches": counts["selfnorm_infer"],
-               "max_abs_err": max(r["max_abs_err"] for r in rows),
-               "bound_by": "bytes", "library_ms": None}
+    bf16 = [r for r in k3_rows if r["dtype"] == "bfloat16"]
+    k3 = {"name": "selfnorm_infer", "route": "cuda",
+          "source": "cnsn_tpu_torch/csrc/selfnorm.cu",
+          "replaces": "cnsn_tpu/ops/pallas/selfnorm.py:64",
+          "launches": counts["selfnorm_infer"],
+          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+          "bound_by": "bytes", "library_ms": None,
+          "per": "b=64 bf16 serving forward"}
     # per b=64 bf16 forward: each shape's time times its number of sites
     for key, out in (("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
                      ("bound_ms", "bound_ms")):
-        summary[out] = sum(r[key] * r["sites"] for r in bf16)
+        k3[out] = sum(r[key] * r["sites"] for r in bf16)
+    kernels = [summarize(rows, name, "cuda", f"cnsn_tpu_torch/csrc/{src}",
+                         replaces, train_counts[name], TRAIN_STEPS, n_cn)
+               for name, src, replaces in (
+                   ("ins_stats", "ins_stats.cu",
+                    "cnsn_tpu/ops/pallas/ins_stats.py:140"),
+                   ("ins_stats_bwd", "ins_stats.cu",
+                    "cnsn_tpu/ops/pallas/ins_stats.py:179"),
+                   ("bn_sums", "bn_stats.cu",
+                    "cnsn_tpu/ops/pallas/bn_stats.py:109"),
+                   ("bn_sums_bwd", "bn_stats.cu",
+                    "cnsn_tpu/ops/pallas/bn_stats.py:146"))]
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
-    emit({"kernels": [summary]})
+    emit({"kernels": [k3] + kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

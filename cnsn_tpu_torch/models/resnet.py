@@ -1,4 +1,4 @@
-"""ImageNet ResNet-50 (v1.5) with CNSN, eval forward: port of
+"""ImageNet ResNet-50 (v1.5) with CNSN, train and eval forward: port of
 ``cnsn_tpu/models/resnet.py``.
 
 Stride on the 3×3 conv (v1.5), CNSN at {residual, pre, post, identity}
@@ -76,11 +76,12 @@ class Bottleneck(nn.Module):
                 Conv2d(inplanes, out_ch, 1, stride, dtype=dtype, generator=g),
                 BatchNorm(out_ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
         identity = x
         out = x
         if self.cnsn is not None and self.pos == "pre":
-            out = self.cnsn(out)
+            out = self.cnsn(out, active)
         out = F.relu(self.bn1(self.conv1(out)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
@@ -88,21 +89,23 @@ class Bottleneck(nn.Module):
             identity = self.downsample(x)
         if self.cnsn is not None:
             if self.pos == "residual":
-                out = self.cnsn(out)
+                out = self.cnsn(out, active)
             elif self.pos == "identity":
-                identity = self.cnsn(identity)
+                identity = self.cnsn(identity, active)
         out = out + identity
         if self.cnsn is not None and self.pos == "post":
-            out = self.cnsn(out)
+            out = self.cnsn(out, active)
         return F.relu(out)
 
 
 class ResNet(nn.Module):
-    """Eval-forward ResNet: images NHWC (B, H, W, 3) → logits (B, classes).
+    """ResNet: images NHWC (B, H, W, 3) → logits (B, classes), in train
+    mode (batch statistics, running statistics updated) or eval mode.
 
     ``dtype`` is the compute type (None = fp32, or torch.bfloat16);
-    parameters and statistics stay fp32.  ``generator`` seeds every
-    initializer (a fresh default generator when None).
+    parameters and statistics stay fp32, and autograd carries each
+    gradient back to the fp32 parameter through its cast.  ``generator``
+    seeds every initializer (a fresh default generator when None).
     """
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
@@ -113,6 +116,7 @@ class ResNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator or torch.Generator()
+        self.cnsn_type = cnsn_type
         self.conv1 = Conv2d(3, 64, 7, 2, dtype=dtype, generator=g)
         self.bn1 = BatchNorm(64)
         stages = [[] for _ in range(4)]
@@ -127,14 +131,32 @@ class ResNet(nn.Module):
         self.fc = Linear(512 * Bottleneck.expansion, num_classes, dtype=dtype,
                          generator=g)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    @property
+    def cn_num(self) -> int:
+        """In-network CrossNorm sites: one per bottleneck when
+        ``cnsn_type`` has CrossNorm, else 0."""
+        if self.cnsn_type is not None and "cn" in self.cnsn_type:
+            return sum(len(layer) for layer in self._stages())
+        return 0
+
+    def _stages(self):
+        return (self.layer1, self.layer2, self.layer3, self.layer4)
+
+    def forward(self, images: torch.Tensor,
+                cn_active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``cn_active``: (cn_num,) bool, one gate per bottleneck's
+        CrossNorm site, or None (no site active)."""
         if images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected NHWC images (B, H, W, 3), got "
                              f"{tuple(images.shape)}")
         x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)  # implicit -inf padding, as flax's
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        site = 0
+        for layer in self._stages():
+            for block in layer:
+                x = block(x, None if cn_active is None else cn_active[site])
+                site += 1
         return self.fc(x.mean(dim=(2, 3)))
 
 

@@ -1,4 +1,4 @@
-"""Layers of the port (eval mode)."""
+"""Layers of the port (train and eval mode)."""
 from .cnsn import CNSN, CrossNorm, SelfNorm
 from .norm import BatchNorm, BatchNorm1dStats
 

@@ -1,9 +1,11 @@
-"""CrossNorm / SelfNorm / CNSN in eval mode: port of ``cnsn_tpu/nn/cnsn.py``.
+"""CrossNorm / SelfNorm / CNSN: port of ``cnsn_tpu/nn/cnsn.py``.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory.  Eval
 SelfNorm folds its BatchNorm1d running statistics into an affine and runs
-the fused K3 op (``ops/kernels/selfnorm.py``); eval CrossNorm is the
-identity.  Parameter names follow the reference torch modules
+the fused K3 op (``ops/kernels/selfnorm.py``); train SelfNorm takes its
+instance statistics through K1 (``ops/stats.py``).  An inactive CrossNorm
+is the identity; an active in-network site and the fused CNSN path are not
+ported yet.  Parameter names follow the reference torch modules
 (``selfnorm.g_fc.weight`` of shape (C, 1, 2), ``selfnorm.g_bn.*``).
 """
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 from torch import nn
 
 from ..ops.kernels.selfnorm import selfnorm_infer
-from .norm import TRAINING_NOT_PORTED, BatchNorm1dStats
+from ..ops.stats import instance_mean_std
+from .norm import BatchNorm1dStats
 
 __all__ = ["CrossNorm", "SelfNorm", "CNSN"]
 
@@ -22,7 +25,7 @@ __all__ = ["CrossNorm", "SelfNorm", "CNSN"]
 class CrossNorm(nn.Module):
     """One CrossNorm site (``crop`` region mode, ``beta`` of its bbox
     draw).  ``active is None`` (eval, plain forward) is the identity; an
-    active site belongs to the training slice and raises."""
+    active site is not ported yet and raises."""
 
     def __init__(self, crop: str = "neither", beta: float = 1.0):
         super().__init__()
@@ -32,7 +35,9 @@ class CrossNorm(nn.Module):
                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
         if active is None:
             return x
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        raise NotImplementedError(
+            "an active in-network CrossNorm site is not ported yet (ROADMAP "
+            "queue 1: in-network CrossNorm and the fused CNSN path)")
 
 
 class _PairFC(nn.Module):
@@ -48,8 +53,14 @@ class _PairFC(nn.Module):
 
 
 class SelfNorm(nn.Module):
-    """Eval SelfNorm: g = sigmoid(BN1d(w0·mean + w1·std)), out = x·g, with
-    the instance statistics taken at eps 1e-12, ddof 1."""
+    """SelfNorm: g = sigmoid(BN1d(w0·mean + w1·std)), out = x·g, with the
+    instance statistics taken at eps 1e-12, ddof 1.
+
+    Each mode rounds as its JAX path does.  Train (``cnsn_tpu/nn/cnsn.py:
+    126-149``): the statistics are cast to x's type, the FC and BN1d run
+    in fp32, g is cast to x's type and x·g is taken in x's type.  Eval
+    (K3, the Pallas kernel's rounding): x·g in fp32, cast once.
+    """
 
     def __init__(self, features: int, is_two: bool = False,
                  eps: float = 1e-12,
@@ -64,12 +75,18 @@ class SelfNorm(nn.Module):
         self.g_bn = BatchNorm1dStats(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
-        a, b = self.g_bn.folded_affine()
         w = self.g_fc.weight.reshape(self.features, 2)
-        out = selfnorm_infer(x.permute(0, 2, 3, 1), w, a, b, self.eps)
-        return out.permute(0, 3, 1, 2)
+        if not self.training:
+            a, b = self.g_bn.folded_affine()
+            out = selfnorm_infer(x.permute(0, 2, 3, 1), w, a, b, self.eps)
+            return out.permute(0, 3, 1, 2)
+        n, c = x.shape[0], self.features
+        mean, std = instance_mean_std(x.permute(0, 2, 3, 1), eps=self.eps)
+        sdt = torch.promote_types(x.dtype, torch.float32)
+        y = (mean.reshape(n, c).to(sdt) * w[:, 0]
+             + std.reshape(n, c).to(sdt) * w[:, 1])
+        g = torch.sigmoid(self.g_bn(y)).to(x.dtype)
+        return x * g.reshape(n, c, 1, 1)
 
 
 class CNSN(nn.Module):

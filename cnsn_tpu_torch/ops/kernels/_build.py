@@ -5,8 +5,8 @@ It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 and loaded with ``ctypes``; no PyTorch headers are involved, so a build
 takes seconds.  The library is built at first use into
 ``cnsn_tpu_torch/_build/`` (git-ignored), under a name keyed by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  The compiler's ``-Xptxas=-v`` report (registers,
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  The compiler's ``-Xptxas=-v`` report (registers,
 shared memory, spills) is kept beside the library as ``<lib>.log``.
 
 A failed build raises; nothing falls back to a plain version.
@@ -50,10 +50,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -3,7 +3,7 @@
 
 ``device_time_breakdown`` runs a callable a few times under the profiler
 and sums the device time of every kernel by name and by family (conv /
-GEMM, batch norm, the SelfNorm kernel, elementwise, ...), beside the busy
+GEMM, batch norm, each of the port's kernels, elementwise, ...), beside the busy
 time of the device (the union of kernel intervals) and the host's wall
 time of the window, whose difference is the device's idle share.
 """
@@ -21,11 +21,16 @@ __all__ = ["device_time_breakdown", "kernel_family"]
 
 # (family, substrings of the kernel name), first match wins
 _FAMILIES = (
-    ("selfnorm", ("selfnorm",)),
-    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_infer")),
+    ("selfnorm", ("selfnorm",)),                     # K3
+    ("ins_stats_bwd", ("ins_bwd_kernel",)),          # K1 backward
+    ("ins_stats", ("ins_sums_kernel", "ins_finalize_kernel")),  # K1
+    ("bn_stats_bwd", ("bn_bwd_kernel",)),            # K2 backward
+    ("bn_stats", ("bn_sums_kernel", "bn_finalize_kernel")),     # K2
+    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bn_infer")),
     ("pool", ("pool",)),
     ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "implicit", "fprop",
-                   "cudnn", "sm90_", "nvjet")),
+                   "dgrad", "wgrad", "cudnn", "sm90_", "nvjet")),
+    ("optimizer", ("multi_tensor",)),
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "copy")),
     ("memcpy_memset", ("memcpy", "memset")),

@@ -17,13 +17,20 @@ def test_port_runs_without_jax_in_a_fresh_process():
     code = textwrap.dedent("""
         import sys, torch
         import cnsn_tpu_torch
+        from cnsn_tpu_torch.ops.crossnorm import cross_norm_2ins
         from cnsn_tpu_torch.serving import export_classifier
+        from cnsn_tpu_torch.train.steps import StepFns, create_train_state
         m = cnsn_tpu_torch.build_classifier(
             "resnet50", 10, device="cpu", layers=(1, 1, 1, 1),
             pos="post", cnsn_type="sn")
         with torch.no_grad():
             y = m(torch.randn(2, 32, 32, 3))
         assert y.shape == (2, 10) and bool(torch.isfinite(y).all())
+        state = create_train_state(m, lambda step: 0.01, device="cpu")
+        state, metrics = StepFns().cn_image(
+            state, torch.randn(2, 32, 32, 3), torch.tensor([1, 2]),
+            perm=torch.tensor([1, 0]))
+        assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "optax", "cnsn_tpu"))

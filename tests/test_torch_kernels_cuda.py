@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Every test here needs a GPU and skips without one.  The file imports
-neither JAX nor the JAX package, so on a GPU machine without JAX it runs
-with the JAX-pinning conftest left out:
+Every test here is marked ``cuda`` and skips without a GPU.  The file
+imports neither JAX nor the JAX package, so on a GPU machine without JAX
+it runs with the JAX-pinning conftest left out:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
@@ -10,11 +10,21 @@ import numpy as np
 import pytest
 import torch
 
-from cnsn_tpu_torch.ops import selfnorm_infer_cuda, selfnorm_infer_reference
+from cnsn_tpu_torch.ops import (BnSums, InsStats, bn_sums_bwd_cuda,
+                                bn_sums_bwd_reference, bn_sums_cuda,
+                                bn_sums_reference, ins_stats_bwd_cuda,
+                                ins_stats_bwd_reference, ins_stats_cuda,
+                                ins_stats_reference, instance_mean_std,
+                                selfnorm_infer_cuda, selfnorm_infer_reference)
 from cnsn_tpu_torch.ops.kernels import LAUNCHES
 
-pytestmark = pytest.mark.skipif(not torch.cuda.is_available(),
-                                reason="CUDA kernel: needs a GPU")
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernel: needs a GPU")
 
 # fp32: the kernel sums in another order than the plain version (~1e-6
 # relative over a few thousand rows); bf16: both round the same fp32
@@ -79,3 +89,184 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         selfnorm_infer_cuda(x.half(), w, a, b)
     with pytest.raises(ValueError, match="is on cpu"):
         selfnorm_infer_cuda(x, w, a.cpu(), b)
+
+
+# K1 and K2 shapes: ragged channel tiles and vector widths (C=96, 33, 3),
+# row counts of 1, odd and large, the C=3 image plane of 224², and the
+# widest and narrowest ResNet-50 channel counts.
+STAT_SHAPES = [(4, 56, 56, 256), (4, 7, 7, 2048), (3, 5, 7, 96),
+               (2, 1, 1, 3), (1, 9, 9, 33), (2, 224, 224, 3),
+               (8, 56, 56, 64)]
+
+
+def _x(shape, seed, dtype=torch.float32, offset=0.3):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * 1.5 + offset).astype(np.float32)
+    return torch.from_numpy(x).cuda().to(dtype)
+
+
+def _vec(shape, seed, scale=1.0):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(
+        np.float32)).cuda()
+
+
+def _close_to_scale(got, want, rtol):
+    """Within rtol of the largest magnitude: outputs that sum and cancel
+    in another order differ in absolute, not relative, terms."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape", STAT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_kernel_matches_plain(shape, dtype):
+    """Both sum in fp32 from the same inputs, in other orders: 1e-5."""
+    x = _x(shape, 11, dtype)
+    got = ins_stats_cuda(x)
+    want = ins_stats_reference(x)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == shape[:1] + shape[3:]
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw_side", [1, 7])
+def test_ins_stats_constant_plane_has_zero_variance(hw_side):
+    """A constant plane whose sums are exact: var is exactly 0, so
+    std = sqrt(eps) even at SelfNorm's eps 1e-12 (an FMA-contracted
+    E[x²] − mean² would give a negative variance, and NaN)."""
+    x = torch.full((2, hw_side, hw_side, 40), 1.25, device="cuda")
+    x[1] = -3.5
+    mean, std = ins_stats_cuda(x, eps=1e-12)
+    torch.testing.assert_close(mean, x[:, 0, 0, :], rtol=0, atol=0)
+    torch.testing.assert_close(std, torch.full_like(std, 1e-6), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("shape", STAT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_bwd_kernel_matches_plain(shape, dtype):
+    """fp32: the same operations in the same order per element, 1e-6 of
+    the gradient's scale; bf16: one rounding of those, one bf16 ulp."""
+    n, _, _, c = shape
+    x = _x(shape, 12, dtype)
+    mean, std = ins_stats_reference(x)
+    gm, gs = _vec((n, c), 13), _vec((n, c), 14)
+    got = ins_stats_bwd_cuda(x, mean, std, gm, gs)
+    want = ins_stats_bwd_reference(x, mean, std, gm, gs)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == shape and got.is_contiguous()
+    _close_to_scale(got, want, 1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("shape", STAT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_kernel_matches_plain(shape, dtype):
+    """Held to 1e-5 of Σ|x−m0| (s1) and of Σ(x−m0)² (s2): sums of up to
+    ~1e5 fp32 terms in other orders, where s1 may cancel to near 0."""
+    x = _x(shape, 15, dtype, offset=1.0)
+    m0 = _vec(shape[-1:], 16, scale=0.5)  # a warm running mean
+    s1, s2 = bn_sums_cuda(x, m0)
+    w1, w2 = bn_sums_reference(x, m0)
+    torch.cuda.synchronize()
+    d = x.float() - m0
+    assert (s1 - w1).abs().max() <= 1e-5 * d.abs().sum(dim=(0, 1, 2)).max()
+    assert (s2 - w2).abs().max() <= 1e-5 * w2.max()
+
+
+@pytest.mark.parametrize("shape", STAT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_bwd_kernel_matches_plain(shape, dtype):
+    """The kernel rounds each product and sum as the plain version does."""
+    c = shape[-1]
+    x = _x(shape, 17, dtype)
+    m0, g1, g2 = _vec((c,), 18, 0.5), _vec((c,), 19), _vec((c,), 20)
+    got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    want = bn_sums_bwd_reference(x, m0, g1, g2)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == shape
+    _close_to_scale(got, want, 1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+def test_bn_sums_is_deterministic_and_takes_unaligned_rows():
+    """The same inputs give the same bits; an x that starts off a
+    16-byte boundary takes the one-element loads and agrees with the
+    16-byte-load kernel."""
+    base = _x((4 * 28 * 28 * 128 + 1,), 21)
+    m0 = _vec((128,), 22)
+    aligned = base[:-1].view(4, 28, 28, 128)
+    shifted = base[1:].view(4, 28, 28, 128).clone()
+    a1 = bn_sums_cuda(aligned, m0)
+    a2 = bn_sums_cuda(aligned, m0)
+    for u, v in zip(a1, a2):
+        assert torch.equal(u, v)
+    unaligned = base[1:].view(4, 28, 28, 128)
+    assert unaligned.data_ptr() % 16 != 0
+    for u, v in zip(bn_sums_cuda(unaligned, m0), bn_sums_cuda(shifted, m0)):
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_function_matches_autograd_of_plain(dtype):
+    x = _x((3, 14, 14, 256), 23, dtype).requires_grad_()
+    c1, c2 = _vec((3, 256), 24), _vec((3, 256), 25)
+    mean, std = InsStats.apply(x, 1e-5, 1)
+    (mean * c1 + std * c2).sum().backward()
+    got = x.grad
+    x.grad = None
+    rm, rs = ins_stats_reference(x)
+    (rm * c1 + rs * c2).sum().backward()
+    _close_to_scale(got, x.grad, 1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_function_matches_autograd_of_plain(dtype):
+    x = _x((4, 14, 14, 64), 26, dtype).requires_grad_()
+    m0, c1, c2 = _vec((64,), 27, 0.5), _vec((64,), 28), _vec((64,), 29)
+    s1, s2 = BnSums.apply(x, m0)
+    (s1 * c1 + 1e-2 * s2 * c2).sum().backward()
+    got = x.grad
+    x.grad = None
+    r1, r2 = bn_sums_reference(x, m0)
+    (r1 * c1 + 1e-2 * r2 * c2).sum().backward()
+    _close_to_scale(got, x.grad, 1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+def test_launch_counters_count_each_wrapper_call():
+    x = _x((2, 6, 6, 64), 30).requires_grad_()
+    m0 = _vec((64,), 31)
+    before = dict(LAUNCHES)
+    mean, std = instance_mean_std(x)
+    s1, s2 = BnSums.apply(x, m0)
+    (mean.sum() + std.sum() + s1.sum() + s2.sum()).backward()
+    for name in ("ins_stats", "ins_stats_bwd", "bn_sums", "bn_sums_bwd"):
+        assert LAUNCHES[name] == before.get(name, 0) + 1, name
+
+
+def test_stats_wrappers_reject_what_the_kernels_do_not_take():
+    x = _x((2, 5, 5, 16), 32)
+    m0 = _vec((16,), 33)
+    nc = _vec((2, 16), 34)
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        ins_stats_cuda(x.permute(0, 2, 1, 3))
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        bn_sums_cuda(x.permute(0, 2, 1, 3), m0)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        ins_stats_cuda(x.half())
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        bn_sums_cuda(x.double(), m0)
+    with pytest.raises(ValueError, match="4-D"):
+        ins_stats_cuda(x[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        bn_sums_cuda(x.cpu(), m0.cpu())
+    with pytest.raises(ValueError, match="m0 must be float32"):
+        bn_sums_cuda(x, m0[:8])
+    with pytest.raises(ValueError, match="is on cpu"):
+        bn_sums_bwd_cuda(x, m0, m0.cpu(), m0)
+    with pytest.raises(ValueError, match="gs must be float32"):
+        ins_stats_bwd_cuda(x, nc, nc, nc, nc.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ins_stats_bwd_cuda(x, nc, nc, nc, _vec((16, 2), 35).t())

@@ -19,6 +19,21 @@ from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
     ("void at::native::reduce_kernel<512, 1, ...>", "reduce"),
     ("nvjet_tst_256x128_64x4_1x2_h_ssched_bz_coopA_TNT", "conv_gemm"),
     ("Memset (Device)", "memcpy_memset"),
+    ("void (anonymous namespace)::ins_sums_kernel<__nv_bfloat16, 8>(...)",
+     "ins_stats"),
+    ("(anonymous namespace)::ins_finalize_kernel(...)", "ins_stats"),
+    ("void (anonymous namespace)::ins_bwd_kernel<float, 4>(...)",
+     "ins_stats_bwd"),
+    ("void (anonymous namespace)::bn_sums_kernel<__nv_bfloat16, 8>(...)",
+     "bn_stats"),
+    ("(anonymous namespace)::bn_finalize_kernel(...)", "bn_stats"),
+    ("void (anonymous namespace)::bn_bwd_kernel<__nv_bfloat16, 8>(...)",
+     "bn_stats_bwd"),
+    ("void cudnn::bn_bw_1C11_kernel_new<float, float>(...)", "batch_norm"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv_gemm"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<>",
+     "optimizer"),
     ("some_unknown_kernel", "other"),
 ])
 def test_kernel_family(name, family):

@@ -66,11 +66,11 @@ def test_every_recipe_yaml_loads():
     assert (cfg.model, cfg.num_classes, cfg.cnsn_type, cfg.pos) == (
         "resnet50", 1000, "sn", "post")
     assert cfg.resolved_image_size == 224
-    assert cfg.extra["schedule"] == "imagenet_step"
+    assert cfg.schedule == "imagenet_step"
     cfg = apply_overrides(cfg, ["compute_dtype=bf16", "image_size=64",
                                 "dataset=cifar100", "lr=0.5"])
     assert (cfg.compute_dtype, cfg.image_size, cfg.num_classes,
-            cfg.extra["lr"]) == ("bf16", 64, 100, 0.5)
+            cfg.lr) == ("bf16", 64, 100, 0.5)
 
 
 def test_cli_export(tmp_path, capsys):
