@@ -6,18 +6,25 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (K1 instance statistics, K2 BatchNorm
-sums, K3 eval SelfNorm) from the sources in the checkout, all at once,
-and holds each kernel, forward and backward, against its plain PyTorch
-version at the shapes ResNet-50 gives it, with times beside its bound.
-Then it drives the port's two main paths with the launch counts read
-around each:
+sums, K3 eval SelfNorm, K4 3×3 conv weight gradient) from the sources in
+the checkout, all at once, and holds each kernel, forward and backward,
+against its plain PyTorch version at the shapes ResNet-50 and WRN-40-2
+give it, with times beside its bound and the library's call.  Then it
+drives the port's main paths with the launch counts read around each:
 
   * training, the flagship recipe (``cnsn_tpu/configs/imagenet/resnet50/
     cnsn.yaml``: SelfNorm at pos='post', image CrossNorm gated per batch
     at cn_prob 0.5), full-width ResNet-50 at b=128 224² bf16 for 35 SGD
     steps, timed as ``bench.py`` times its JAX twin, profiled, and then
     evaluated through K3 (after a reduced-depth model's three steps on the
-    card and on the CPU are each held against a float64 twin);
+    card and on the CPU are each held against a float64 twin); then 5
+    steps of it with CNSN_CONV3X3=pallas (13 K4 launches per step);
+  * training, the CIFAR SelfNorm recipe (``cnsn_tpu/configs/cifar10/
+    wideresnet/sn.yaml``: WRN-40-2, SelfNorm at pos='pre'), b=128 32² bf16
+    for 35 steps with CNSN_CONV3X3=pallas (35 K4 launches per step) and
+    again with cuDNN's gradients, profiled, then evaluated through K3;
+    before it, one float32 step of a reduced WRN under both, from the
+    same weights, every conv weight's gradient compared;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -31,6 +38,7 @@ It exits non-zero, printing no result, where CUDA is absent or where the
 ``cnsn_tpu_torch`` package is not beside it.
 """
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -63,6 +71,28 @@ TRAIN_STEPS = WARMUP + WINDOWS * WINDOW
 STEPS_PER_EPOCH = 10_009
 # ResNet-50: 53 BatchNorm2d layers, 16 SelfNorm sites
 BN_LAYERS, SN_SITES = 53, 16
+WRN_RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
+                          "wideresnet", "sn.yaml")
+WRN_IMAGE = 32
+# CIFAR-10's 50,000 training images at b=128, last partial batch dropped
+# (cnsn_tpu/data/cifar.py:126-135): the epoch of the cosine LR
+WRN_STEPS_PER_EPOCH = 390
+# WRN-40-2, SelfNorm pos='pre': 37 BatchNorm2d layers, 18 SelfNorm sites,
+# 35 stride-1 3x3 convs (all but the two stride-2 transitions)
+WRN_BN, WRN_SN, WRN_K4 = 37, 18, 35
+# (H = W, Cin, Cout, sites per step) of every stride-1 3x3 conv at b=128:
+# WRN-40-2 at 32² and ResNet-50 v1.5 at 224²
+K4_WRN = ((32, 3, 16, 1), (32, 16, 32, 1), (32, 32, 32, 11),
+          (16, 64, 64, 11), (8, 128, 128, 11))
+K4_R50 = ((56, 64, 64, 3), (28, 128, 128, 3), (14, 256, 256, 5),
+          (7, 512, 512, 2))
+R50_K4 = sum(r[3] for r in K4_R50)  # 13
+FLAGSHIP_K4_STEPS = 5
+# K4 against its plain version: 1e-5 of Σ|x|·|dy| per element.  Both sum
+# exact (bf16) or singly rounded (fp32) products in fp32 in other orders;
+# such sums round near 1e-7 of that scale, where a misplaced tap or
+# channel is off by the whole gradient.
+K4_TOL = 1e-5
 # one bf16 ulp is at most 2^-7 of the value; fp32 sums in another order
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
@@ -118,12 +148,14 @@ def time_ms(fn, iters, flush):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=FP32_FLOPS):
     """The least time the card could take, in ms, and what sets it: the
-    bytes moved at the memory rate, or the fp32 operations (the stats and
-    SelfNorm kernels use no tensor cores) at the fp32 peak."""
+    bytes moved at the memory rate, or the operations at the peak of the
+    unit that does them (fp32 for the stats and SelfNorm kernels, which
+    use no tensor cores, and for K4's fp32 FMA path; bf16 tensor cores
+    for K4's bf16 path)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -145,21 +177,22 @@ def phase_build():
 
 
 def _row(kernel, shape, dtype, sites, err, tol, flush, run, plain,
-         library, library_call, nbytes, flops, cn_sites=0):
+         library, library_call, nbytes, flops, cn_sites=0, peak=FP32_FLOPS,
+         **extra):
     """One kernel_vs_plain line: the error, then times on the card.
     ``sites``: launches at this shape per training step (K3: per serving
     forward); ``cn_sites``: launches added on a cn_image step."""
     k_ms = time_ms(run, 20, flush)
     p_ms = time_ms(plain, 10, flush)
     lib_ms = time_ms(library, 10, flush) if library is not None else None
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak)
     row = {"phase": "kernel_vs_plain", "kernel": kernel,
            "shape": list(shape), "dtype": str(dtype).split(".")[1],
            "sites": sites, "cn_sites": cn_sites, "max_abs_err": err,
            "tol": tol,
            "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
            "bound_by": b_by, "bound_share": b_ms / k_ms,
-           "library_ms": lib_ms, "library_call": library_call}
+           "library_ms": lib_ms, "library_call": library_call, **extra}
     emit(row)
     return row
 
@@ -312,6 +345,59 @@ def phase_k2_vs_plain(dev, flush):
             "null: no single PyTorch call computes this backward",
             2 * elems * 2 + 3 * c * 4, 4 * elems))
         del x, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k4_vs_plain(dev, flush):
+    """K4 at b=128 at every stride-1 3x3 conv shape of WRN-40-2 (32²) and
+    ResNet-50 (224²) in bf16, and one fp32 shape of each, against its
+    plain version (error bound K4_TOL), bit for bit against itself run to
+    run, with cuDNN's weight gradient on the same tensors as the library
+    yardstick (TF32 off for fp32, as K4's fp32 path uses none)."""
+    from cnsn_tpu_torch.ops import wgrad3x3_cuda, wgrad3x3_reference
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    cases = [("wrn", s, torch.bfloat16) for s in K4_WRN]
+    cases += [("resnet50", s, torch.bfloat16) for s in K4_R50]
+    cases += [("wrn", K4_WRN[2], torch.float32),
+              ("resnet50", K4_R50[2], torch.float32)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for model, (hw, cin, cout, sites), dtype in cases:
+        x = torch.randn(128, hw, hw, cin, generator=gen, device=dev).to(dtype)
+        dy = torch.randn(128, hw, hw, cout, generator=gen,
+                         device=dev).to(dtype)
+        got = wgrad3x3_cuda(x, dy)
+        again = wgrad3x3_cuda(x, dy)
+        want = wgrad3x3_reference(x, dy)
+        scale = wgrad3x3_reference(x.abs(), dy.abs())
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        worst = (err / scale.clamp_min(1e-30)).max().item()
+        check(bool(torch.isfinite(got).all()), f"finite K4 {x.shape}")
+        check(bool((err <= K4_TOL * scale).all()),
+              f"K4 {tuple(x.shape)}->{cout} {dtype}: {worst} of sum |x||dy|")
+        check(torch.equal(got, again), f"K4 {tuple(x.shape)} run to run")
+        w = torch.empty(cout, cin, 3, 3, device=dev, dtype=dtype,
+                        memory_format=torch.channels_last)
+        xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        nbytes = ((x.numel() + dy.numel()) * x.element_size()
+                  + 9 * cin * cout * 4)
+        rows.append(_row(
+            "conv_wgrad3x3", (128, hw, hw, cin, cout), dtype, sites,
+            err.max().item(), {"of_sum_abs_x_dy": K4_TOL}, flush,
+            lambda: wgrad3x3_cuda(x, dy),
+            lambda: wgrad3x3_reference(x, dy),
+            lambda: torch.ops.aten.convolution_backward(
+                dyc, xc, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [False, True, False]),
+            "aten.convolution_backward weight only (cuDNN wgrad)",
+            nbytes, 2 * x.numel() * 9 * cout,
+            peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
+            model=model, err_over_sum_abs=worst))
+        del x, dy, got, again, want, scale, err
+    torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
     return rows
 
@@ -473,7 +559,7 @@ def phase_train_card_vs_cpu(dev):
                   f"card vs float64 {key}: {got} against the CPU's {ref}")
 
 
-def train_flops_per_step(model, batch):
+def train_flops_per_step(model, batch, image=IMAGE):
     """Analytic FLOPs of one training step: 2 per multiply-add of every
     conv and the fc, three times (forward, input gradient, weight
     gradient), less the stem's input gradient, which nothing needs.  The
@@ -492,7 +578,7 @@ def train_flops_per_step(model, batch):
                if isinstance(m, (Conv2d, Linear))]
     try:
         with torch.no_grad():
-            model.eval()(torch.zeros(1, IMAGE, IMAGE, 3,
+            model.eval()(torch.zeros(1, image, image, 3,
                                      device=next(model.parameters()).device))
     finally:
         for h in handles:
@@ -502,17 +588,28 @@ def train_flops_per_step(model, batch):
     return batch * 2 * (3 * total - macs[model.conv1])
 
 
-def phase_train(dev):
-    """The training main path: the flagship recipe at full width, b=128
-    224² bf16, 35 gated steps timed as bench.py times them, with every
-    kernel launch counted; profiles of a plain and a cn_image step; then
-    one b=64 eval step through K3."""
+@contextlib.contextmanager
+def conv3x3_mode(mode):
+    """CNSN_CONV3X3 while the models of a phase are built (the factory
+    reads it then), restored after."""
+    old = os.environ.get("CNSN_CONV3X3")
+    os.environ["CNSN_CONV3X3"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CNSN_CONV3X3"]
+        else:
+            os.environ["CNSN_CONV3X3"] = old
+
+
+def flagship(dev):
+    """The flagship recipe's train state and step, b=128 224² bf16, built
+    as a user builds it; ``step(cn)`` runs a cn_image or a plain step."""
     from cnsn_tpu_torch.config import load_config
     from cnsn_tpu_torch.models import build_model
-    from cnsn_tpu_torch.ops.kernels import LAUNCHES
     from cnsn_tpu_torch.train import (StepFns, create_train_state,
                                       imagenet_step_lr)
-    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
     cfg = load_config(RECIPE, compute_dtype="bf16")
     check(cfg.regime == "cn_image" and cfg.schedule == "imagenet_step",
           f"recipe resolves to {cfg.regime}, {cfg.schedule}")
@@ -532,13 +629,25 @@ def phase_train(dev):
     labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).to(dev)
     perm_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < cfg.cn_prob
-    flops = train_flops_per_step(state.model, b)
 
     def step(cn):
         if cn:
             return steps.cn_image(state, images, labels, generator=perm_gen)
         return steps.plain(state, images, labels)
 
+    return cfg, state, steps, step, gates, images, labels
+
+
+def phase_train(dev):
+    """The training main path: the flagship recipe at full width, b=128
+    224² bf16, 35 gated steps timed as bench.py times them, with every
+    kernel launch counted; profiles of a plain and a cn_image step; then
+    one b=64 eval step through K3."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    cfg, state, steps, step, gates, images, labels = flagship(dev)
+    b = cfg.batch_size
+    flops = train_flops_per_step(state.model, b)
     torch.cuda.synchronize()
     LAUNCHES.clear()
     losses, window_ms = [], []
@@ -604,12 +713,284 @@ def phase_train(dev):
     check(k3 == {"selfnorm_infer": SN_SITES}, f"eval launches {k3}")
     check(logits.shape == (BATCH, 1000)
           and bool(torch.isfinite(logits).all()), "finite eval logits")
-    del state, model, images
+    del state, images
     torch.cuda.empty_cache()
-    return counts, n_cn
+    return counts, n_cn, med
 
 
-def summarize(rows, name, route, source, replaces, launches, steps, n_cn):
+def step_launches(step, per_step):
+    """Run ``step()`` and append the launches it made, by kernel."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    before = dict(LAUNCHES)
+    out = step()
+    per_step.append({k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                     if v != before.get(k, 0)})
+    return out
+
+
+def phase_train_flagship_k4(dev, conv_ms, k4_rows):
+    """The flagship recipe again, for FLAGSHIP_K4_STEPS steps (the first
+    gates of phase_train's sequence) with CNSN_CONV3X3=pallas: 13 K4
+    launches per step beside the other kernels' counts, the step time of
+    the last three beside phase_train's (cuDNN's gradients), and a
+    profile of one plain step."""
+    from cnsn_tpu_torch.ops.convdot import LAYOUT_COPIES
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    with conv3x3_mode("pallas"):
+        cfg, state, _, step, gates, images, _ = flagship(dev)
+    n = FLAGSHIP_K4_STEPS
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    LAYOUT_COPIES.clear()
+    per_step, losses = [], []
+    for i in range(n):
+        if i == 2:
+            float(losses[-1])
+            t0 = time.perf_counter()
+        losses.append(step_launches(lambda: step(gates[i]),
+                                    per_step)[1]["loss"])
+    float(losses[-1])
+    ms = (time.perf_counter() - t0) * 1e3 / (n - 2)
+    counts, copies = dict(LAUNCHES), dict(LAYOUT_COPIES)
+    want = [{"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS,
+             "ins_stats": SN_SITES + int(g), "ins_stats_bwd": SN_SITES,
+             "conv_wgrad3x3": R50_K4} for g in gates[:n]]
+    losses = torch.stack(losses).float().cpu()
+    k4_rows = [r for r in k4_rows if r["model"] == "resnet50"
+               and r["dtype"] == "bfloat16"]
+    emit({"phase": "train_flagship_k4", "conv3x3": "pallas",
+          "batch": cfg.batch_size, "image": IMAGE, "dtype": "bfloat16",
+          "steps": n, "launches": counts, "per_step_launches": per_step,
+          "k4_layout_copies": copies,
+          "ms_per_step_last3": ms, "img_per_s": cfg.batch_size / ms * 1e3,
+          "conv_mode_ms_per_step": conv_ms,
+          "k4_kernel_ms_per_step": sum(r["kernel_ms"] * r["sites"]
+                                       for r in k4_rows),
+          "cudnn_wgrad_ms_per_step": sum(r["library_ms"] * r["sites"]
+                                         for r in k4_rows),
+          "losses": losses.tolist(), "card": nvidia_smi_name_power()})
+    check(per_step == want, f"flagship K4 launches {per_step}, expected "
+          f"{want}")
+    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+    prof = device_time_breakdown(lambda: step(False), iters=2, warmup=1,
+                                 top=12)
+    prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / ms
+    emit({"phase": "train_flagship_k4_profile", "step": "plain",
+          "conv3x3": "pallas", "batch": cfg.batch_size, "dtype": "bfloat16",
+          **prof})
+    del state, images
+    torch.cuda.empty_cache()
+
+
+def phase_wrn_k4_vs_cudnn(dev):
+    """One float32 SGD step of a reduced WRN (depth 10, widen 2, SN pre,
+    b=32 32²) on the card, TF32 off and cuDNN deterministic, from the
+    same weights under CNSN_CONV3X3=pallas and =conv.  The forwards are
+    the same kernels, so the losses are equal; so is every dy that
+    reaches a conv.  K4's weight gradients are held to cuDNN's within
+    K4_TOL of Σ|x|·|dy| (read from that conv's x and dy); the other convs
+    (stride 2, 1x1 shortcut) take cuDNN's gradient in both runs."""
+    from cnsn_tpu_torch.models.common import Conv2d
+    from cnsn_tpu_torch.models.wideresnet import WideResNet
+    from cnsn_tpu_torch.ops import wgrad3x3_reference
+    from cnsn_tpu_torch.ops.convdot import routes_to_k4
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train import StepFns, create_train_state
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randn(32, WRN_IMAGE, WRN_IMAGE, 3, generator=gen).to(dev)
+    labels = torch.randint(0, 10, (32,), generator=gen).to(dev)
+    runs = {}
+    for mode in ("pallas", "conv"):
+        with conv3x3_mode(mode):
+            model = WideResNet(depth=10, widen_factor=2, pos="pre",
+                               cnsn_type="sn",
+                               generator=torch.Generator().manual_seed(5))
+        state = create_train_state(model, lambda step: 0.1, device=dev)
+        convs = {n: m for n, m in state.model.named_modules()
+                 if isinstance(m, Conv2d)}
+        seen = {}
+
+        def hook(name):
+            def fn(module, inputs, out):
+                seen[name] = [inputs[0].detach(), None]
+                out.register_hook(lambda g: seen[name].__setitem__(1, g))
+            return fn
+
+        handles = [m.register_forward_hook(hook(n)) for n, m in convs.items()]
+        LAUNCHES.clear()
+        _, metrics = StepFns().plain(state, images, labels)
+        torch.cuda.synchronize()
+        for h in handles:
+            h.remove()
+        k4 = {n for n, m in convs.items() if routes_to_k4(
+            getattr(m, "wgrad", "auto"), m.stride, m.weight.shape[2:],
+            seen[n][0].shape[2], seen[n][0].shape[3], m.weight.shape[1],
+            m.weight.shape[0])}
+        runs[mode] = dict(loss=metrics["loss"].item(), k4=k4, seen=seen,
+                          launches=LAUNCHES["conv_wgrad3x3"],
+                          grads={n: m.weight.grad.clone()
+                                 for n, m in convs.items()})
+        del state, model
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.deterministic = flags
+    p, c = runs["pallas"], runs["conv"]
+    layers = {}
+    for name, gc in c["grads"].items():
+        gp = p["grads"][name]
+        err = (gp - gc).abs()
+        row = {"k4": name in p["k4"], "max_abs_err": err.max().item(),
+               "max_abs_grad": gc.abs().max().item(),
+               "bit_equal": torch.equal(gp, gc)}
+        if row["k4"]:
+            x, dy = p["seen"][name]
+            scale = wgrad3x3_reference(
+                x.permute(0, 2, 3, 1).abs(),
+                dy.permute(0, 2, 3, 1).abs()).permute(3, 2, 0, 1)
+            row["err_over_sum_abs"] = (err / scale.clamp_min(1e-30)).max().item()
+            row["ok"] = bool((err <= K4_TOL * scale).all())
+        else:
+            # cuDNN in both runs, float32, deterministic
+            row["ok"] = row["max_abs_err"] <= 1e-5 * row["max_abs_grad"]
+        layers[name] = row
+    emit({"phase": "wrn_k4_vs_cudnn", "model": "wideresnet depth 10 "
+          "widen 2 sn pre", "batch": 32, "image": WRN_IMAGE,
+          "dtype": "float32", "tf32": False, "loss_pallas": p["loss"],
+          "loss_conv": c["loss"], "k4_launches": p["launches"],
+          "tol": f"K4 convs: {K4_TOL} of sum |x||dy|; others 1e-5 of max",
+          "layers": layers})
+    check(p["loss"] == c["loss"], f"losses {p['loss']} vs {c['loss']}")
+    check(p["launches"] == len(p["k4"]) == 5 and c["launches"] == 0,
+          f"K4 launches {p['launches']} ({sorted(p['k4'])}) and "
+          f"{c['launches']}")
+    bad = [n for n, r in layers.items() if not r["ok"]]
+    check(not bad, f"conv weight gradients differ: {bad}")
+    torch.cuda.empty_cache()
+
+
+def phase_train_wrn(dev):
+    """The CIFAR main path: sn.yaml (WRN-40-2, SelfNorm pos='pre', plain
+    regime, nesterov SGD, wd 5e-4, cosine LR over 100 epochs of 390
+    steps) at b=128 32² bf16, 35 steps timed as phase_train times them,
+    first with CNSN_CONV3X3=pallas (K4 on every stride-1 3x3 conv), then
+    with cuDNN's gradients; the launches checked step by step; a profile
+    of one step under each; then one eval step through K3."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.ops.convdot import LAYOUT_COPIES
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    cfg = load_config(WRN_RECIPE, compute_dtype="bf16")
+    check((cfg.model, cfg.regime, cfg.schedule, cfg.pos, cfg.cnsn_type)
+          == ("wideresnet", "plain", "cosine", "pre", "sn"),
+          f"sn.yaml resolves to {cfg}")
+    b = cfg.batch_size
+    gen = torch.Generator().manual_seed(cfg.seed)
+    images = torch.randn(b, WRN_IMAGE, WRN_IMAGE, 3, generator=gen).to(dev)
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).to(dev)
+    rates, wrn_counts = {}, None
+    for mode in ("pallas", "conv"):
+        with conv3x3_mode(mode):
+            model = build_model(
+                cfg.model, cfg.num_classes,
+                generator=torch.Generator().manual_seed(cfg.seed),
+                pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
+                cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16)
+        state = create_train_state(
+            model, cosine_lr(cfg.lr, cfg.epochs * WRN_STEPS_PER_EPOCH),
+            momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+            nesterov=cfg.nesterov, device=dev)
+        steps = StepFns()
+        flops = train_flops_per_step(state.model, b, WRN_IMAGE)
+        want = {"bn_sums": WRN_BN, "bn_sums_bwd": WRN_BN,
+                "ins_stats": WRN_SN, "ins_stats_bwd": WRN_SN}
+        if mode == "pallas":
+            want["conv_wgrad3x3"] = WRN_K4
+        per_step, losses, window_ms = [], [], []
+
+        def one():
+            losses.append(step_launches(
+                lambda: steps.plain(state, images, labels),
+                per_step)[1]["loss"])
+
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        LAYOUT_COPIES.clear()
+        t0 = time.perf_counter()
+        for _ in range(WARMUP):
+            one()
+        float(losses[-1])
+        warmup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(WINDOW):
+                one()
+            float(losses[-1])
+            window_ms.append((time.perf_counter() - t0) * 1e3 / WINDOW)
+        torch.cuda.synchronize()
+        counts, copies = dict(LAUNCHES), dict(LAYOUT_COPIES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(losses).float().cpu()
+        med = statistics.median(window_ms)
+        rates[mode] = med
+        emit({"phase": "train_wrn", "recipe": os.path.relpath(WRN_RECIPE,
+                                                               ROOT),
+              "conv3x3": mode, "regime": cfg.regime, "batch": b,
+              "image": WRN_IMAGE, "dtype": "bfloat16", "steps": TRAIN_STEPS,
+              "launches": counts, "expected_per_step": want,
+              "k4_layout_copies": copies, "loss_first": losses[0].item(),
+              "loss_last": losses[-1].item(),
+              "losses_finite": bool(torch.isfinite(losses).all()),
+              "warmup_s": warmup_s, "windows_ms_per_step": window_ms,
+              "ms_per_step": med, "img_per_s": b / med * 1e3,
+              "flops_per_step": flops,
+              "bf16_peak_share": flops / (med / 1e3) / BF16_FLOPS,
+              "peak_mem_gib": peak, "host_loadavg": os.getloadavg(),
+              "card": nvidia_smi_name_power()})
+        check(all(d == want for d in per_step),
+              f"WRN launches per step {per_step}, expected {want}")
+        check(counts == {k: v * TRAIN_STEPS for k, v in want.items()},
+              f"WRN launches {counts}")
+        check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+        prof = device_time_breakdown(
+            lambda: steps.plain(state, images, labels), iters=3, warmup=1,
+            top=12)
+        prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
+        emit({"phase": "train_wrn_profile", "conv3x3": mode, "batch": b,
+              "dtype": "bfloat16", **prof})
+        if mode == "pallas":
+            wrn_counts = counts
+            LAUNCHES.clear()
+            out = steps.eval_step(state, images, labels)
+            torch.cuda.synchronize()
+            k3 = dict(LAUNCHES)
+            emit({"phase": "train_wrn_then_eval", "batch": b, "launches": k3,
+                  "loss": out["loss"].item(),
+                  "correct": out["correct"].item()})
+            check(k3 == {"selfnorm_infer": WRN_SN}, f"WRN eval launches {k3}")
+            check(out["logits"].shape == (b, cfg.num_classes)
+                  and bool(torch.isfinite(out["logits"]).all()),
+                  "finite WRN eval logits")
+        del state, model
+        torch.cuda.empty_cache()
+    emit({"phase": "train_wrn_rates", "ms_per_step_pallas": rates["pallas"],
+          "ms_per_step_conv": rates["conv"],
+          "img_per_s_pallas": b / rates["pallas"] * 1e3,
+          "img_per_s_conv": b / rates["conv"] * 1e3,
+          "card": nvidia_smi_name_power()})
+    return wrn_counts
+
+
+def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
+              per="main-path training step"):
     """A kernel's line: ms, plain, bound and library time per main-path
     step, each row's time by its launches in the main-path run (mean over
     its steps)."""
@@ -629,7 +1010,7 @@ def summarize(rows, name, route, source, replaces, launches, steps, n_cn):
             "bound_ms": per_step("bound_ms"),
             "bound_by": heaviest[0]["bound_by"],
             "library_ms": per_step("library_ms"),
-            "per": f"main-path training step (mean over {steps})"}
+            "per": f"{per} (mean over {steps})"}
 
 
 def main():
@@ -648,16 +1029,31 @@ def main():
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "host_cpus": os.cpu_count(), "host_loadavg": os.getloadavg()})
     t0 = time.perf_counter()
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    timed("build", phase_build)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
-    k3_rows = phase_k3_vs_plain(dev, flush)
-    rows = phase_k1_vs_plain(dev, flush) + phase_k2_vs_plain(dev, flush)
+    k3_rows = timed("k3_vs_plain", phase_k3_vs_plain, dev, flush)
+    rows = (timed("k1_vs_plain", phase_k1_vs_plain, dev, flush)
+            + timed("k2_vs_plain", phase_k2_vs_plain, dev, flush))
+    k4_rows = timed("k4_vs_plain", phase_k4_vs_plain, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    phase_train_card_vs_cpu(dev)
-    train_counts, n_cn = phase_train(dev)
-    phase_model_vs_cpu(dev)
-    counts = phase_serving(dev)
+    with conv3x3_mode("conv"):
+        timed("train_card_vs_cpu", phase_train_card_vs_cpu, dev)
+        train_counts, n_cn, flagship_ms = timed("train", phase_train, dev)
+    timed("train_flagship_k4", phase_train_flagship_k4, dev, flagship_ms,
+          k4_rows)
+    timed("wrn_k4_vs_cudnn", phase_wrn_k4_vs_cudnn, dev)
+    wrn_counts = timed("train_wrn", phase_train_wrn, dev)
+    timed("model_vs_cpu", phase_model_vs_cpu, dev)
+    counts = timed("serving", phase_serving, dev)
 
     bf16 = [r for r in k3_rows if r["dtype"] == "bfloat16"]
     k3 = {"name": "selfnorm_infer", "route": "cuda",
@@ -682,7 +1078,15 @@ def main():
                     "cnsn_tpu/ops/pallas/bn_stats.py:109"),
                    ("bn_sums_bwd", "bn_stats.cu",
                     "cnsn_tpu/ops/pallas/bn_stats.py:146"))]
-    emit({"phase": "total", "seconds": time.perf_counter() - t0})
+    wrn_bf16 = [r for r in k4_rows
+                if r["model"] == "wrn" and r["dtype"] == "bfloat16"]
+    kernels.append(summarize(
+        wrn_bf16, "conv_wgrad3x3", "cuda", "cnsn_tpu_torch/csrc/conv_wgrad.cu",
+        "cnsn_tpu/ops/pallas/conv_wgrad.py:197", wrn_counts["conv_wgrad3x3"],
+        TRAIN_STEPS, 0, per="WRN-40-2 b=128 bf16 training step, "
+        "CNSN_CONV3X3=pallas"))
+    emit({"phase": "total", "seconds": time.perf_counter() - t0,
+          "seconds_by_phase": seconds})
     emit({"kernels": [k3] + kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

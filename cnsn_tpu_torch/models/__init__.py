@@ -6,26 +6,33 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch import nn
 
 from ..utils.device import resolve_device
 from .resnet import ResNet, resnet50
+from .wideresnet import WideResNet
 
-__all__ = ["ResNet", "resnet50", "build_model", "build_classifier"]
+__all__ = ["ResNet", "WideResNet", "resnet50", "build_model",
+           "build_classifier"]
 
 # Models of the JAX package that this port does not have yet.
-_NOT_PORTED = ("wideresnet", "allconv", "densenet", "resnext",
-               "resnet50_ibn_a", "resnet50_ibn_b")
+_NOT_PORTED = ("allconv", "densenet", "resnext", "resnet50_ibn_a",
+               "resnet50_ibn_b")
 
 
 def build_model(name: str, num_classes: int,
                 generator: Optional[torch.Generator] = None,
-                **knobs: Any) -> ResNet:
+                **knobs: Any) -> nn.Module:
     """Build a model by reference-script name on the CPU.
 
-    knobs: layers, pos, crop, beta, cnsn_type, dtype; None values take
-    the model's defaults, as in the JAX registry.
+    knobs: pos, crop, beta, cnsn_type, dtype, and ``layers`` for
+    resnet50; None values take the model's defaults, as in the JAX
+    registry.  ``wideresnet`` is WRN-40-2 without dropout, as there.
     """
     knobs = {k: v for k, v in knobs.items() if v is not None}
+    if name == "wideresnet":
+        return WideResNet(depth=40, widen_factor=2, num_classes=num_classes,
+                          generator=generator, **knobs)
     if name == "resnet50":
         return resnet50(num_classes=num_classes, generator=generator, **knobs)
     if name in _NOT_PORTED:
@@ -36,7 +43,7 @@ def build_model(name: str, num_classes: int,
 
 def build_classifier(name: str = "resnet50", num_classes: int = 1000, *,
                      device: str | torch.device = "cuda", seed: int = 0,
-                     **knobs: Any) -> ResNet:
+                     **knobs: Any) -> nn.Module:
     """An eval-mode classifier with random weights drawn from ``seed``, on
     ``device`` (the card unless the caller asks for the CPU; raises when
     CUDA is asked for and absent).  The weights are drawn on the CPU, so

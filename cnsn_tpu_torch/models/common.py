@@ -6,20 +6,34 @@ bias-free conv / torch-default linear layers.  Conv weights are OIHW in
 compute type (bf16 for fast serving): parameters stay fp32 and are cast
 at use, as the JAX package does.
 
+``conv_he_fanout`` reads ``CNSN_CONV3X3`` when a model is built, as the
+JAX factory does, and makes every 3×3 conv a ``ConvCustomBwd`` (the same
+``weight``, the stock forward, gradients chosen in ``ops/convdot.py``)
+unless it is ``conv``, the default.
+
 Not ported, on purpose: ``S2DStem`` (a TPU matrix-unit trick, algebraically
 identical to the plain 7×7/s2 stem on the same parameter) and
-``Conv1x1Dot`` (the same math as a 1×1 conv).  The opt-in custom conv
-backward belongs to the training slices.
+``Conv1x1Dot`` (the same math as a 1×1 conv).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["he_fanout_normal", "torch_linear_uniform", "Conv2d", "Linear"]
+from ..ops.convdot import Conv2dCustomBwd
+
+__all__ = ["he_fanout_normal", "torch_linear_uniform", "Conv2d",
+           "ConvCustomBwd", "Linear", "conv_he_fanout"]
+
+# CNSN_CONV3X3 → (wgrad, dgrad) of a 3×3 conv's backward
+# (``cnsn_tpu/models/common.py:107-112``); 'conv' keeps the stock conv
+CONV3X3_MODES = {"dot": ("dot", "dot"), "wgrad": ("dot", "auto"),
+                 "dgrad": ("auto", "dot"), "pallas": ("pallas", "auto"),
+                 "pallas_tiled": ("pallas_tiled", "auto")}
 
 
 def he_fanout_normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -86,3 +100,45 @@ class Linear(nn.Module):
         dt = _compute_dtype(x, self.dtype)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
+
+class ConvCustomBwd(Conv2d):
+    """A ``Conv2d`` (the same ``weight``, init and forward) whose
+    gradients in training are chosen per side by ``wgrad`` and ``dgrad``
+    (``ops/convdot.py``).  In eval or without grad it runs the stock
+    ``F.conv2d``, so serving and ``torch.export`` see a plain conv."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 wgrad: str = "dot", dgrad: str = "dot",
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, kernel, stride, dtype, generator)
+        self.wgrad, self.dgrad = wgrad, dgrad
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and torch.is_grad_enabled()):
+            return super().forward(x)
+        dt = _compute_dtype(x, self.dtype)
+        return Conv2dCustomBwd.apply(x.to(dt), self.weight.to(dt),
+                                     self.stride, self.padding, self.wgrad,
+                                     self.dgrad)
+
+    def extra_repr(self) -> str:
+        return f"{super().extra_repr()}, wgrad={self.wgrad}, dgrad={self.dgrad}"
+
+
+def conv_he_fanout(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                   dtype: Optional[torch.dtype] = None,
+                   generator: Optional[torch.Generator] = None) -> Conv2d:
+    """The models' conv factory (``cnsn_tpu/models/common.py:86-120``):
+    a ``ConvCustomBwd`` for a 3×3 conv when ``CNSN_CONV3X3`` is one of
+    dot, wgrad, dgrad, pallas, pallas_tiled; a ``Conv2d`` otherwise and
+    for ``conv`` (unset).  Other values raise."""
+    mode = os.environ.get("CNSN_CONV3X3", "conv")
+    if mode != "conv" and mode not in CONV3X3_MODES:
+        raise ValueError(f"CNSN_CONV3X3={mode!r}: one of conv, "
+                         f"{', '.join(CONV3X3_MODES)}")
+    if kernel == 3 and mode != "conv":
+        wgrad, dgrad = CONV3X3_MODES[mode]
+        return ConvCustomBwd(in_ch, out_ch, kernel, stride, wgrad, dgrad,
+                             dtype, generator)
+    return Conv2d(in_ch, out_ch, kernel, stride, dtype, generator)

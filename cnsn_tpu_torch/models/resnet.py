@@ -19,7 +19,7 @@ from torch import nn
 
 from ..nn.cnsn import CNSN
 from ..nn.norm import BatchNorm
-from .common import Conv2d, Linear
+from .common import Linear, conv_he_fanout
 
 __all__ = ["Bottleneck", "ResNet", "block_plan", "resnet50"]
 
@@ -63,17 +63,20 @@ class Bottleneck(nn.Module):
             sn_feats = inplanes if pos == "pre" else out_ch
             self.cnsn = CNSN(sn_feats, cnsn_type, crop=crop, beta=beta,
                              generator=g)
-        self.conv1 = Conv2d(inplanes, planes, 1, dtype=dtype, generator=g)
+        self.conv1 = conv_he_fanout(inplanes, planes, 1, dtype=dtype,
+                                    generator=g)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride, dtype=dtype,
-                            generator=g)
+        self.conv2 = conv_he_fanout(planes, planes, 3, stride, dtype=dtype,
+                                    generator=g)
         self.bn2 = BatchNorm(planes)
-        self.conv3 = Conv2d(planes, out_ch, 1, dtype=dtype, generator=g)
+        self.conv3 = conv_he_fanout(planes, out_ch, 1, dtype=dtype,
+                                    generator=g)
         self.bn3 = BatchNorm(out_ch)
         self.downsample = None
         if has_downsample:
             self.downsample = nn.Sequential(
-                Conv2d(inplanes, out_ch, 1, stride, dtype=dtype, generator=g),
+                conv_he_fanout(inplanes, out_ch, 1, stride, dtype=dtype,
+                               generator=g),
                 BatchNorm(out_ch))
 
     def forward(self, x: torch.Tensor,
@@ -117,7 +120,7 @@ class ResNet(nn.Module):
         super().__init__()
         g = generator or torch.Generator()
         self.cnsn_type = cnsn_type
-        self.conv1 = Conv2d(3, 64, 7, 2, dtype=dtype, generator=g)
+        self.conv1 = conv_he_fanout(3, 64, 7, 2, dtype=dtype, generator=g)
         self.bn1 = BatchNorm(64)
         stages = [[] for _ in range(4)]
         for blk in block_plan(layers):

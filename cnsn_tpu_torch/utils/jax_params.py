@@ -1,13 +1,14 @@
 """Carry weights over from the JAX package's parameter trees.
 
 ``state_dict_from_jax(params, batch_stats)`` is the inverse of
-``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet trees: it takes
-the JAX trees as nested dicts of arrays (numpy, or anything
-``np.array`` reads) and returns a torch state dict in the reference's
-key names and layouts, which the port's modules load with
+``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet and WideResNet
+trees: it takes the JAX trees as nested dicts of arrays (numpy, or
+anything ``np.array`` reads) and returns a torch state dict in the
+reference's key names and layouts, which the port's modules load with
 ``load_state_dict``:
 
-  path  layer1_0 → layer1.0;  downsample_conv/_bn → downsample.0/.1
+  path  layer1_0 → layer1.0;  block1_0 → block1.layer.0 (WideResNet);
+        downsample_conv/_bn → downsample.0/.1
   conv  kernel (kH, kW, I, O)  → weight (O, I, kH, kW)
   dense kernel (in, out)       → weight (out, in)
   norm  scale / bias           → weight / bias
@@ -25,6 +26,7 @@ import torch
 __all__ = ["state_dict_from_jax"]
 
 _BLOCK = re.compile(r"^(layer\d+)_(\d+)$")
+_WRN_BLOCK = re.compile(r"^(block\d+)_(\d+)$")
 _DOWNSAMPLE = {"downsample_conv": "downsample.0",
                "downsample_bn": "downsample.1"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -33,9 +35,13 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 def _module_key(path) -> str:
     parts = []
     for p in path:
-        m = _BLOCK.match(p)
-        parts.append(f"{m.group(1)}.{m.group(2)}" if m
-                     else _DOWNSAMPLE.get(p, p))
+        m, w = _BLOCK.match(p), _WRN_BLOCK.match(p)
+        if m:
+            parts.append(f"{m.group(1)}.{m.group(2)}")
+        elif w:
+            parts.append(f"{w.group(1)}.layer.{w.group(2)}")
+        else:
+            parts.append(_DOWNSAMPLE.get(p, p))
     return ".".join(parts)
 
 

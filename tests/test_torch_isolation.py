@@ -15,7 +15,8 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cnsn_tpu")
 
 def test_port_runs_without_jax_in_a_fresh_process():
     code = textwrap.dedent("""
-        import sys, torch
+        import os, sys, torch
+        os.environ["CNSN_CONV3X3"] = "pallas"
         import cnsn_tpu_torch
         from cnsn_tpu_torch.ops.crossnorm import cross_norm_2ins
         from cnsn_tpu_torch.serving import export_classifier
@@ -30,6 +31,12 @@ def test_port_runs_without_jax_in_a_fresh_process():
         state, metrics = StepFns().cn_image(
             state, torch.randn(2, 32, 32, 3), torch.tensor([1, 2]),
             perm=torch.tensor([1, 0]))
+        assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+        wrn = cnsn_tpu_torch.models.build_model("wideresnet", 10,
+                                                pos="pre", cnsn_type="sn")
+        state = create_train_state(wrn, lambda step: 0.01, device="cpu")
+        state, metrics = StepFns().plain(state, torch.randn(2, 8, 8, 3),
+                                         torch.tensor([1, 2]))
         assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",

@@ -9,13 +9,16 @@ it runs with the JAX-pinning conftest left out:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cnsn_tpu_torch.ops import (BnSums, InsStats, bn_sums_bwd_cuda,
                                 bn_sums_bwd_reference, bn_sums_cuda,
                                 bn_sums_reference, ins_stats_bwd_cuda,
                                 ins_stats_bwd_reference, ins_stats_cuda,
                                 ins_stats_reference, instance_mean_std,
-                                selfnorm_infer_cuda, selfnorm_infer_reference)
+                                selfnorm_infer_cuda, selfnorm_infer_reference,
+                                wgrad3x3_cuda, wgrad3x3_reference)
+from cnsn_tpu_torch.ops.convdot import Conv2dCustomBwd
 from cnsn_tpu_torch.ops.kernels import LAUNCHES
 
 pytestmark = pytest.mark.cuda
@@ -270,3 +273,123 @@ def test_stats_wrappers_reject_what_the_kernels_do_not_take():
         ins_stats_bwd_cuda(x, nc, nc, nc, nc.double())
     with pytest.raises(ValueError, match="contiguous"):
         ins_stats_bwd_cuda(x, nc, nc, nc, _vec((16, 2), 35).t())
+
+
+# K4 at the (H, Cin, Cout) of every stride-1 3x3 conv of WRN-40-2 (32x32
+# input) and ResNet-50 (224x224), at a small batch.
+K4_SHAPES = [(32, 3, 16), (32, 16, 32), (32, 32, 32), (16, 64, 64),
+             (8, 128, 128), (56, 64, 64), (28, 128, 128), (14, 256, 256),
+             (7, 512, 512)]
+
+
+def _k4_close(got, x, dy):
+    """Within 1e-5 of Σ|x|·|dy| per element: both sum exact (bf16) or
+    singly rounded (fp32) products in fp32, in other orders; the rounding
+    of such sums stays near 1e-7 of that scale, where a misplaced tap or
+    channel is off by the whole gradient."""
+    want = wgrad3x3_reference(x, dy)
+    scale = wgrad3x3_reference(x.abs(), dy.abs())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * scale).all()), err.max().item()
+
+
+@pytest.mark.parametrize("h,cin,cout", K4_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad3x3_kernel_matches_plain(h, cin, cout, dtype):
+    x = _x((4, h, h, cin), 40, dtype)
+    dy = _x((4, h, h, cout), 41, dtype, offset=0.0)
+    got = wgrad3x3_cuda(x, dy)
+    torch.cuda.synchronize()
+    _k4_close(got, x, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad3x3_odd_shapes_and_unaligned_x(dtype):
+    """Cin=3 with an odd plane (one-element loads, ragged tiles at both
+    channel edges), then an x that starts off a 16-byte boundary."""
+    x = _x((3, 5, 7, 3), 42, dtype)
+    dy = _x((3, 5, 7, 70), 43, dtype, offset=0.0)
+    _k4_close(wgrad3x3_cuda(x, dy), x, dy)
+    base = _x((2 * 9 * 9 * 16 + 1,), 44, dtype)
+    x = base[1:].view(2, 9, 9, 16)
+    assert x.data_ptr() % 16 != 0
+    dy = _x((2, 9, 9, 24), 45, dtype, offset=0.0)
+    _k4_close(wgrad3x3_cuda(x, dy), x, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad3x3_is_deterministic(dtype):
+    """Split over row chunks, added in a fixed order: the same bits."""
+    x = _x((8, 28, 28, 128), 46, dtype)
+    dy = _x((8, 28, 28, 128), 47, dtype, offset=0.0)
+    assert torch.equal(wgrad3x3_cuda(x, dy), wgrad3x3_cuda(x, dy))
+
+
+def _conv_grads(x, k, fn, ct):
+    x = x.detach().requires_grad_()
+    k = k.detach().requires_grad_()
+    y = fn(x, k)
+    dx, dk = torch.autograd.grad((y.float() * ct).sum(), (x, k))
+    return y, dx, dk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_function_matches_autograd_of_plain(dtype):
+    """The Function under 'pallas' against autograd of F.conv2d: the
+    same forward and dx (the library's gradient on both sides), and dW
+    from K4 against the plain version's dW rounded to the weight's type
+    (bf16: within one bf16 ulp of it)."""
+    x = _x((4, 14, 14, 32), 48, dtype).permute(0, 3, 1, 2)
+    k = _vec((48, 3, 3, 32), 49, 0.1).to(dtype).permute(0, 3, 1, 2)
+    ct = _vec((4, 14, 14, 48), 50).permute(0, 3, 1, 2)
+    before = LAUNCHES["conv_wgrad3x3"]
+    y, dx, dk = _conv_grads(x, k, lambda a, b: Conv2dCustomBwd.apply(
+        a, b, 1, 1, "pallas", "auto"), ct)
+    assert LAUNCHES["conv_wgrad3x3"] == before + 1
+    y0, dx0, _ = _conv_grads(x, k, lambda a, b: F.conv2d(a, b, None, 1, 1),
+                             ct)
+    assert torch.equal(y, y0) and torch.equal(dx, dx0)
+    assert dk.dtype == dtype and dk.shape == k.shape
+    assert dk.is_contiguous(memory_format=torch.channels_last)
+    want = wgrad3x3_reference(x.permute(0, 2, 3, 1),
+                              ct.to(dtype).permute(0, 2, 3, 1))
+    _close_to_scale(dk, want.permute(3, 2, 0, 1),
+                    1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+def test_conv_function_routes_only_3x3_stride_1_to_k4():
+    """Stride 2 and a 1x1 kernel take the library's gradient under
+    'pallas', as JAX's _vjp_bwd routes them: no K4 launch."""
+    x = _x((2, 8, 8, 16), 51).permute(0, 3, 1, 2)
+    before = LAUNCHES["conv_wgrad3x3"]
+    for kernel, stride in ((3, 2), (1, 1)):
+        k = _vec((16, kernel, kernel, 16), 52, 0.1).permute(0, 3, 1, 2)
+        ct = torch.ones_like(F.conv2d(x, k, None, stride, kernel // 2))
+        _, _, dk = _conv_grads(x, k, lambda a, b: Conv2dCustomBwd.apply(
+            a, b, stride, kernel // 2, "pallas", "auto"), ct)
+        _, _, dk0 = _conv_grads(
+            x, k, lambda a, b: F.conv2d(a, b, None, stride, kernel // 2), ct)
+        assert torch.equal(dk, dk0)
+    assert LAUNCHES["conv_wgrad3x3"] == before
+
+
+def test_wgrad3x3_wrapper_rejects_what_the_kernel_does_not_take():
+    x = _x((2, 8, 8, 16), 53)
+    before = LAUNCHES["conv_wgrad3x3"]
+    with pytest.raises(ValueError, match="stride-1"):  # dy of a stride-2 conv
+        wgrad3x3_cuda(x, _x((2, 4, 4, 16), 54))
+    with pytest.raises(ValueError, match="stride-1"):  # a 1x1 conv, padding 1
+        wgrad3x3_cuda(x, _x((2, 10, 10, 16), 55))
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        wgrad3x3_cuda(x.half(), x.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        wgrad3x3_cuda(x.cpu(), x.cpu())
+    with pytest.raises(ValueError, match="dy is"):
+        wgrad3x3_cuda(x, x.bfloat16())
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        wgrad3x3_cuda(x, x.permute(0, 2, 1, 3))
+    assert LAUNCHES["conv_wgrad3x3"] == before
+    wgrad3x3_cuda(x, x)
+    assert LAUNCHES["conv_wgrad3x3"] == before + 1

@@ -34,6 +34,11 @@ from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
      "conv_gemm"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<>",
      "optimizer"),
+    ("void (anonymous namespace)::wgrad3x3_kernel<__nv_bfloat16, 8>(...)",
+     "conv_wgrad3x3"),
+    ("(anonymous namespace)::wgrad3x3_finalize_kernel(...)", "conv_wgrad3x3"),
+    ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv_gemm"),
     ("some_unknown_kernel", "other"),
 ])
 def test_kernel_family(name, family):

@@ -174,7 +174,7 @@ def test_resnet50_state_dict_keys_and_shapes_match_jax():
 def test_build_model_names():
     assert isinstance(build_model("resnet50", 10, layers=None), ResNet)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model("wideresnet", 10)
+        build_model("allconv", 10)
     with pytest.raises(ValueError, match="unknown model"):
         build_model("vgg", 10)
 
