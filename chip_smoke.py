@@ -18,10 +18,12 @@ drives the port's main paths with the launch counts read around each:
     steps, timed as ``bench.py`` times its JAX twin, profiled, and then
     evaluated through K3 (after a reduced-depth model's three steps on the
     card and on the CPU are each held against a float64 twin); then 5
-    steps of it with CNSN_CONV3X3=pallas (13 K4 launches per step);
+    steps of it with CNSN_CONV3X3=pallas (13 K4 launches per step, all
+    through K4's wgmma kernel);
   * training, the CIFAR SelfNorm recipe (``cnsn_tpu/configs/cifar10/
     wideresnet/sn.yaml``: WRN-40-2, SelfNorm at pos='pre'), b=128 32² bf16
-    for 35 steps with CNSN_CONV3X3=pallas (35 K4 launches per step) and
+    for 35 steps with CNSN_CONV3X3=pallas (35 K4 launches per step: 22
+    through the wgmma kernel, 13 through the wmma kernel) and
     again with cuDNN's gradients, profiled, then evaluated through K3;
     before it, one float32 step of a reduced WRN under both, from the
     same weights, every conv weight's gradient compared;
@@ -87,6 +89,11 @@ K4_WRN = ((32, 3, 16, 1), (32, 16, 32, 1), (32, 32, 32, 11),
 K4_R50 = ((56, 64, 64, 3), (28, 128, 128, 3), (14, 256, 256, 5),
           (7, 512, 512, 2))
 R50_K4 = sum(r[3] for r in K4_R50)  # 13
+# K4's two kernels (ops/kernels/conv_wgrad.py::wgrad3x3_path): wgmma for
+# bf16 with Cin, Cout multiples of 64 (every ResNet-50 site; WRN's 16² 64→64
+# and 8² 128→128, 11 sites each), wmma for the rest (WRN's 13 narrow sites)
+WRN_K4_WGMMA = 22
+K4_WMMA, K4_WGMMA = "conv_wgrad3x3", "conv_wgrad3x3_wgmma"
 FLAGSHIP_K4_STEPS = 5
 # K4 against its plain version: 1e-5 of Σ|x|·|dy| per element.  Both sum
 # exact (bf16) or singly rounded (fp32) products in fp32 in other orders;
@@ -354,8 +361,16 @@ def phase_k4_vs_plain(dev, flush):
     ResNet-50 (224²) in bf16, and one fp32 shape of each, against its
     plain version (error bound K4_TOL), bit for bit against itself run to
     run, with cuDNN's weight gradient on the same tensors as the library
-    yardstick (TF32 off for fp32, as K4's fp32 path uses none)."""
-    from cnsn_tpu_torch.ops import wgrad3x3_cuda, wgrad3x3_reference
+    yardstick (TF32 off for fp32, as K4's fp32 path uses none).  Each row
+    names the kernel that wgrad3x3_path chose; where that is the wgmma
+    kernel, the wmma kernel runs at the same shape through the forced
+    path, held to the same bound and timed beside it (wmma_ms), and the
+    row carries the wgmma kernel's plan (its step box, stages, chunks and
+    the bytes its TMA loads bring into shared memory)."""
+    from cnsn_tpu_torch.ops import (wgrad3x3_cuda, wgrad3x3_path,
+                                    wgrad3x3_reference)
+    from cnsn_tpu_torch.ops.kernels.conv_wgrad import (PATHS,
+                                                       wgrad3x3_wgmma_plan)
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
     cases = [("wrn", s, torch.bfloat16) for s in K4_WRN]
@@ -368,6 +383,7 @@ def phase_k4_vs_plain(dev, flush):
         x = torch.randn(128, hw, hw, cin, generator=gen, device=dev).to(dtype)
         dy = torch.randn(128, hw, hw, cout, generator=gen,
                          device=dev).to(dtype)
+        path = wgrad3x3_path(x, dy)
         got = wgrad3x3_cuda(x, dy)
         again = wgrad3x3_cuda(x, dy)
         want = wgrad3x3_reference(x, dy)
@@ -377,15 +393,25 @@ def phase_k4_vs_plain(dev, flush):
         worst = (err / scale.clamp_min(1e-30)).max().item()
         check(bool(torch.isfinite(got).all()), f"finite K4 {x.shape}")
         check(bool((err <= K4_TOL * scale).all()),
-              f"K4 {tuple(x.shape)}->{cout} {dtype}: {worst} of sum |x||dy|")
+              f"K4 {path} {tuple(x.shape)}->{cout} {dtype}: {worst} of sum "
+              f"|x||dy|")
         check(torch.equal(got, again), f"K4 {tuple(x.shape)} run to run")
+        extra = {}
+        if path == "wgmma":
+            old = wgrad3x3_cuda(x, dy, path="wmma")
+            check(bool(((old - want).abs() <= K4_TOL * scale).all()),
+                  f"K4 wmma {tuple(x.shape)}->{cout} {dtype}")
+            del old
+            extra["wmma_ms"] = time_ms(
+                lambda: wgrad3x3_cuda(x, dy, path="wmma"), 20, flush)
+            extra["plan"] = wgrad3x3_wgmma_plan(128, hw, hw, cin, cout)
         w = torch.empty(cout, cin, 3, 3, device=dev, dtype=dtype,
                         memory_format=torch.channels_last)
         xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
         nbytes = ((x.numel() + dy.numel()) * x.element_size()
                   + 9 * cin * cout * 4)
         rows.append(_row(
-            "conv_wgrad3x3", (128, hw, hw, cin, cout), dtype, sites,
+            PATHS[path][1], (128, hw, hw, cin, cout), dtype, sites,
             err.max().item(), {"of_sum_abs_x_dy": K4_TOL}, flush,
             lambda: wgrad3x3_cuda(x, dy),
             lambda: wgrad3x3_reference(x, dy),
@@ -395,7 +421,7 @@ def phase_k4_vs_plain(dev, flush):
             "aten.convolution_backward weight only (cuDNN wgrad)",
             nbytes, 2 * x.numel() * 9 * cout,
             peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
-            model=model, err_over_sum_abs=worst))
+            model=model, err_over_sum_abs=worst, path=path, **extra))
         del x, dy, got, again, want, scale, err
     torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
@@ -731,9 +757,10 @@ def step_launches(step, per_step):
 def phase_train_flagship_k4(dev, conv_ms, k4_rows):
     """The flagship recipe again, for FLAGSHIP_K4_STEPS steps (the first
     gates of phase_train's sequence) with CNSN_CONV3X3=pallas: 13 K4
-    launches per step beside the other kernels' counts, the step time of
-    the last three beside phase_train's (cuDNN's gradients), and a
-    profile of one plain step."""
+    launches per step, every one through the wgmma kernel, beside the
+    other kernels' counts, the step time of the last three beside
+    phase_train's (cuDNN's gradients), and a profile of one plain step.
+    Returns K4's launches and its times per step from k4_rows."""
     from cnsn_tpu_torch.ops.convdot import LAYOUT_COPIES
     from cnsn_tpu_torch.ops.kernels import LAUNCHES
     from cnsn_tpu_torch.utils.profiling import device_time_breakdown
@@ -755,20 +782,23 @@ def phase_train_flagship_k4(dev, conv_ms, k4_rows):
     counts, copies = dict(LAUNCHES), dict(LAYOUT_COPIES)
     want = [{"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS,
              "ins_stats": SN_SITES + int(g), "ins_stats_bwd": SN_SITES,
-             "conv_wgrad3x3": R50_K4} for g in gates[:n]]
+             K4_WGMMA: R50_K4} for g in gates[:n]]
     losses = torch.stack(losses).float().cpu()
     k4_rows = [r for r in k4_rows if r["model"] == "resnet50"
                and r["dtype"] == "bfloat16"]
+    k4 = {"launches": counts.get(K4_WGMMA, 0), "steps": n}
+    for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms", "wmma_ms"):
+        k4[key] = sum(r[key] * r["sites"] for r in k4_rows)
     emit({"phase": "train_flagship_k4", "conv3x3": "pallas",
           "batch": cfg.batch_size, "image": IMAGE, "dtype": "bfloat16",
           "steps": n, "launches": counts, "per_step_launches": per_step,
           "k4_layout_copies": copies,
           "ms_per_step_last3": ms, "img_per_s": cfg.batch_size / ms * 1e3,
           "conv_mode_ms_per_step": conv_ms,
-          "k4_kernel_ms_per_step": sum(r["kernel_ms"] * r["sites"]
-                                       for r in k4_rows),
-          "cudnn_wgrad_ms_per_step": sum(r["library_ms"] * r["sites"]
-                                         for r in k4_rows),
+          "k4_kernel_ms_per_step": k4["kernel_ms"],
+          "k4_wmma_ms_per_step": k4["wmma_ms"],
+          "k4_bound_ms_per_step": k4["bound_ms"],
+          "cudnn_wgrad_ms_per_step": k4["library_ms"],
           "losses": losses.tolist(), "card": nvidia_smi_name_power()})
     check(per_step == want, f"flagship K4 launches {per_step}, expected "
           f"{want}")
@@ -781,6 +811,7 @@ def phase_train_flagship_k4(dev, conv_ms, k4_rows):
           **prof})
     del state, images
     torch.cuda.empty_cache()
+    return k4
 
 
 def phase_wrn_k4_vs_cudnn(dev):
@@ -834,7 +865,7 @@ def phase_wrn_k4_vs_cudnn(dev):
             seen[n][0].shape[2], seen[n][0].shape[3], m.weight.shape[1],
             m.weight.shape[0])}
         runs[mode] = dict(loss=metrics["loss"].item(), k4=k4, seen=seen,
-                          launches=LAUNCHES["conv_wgrad3x3"],
+                          launches=LAUNCHES[K4_WMMA] + LAUNCHES[K4_WGMMA],
                           grads={n: m.weight.grad.clone()
                                  for n, m in convs.items()})
         del state, model
@@ -912,7 +943,8 @@ def phase_train_wrn(dev):
         want = {"bn_sums": WRN_BN, "bn_sums_bwd": WRN_BN,
                 "ins_stats": WRN_SN, "ins_stats_bwd": WRN_SN}
         if mode == "pallas":
-            want["conv_wgrad3x3"] = WRN_K4
+            want[K4_WGMMA] = WRN_K4_WGMMA
+            want[K4_WMMA] = WRN_K4 - WRN_K4_WGMMA
         per_step, losses, window_ms = [], [], []
 
         def one():
@@ -1048,8 +1080,8 @@ def main():
     with conv3x3_mode("conv"):
         timed("train_card_vs_cpu", phase_train_card_vs_cpu, dev)
         train_counts, n_cn, flagship_ms = timed("train", phase_train, dev)
-    timed("train_flagship_k4", phase_train_flagship_k4, dev, flagship_ms,
-          k4_rows)
+    flagship_k4 = timed("train_flagship_k4", phase_train_flagship_k4, dev,
+                        flagship_ms, k4_rows)
     timed("wrn_k4_vs_cudnn", phase_wrn_k4_vs_cudnn, dev)
     wrn_counts = timed("train_wrn", phase_train_wrn, dev)
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
@@ -1080,11 +1112,25 @@ def main():
                     "cnsn_tpu/ops/pallas/bn_stats.py:146"))]
     wrn_bf16 = [r for r in k4_rows
                 if r["model"] == "wrn" and r["dtype"] == "bfloat16"]
-    kernels.append(summarize(
-        wrn_bf16, "conv_wgrad3x3", "cuda", "cnsn_tpu_torch/csrc/conv_wgrad.cu",
-        "cnsn_tpu/ops/pallas/conv_wgrad.py:197", wrn_counts["conv_wgrad3x3"],
-        TRAIN_STEPS, 0, per="WRN-40-2 b=128 bf16 training step, "
-        "CNSN_CONV3X3=pallas"))
+    for name, replaces in ((K4_WMMA, "cnsn_tpu/ops/pallas/conv_wgrad.py:197"),
+                           (K4_WGMMA, "cnsn_tpu/ops/pallas/conv_wgrad.py:170")):
+        kernels.append(summarize(
+            wrn_bf16, name, "cuda", "cnsn_tpu_torch/csrc/conv_wgrad.cu",
+            replaces, wrn_counts[name], TRAIN_STEPS, 0,
+            per="WRN-40-2 b=128 bf16 training step, CNSN_CONV3X3=pallas"))
+    # the wgmma kernel also runs every flagship site under pallas: its time
+    # per flagship step, and the wmma kernel's at the same shapes
+    kernels[-1]["wmma_ms"] = sum(
+        r["wmma_ms"] * r["sites"] for r in wrn_bf16
+        if r["kernel"] == K4_WGMMA)
+    kernels[-1]["flagship"] = {
+        "per": "flagship b=128 bf16 training step, CNSN_CONV3X3=pallas",
+        "launches": flagship_k4["launches"],
+        "steps": flagship_k4["steps"], "ms": flagship_k4["kernel_ms"],
+        "wmma_ms": flagship_k4["wmma_ms"],
+        "plain_ms": flagship_k4["plain_ms"],
+        "bound_ms": flagship_k4["bound_ms"],
+        "library_ms": flagship_k4["library_ms"]}
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
     emit({"kernels": [k3] + kernels})

@@ -17,9 +17,11 @@ from cnsn_tpu_torch.ops import (BnSums, InsStats, bn_sums_bwd_cuda,
                                 ins_stats_bwd_reference, ins_stats_cuda,
                                 ins_stats_reference, instance_mean_std,
                                 selfnorm_infer_cuda, selfnorm_infer_reference,
-                                wgrad3x3_cuda, wgrad3x3_reference)
+                                wgrad3x3_cuda, wgrad3x3_path,
+                                wgrad3x3_reference)
 from cnsn_tpu_torch.ops.convdot import Conv2dCustomBwd
 from cnsn_tpu_torch.ops.kernels import LAUNCHES
+from cnsn_tpu_torch.ops.kernels.conv_wgrad import PATHS, _kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -393,3 +395,108 @@ def test_wgrad3x3_wrapper_rejects_what_the_kernel_does_not_take():
     assert LAUNCHES["conv_wgrad3x3"] == before
     wgrad3x3_cuda(x, x)
     assert LAUNCHES["conv_wgrad3x3"] == before + 1
+
+
+# The shapes of K4_SHAPES that the wgmma kernel takes in bf16.
+K4_WIDE = [s for s in K4_SHAPES if s[1] % 64 == 0 and s[2] % 64 == 0]
+WMMA, WGMMA = PATHS["wmma"][1], PATHS["wgmma"][1]
+
+
+def _k4_counts():
+    return LAUNCHES[WMMA], LAUNCHES[WGMMA]
+
+
+def _chunks(x, cout, path="wgmma"):
+    b, h, w, cin = x.shape
+    return _kernels()[0](PATHS[path][0], b, h, w, cin, cout)
+
+
+@pytest.mark.parametrize("h,cin,cout", K4_WIDE)
+def test_wgrad3x3_wgmma_matches_plain(h, cin, cout):
+    x = _x((4, h, h, cin), 60, torch.bfloat16)
+    dy = _x((4, h, h, cout), 61, torch.bfloat16, offset=0.0)
+    assert wgrad3x3_path(x, dy) == "wgmma"
+    before = _k4_counts()
+    got = wgrad3x3_cuda(x, dy)
+    torch.cuda.synchronize()
+    assert _k4_counts() == (before[0], before[1] + 1)
+    _k4_close(got, x, dy)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (2, 1, 1, 64, 64),      # 1x1: every tap but the centre reads zeros
+    (3, 5, 9, 64, 128),     # W padded in the box, ragged H boxes
+    (1, 7, 7, 128, 192),    # batch 1; a ragged 128-wide Cout tile
+    (32, 28, 28, 128, 64),  # split over row chunks; Cout = 64 tiles
+])
+def test_wgrad3x3_wgmma_edges(b, h, w, cin, cout):
+    x = _x((b, h, w, cin), 62, torch.bfloat16)
+    dy = _x((b, h, w, cout), 63, torch.bfloat16, offset=0.0)
+    if b == 32:
+        assert _chunks(x, cout) > 1
+    got = wgrad3x3_cuda(x, dy)
+    torch.cuda.synchronize()
+    _k4_close(got, x, dy)
+
+
+def test_wgrad3x3_wgmma_is_deterministic():
+    x = _x((16, 14, 14, 256), 64, torch.bfloat16)
+    dy = _x((16, 14, 14, 256), 65, torch.bfloat16, offset=0.0)
+    assert _chunks(x, 256) > 1
+    assert torch.equal(wgrad3x3_cuda(x, dy), wgrad3x3_cuda(x, dy))
+
+
+@pytest.mark.parametrize("b,h,cin,cout", [(8, 14, 256, 256),
+                                          (4, 56, 64, 64)])
+def test_wgrad3x3_wgmma_agrees_with_wmma(b, h, cin, cout):
+    """The two kernels at the same shape, the old one through the forced
+    path: each within the bound of the plain version, and of each other."""
+    x = _x((b, h, h, cin), 66, torch.bfloat16)
+    dy = _x((b, h, h, cout), 67, torch.bfloat16, offset=0.0)
+    before = _k4_counts()
+    new = wgrad3x3_cuda(x, dy)
+    old = wgrad3x3_cuda(x, dy, path="wmma")
+    torch.cuda.synchronize()
+    assert _k4_counts() == (before[0] + 1, before[1] + 1)
+    _k4_close(new, x, dy)
+    _k4_close(old, x, dy)
+    scale = wgrad3x3_reference(x.abs(), dy.abs())
+    assert bool(((new - old).abs() <= 1e-5 * scale).all())
+
+
+def test_wgrad3x3_counts_launches_by_path():
+    base = _x((2 * 6 * 6 * 64 + 8,), 68, torch.bfloat16)
+    cases = [(_x((2, 6, 6, 64), 69, torch.bfloat16), 64),
+             (_x((2, 6, 6, 64), 69), 64),
+             (_x((2, 6, 6, 32), 70, torch.bfloat16), 64),
+             (_x((2, 6, 6, 64), 71, torch.bfloat16), 96),
+             (base[1:1 + 2 * 6 * 6 * 64].view(2, 6, 6, 64), 64)]
+    seen = []
+    for x, cout in cases:
+        dy = _x((2, 6, 6, cout), 72, x.dtype, offset=0.0)
+        before = _k4_counts()
+        _k4_close(wgrad3x3_cuda(x, dy), x, dy)
+        after = _k4_counts()
+        seen.append(wgrad3x3_path(x, dy))
+        want = (1, 0) if seen[-1] == "wmma" else (0, 1)
+        assert (after[0] - before[0], after[1] - before[1]) == want
+    assert seen == ["wgmma", "wmma", "wmma", "wmma", "wmma"]
+
+
+def test_wgrad3x3_refuses_a_forced_wgmma_path_the_rule_excludes():
+    """fp32, Cin 32, Cout 96, and an x off a 16-byte boundary: the C
+    function refuses the wgmma kernel, and nothing is launched or
+    counted."""
+    base = _x((2 * 6 * 6 * 64 + 8,), 73, torch.bfloat16)
+    cases = [(_x((2, 6, 6, 64), 74), 64),
+             (_x((2, 6, 6, 32), 75, torch.bfloat16), 64),
+             (_x((2, 6, 6, 64), 76, torch.bfloat16), 96),
+             (base[1:1 + 2 * 6 * 6 * 64].view(2, 6, 6, 64), 64)]
+    before = _k4_counts()
+    for x, cout in cases:
+        dy = _x((2, 6, 6, cout), 77, x.dtype, offset=0.0)
+        assert wgrad3x3_path(x, dy) == "wmma"
+        with pytest.raises(RuntimeError, match="conv_wgrad3x3_wgmma"):
+            wgrad3x3_cuda(x, dy, path="wgmma")
+    torch.cuda.synchronize()
+    assert _k4_counts() == before

@@ -37,6 +37,9 @@ from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
     ("void (anonymous namespace)::wgrad3x3_kernel<__nv_bfloat16, 8>(...)",
      "conv_wgrad3x3"),
     ("(anonymous namespace)::wgrad3x3_finalize_kernel(...)", "conv_wgrad3x3"),
+    ("void (anonymous namespace)::wgrad3x3_wgmma_kernel<128>(CUtensorMap_st,"
+     " CUtensorMap_st, float*, (anonymous namespace)::WgPlan)",
+     "conv_wgrad3x3"),
     ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "conv_gemm"),
     ("some_unknown_kernel", "other"),
