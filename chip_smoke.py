@@ -23,7 +23,7 @@ drives the port's main paths with the launch counts read around each:
   * training, the CIFAR SelfNorm recipe (``cnsn_tpu/configs/cifar10/
     wideresnet/sn.yaml``: WRN-40-2, SelfNorm at pos='pre'), b=128 32² bf16
     for 35 steps with CNSN_CONV3X3=pallas (35 K4 launches per step: 22
-    through the wgmma kernel, 13 through the wmma kernel) and
+    through the wgmma kernel, 13 through the narrow kernel) and
     again with cuDNN's gradients, profiled, then evaluated through K3;
     before it, one float32 step of a reduced WRN under both, from the
     same weights, every conv weight's gradient compared;
@@ -89,11 +89,15 @@ K4_WRN = ((32, 3, 16, 1), (32, 16, 32, 1), (32, 32, 32, 11),
 K4_R50 = ((56, 64, 64, 3), (28, 128, 128, 3), (14, 256, 256, 5),
           (7, 512, 512, 2))
 R50_K4 = sum(r[3] for r in K4_R50)  # 13
-# K4's two kernels (ops/kernels/conv_wgrad.py::wgrad3x3_path): wgmma for
+# K4's three kernels (ops/kernels/conv_wgrad.py::wgrad3x3_path): wgmma for
 # bf16 with Cin, Cout multiples of 64 (every ResNet-50 site; WRN's 16² 64→64
-# and 8² 128→128, 11 sites each), wmma for the rest (WRN's 13 narrow sites)
-WRN_K4_WGMMA = 22
-K4_WMMA, K4_WGMMA = "conv_wgrad3x3", "conv_wgrad3x3_wgmma"
+# and 8² 128→128, 11 sites each), narrow for bf16 with Cin, Cout ≤ 32 (WRN's
+# 13 narrow sites: 3→16, 16→32, 11 × 32→32), wmma for the rest (fp32,
+# unaligned views; no site of either bf16 training path)
+WRN_K4_WGMMA, WRN_K4_NARROW = 22, 13
+K4_WMMA, K4_WGMMA, K4_NARROW = ("conv_wgrad3x3", "conv_wgrad3x3_wgmma",
+                                "conv_wgrad3x3_narrow")
+K4_KERNELS = (K4_WMMA, K4_WGMMA, K4_NARROW)
 FLAGSHIP_K4_STEPS = 5
 # K4 against its plain version: 1e-5 of Σ|x|·|dy| per element.  Both sum
 # exact (bf16) or singly rounded (fp32) products in fp32 in other orders;
@@ -362,15 +366,17 @@ def phase_k4_vs_plain(dev, flush):
     plain version (error bound K4_TOL), bit for bit against itself run to
     run, with cuDNN's weight gradient on the same tensors as the library
     yardstick (TF32 off for fp32, as K4's fp32 path uses none).  Each row
-    names the kernel that wgrad3x3_path chose; where that is the wgmma
-    kernel, the wmma kernel runs at the same shape through the forced
-    path, held to the same bound and timed beside it (wmma_ms), and the
-    row carries the wgmma kernel's plan (its step box, stages, chunks and
-    the bytes its TMA loads bring into shared memory)."""
+    names the kernel that wgrad3x3_path chose; where that is the wgmma or
+    the narrow kernel, the wmma kernel runs at the same shape through the
+    forced path, held to the same bound and timed beside it (wmma_ms,
+    wmma_max_abs_err), and the row carries the chosen kernel's plan (wgmma:
+    its step box, stages, chunks and the bytes its TMA loads bring into
+    shared memory; narrow: its band height, stages, blocks, the bytes its
+    loads bring into shared memory and the bytes of its partials)."""
     from cnsn_tpu_torch.ops import (wgrad3x3_cuda, wgrad3x3_path,
                                     wgrad3x3_reference)
-    from cnsn_tpu_torch.ops.kernels.conv_wgrad import (PATHS,
-                                                       wgrad3x3_wgmma_plan)
+    from cnsn_tpu_torch.ops.kernels.conv_wgrad import (
+        PATHS, wgrad3x3_narrow_plan, wgrad3x3_wgmma_plan)
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
     cases = [("wrn", s, torch.bfloat16) for s in K4_WRN]
@@ -397,14 +403,18 @@ def phase_k4_vs_plain(dev, flush):
               f"|x||dy|")
         check(torch.equal(got, again), f"K4 {tuple(x.shape)} run to run")
         extra = {}
-        if path == "wgmma":
+        if path != "wmma":
             old = wgrad3x3_cuda(x, dy, path="wmma")
+            torch.cuda.synchronize()
             check(bool(((old - want).abs() <= K4_TOL * scale).all()),
                   f"K4 wmma {tuple(x.shape)}->{cout} {dtype}")
+            extra["wmma_max_abs_err"] = (old - want).abs().max().item()
             del old
             extra["wmma_ms"] = time_ms(
                 lambda: wgrad3x3_cuda(x, dy, path="wmma"), 20, flush)
-            extra["plan"] = wgrad3x3_wgmma_plan(128, hw, hw, cin, cout)
+            plan = (wgrad3x3_wgmma_plan if path == "wgmma"
+                    else wgrad3x3_narrow_plan)
+            extra["plan"] = plan(128, hw, hw, cin, cout)
         w = torch.empty(cout, cin, 3, 3, device=dev, dtype=dtype,
                         memory_format=torch.channels_last)
         xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
@@ -865,7 +875,7 @@ def phase_wrn_k4_vs_cudnn(dev):
             seen[n][0].shape[2], seen[n][0].shape[3], m.weight.shape[1],
             m.weight.shape[0])}
         runs[mode] = dict(loss=metrics["loss"].item(), k4=k4, seen=seen,
-                          launches=LAUNCHES[K4_WMMA] + LAUNCHES[K4_WGMMA],
+                          launches=sum(LAUNCHES[k] for k in K4_KERNELS),
                           grads={n: m.weight.grad.clone()
                                  for n, m in convs.items()})
         del state, model
@@ -944,7 +954,7 @@ def phase_train_wrn(dev):
                 "ins_stats": WRN_SN, "ins_stats_bwd": WRN_SN}
         if mode == "pallas":
             want[K4_WGMMA] = WRN_K4_WGMMA
-            want[K4_WMMA] = WRN_K4 - WRN_K4_WGMMA
+            want[K4_NARROW] = WRN_K4_NARROW
         per_step, losses, window_ms = [], [], []
 
         def one():
@@ -987,6 +997,8 @@ def phase_train_wrn(dev):
               "bf16_peak_share": flops / (med / 1e3) / BF16_FLOPS,
               "peak_mem_gib": peak, "host_loadavg": os.getloadavg(),
               "card": nvidia_smi_name_power()})
+        # no launch of the wmma kernel: per_step and counts list only
+        # the kernels that ran
         check(all(d == want for d in per_step),
               f"WRN launches per step {per_step}, expected {want}")
         check(counts == {k: v * TRAIN_STEPS for k, v in want.items()},
@@ -1112,18 +1124,41 @@ def main():
                     "cnsn_tpu/ops/pallas/bn_stats.py:146"))]
     wrn_bf16 = [r for r in k4_rows
                 if r["model"] == "wrn" and r["dtype"] == "bfloat16"]
-    for name, replaces in ((K4_WMMA, "cnsn_tpu/ops/pallas/conv_wgrad.py:197"),
+    k4_source = "cnsn_tpu_torch/csrc/conv_wgrad.cu"
+    for name, replaces in ((K4_NARROW, "cnsn_tpu/ops/pallas/conv_wgrad.py:197"),
                            (K4_WGMMA, "cnsn_tpu/ops/pallas/conv_wgrad.py:170")):
         kernels.append(summarize(
-            wrn_bf16, name, "cuda", "cnsn_tpu_torch/csrc/conv_wgrad.cu",
-            replaces, wrn_counts[name], TRAIN_STEPS, 0,
+            wrn_bf16, name, "cuda", k4_source, replaces, wrn_counts[name],
+            TRAIN_STEPS, 0,
             per="WRN-40-2 b=128 bf16 training step, CNSN_CONV3X3=pallas"))
-    # the wgmma kernel also runs every flagship site under pallas: its time
-    # per flagship step, and the wmma kernel's at the same shapes
-    kernels[-1]["wmma_ms"] = sum(
-        r["wmma_ms"] * r["sites"] for r in wrn_bf16
-        if r["kernel"] == K4_WGMMA)
-    kernels[-1]["flagship"] = {
+        # the wmma kernel's time at the same sites, through the forced path
+        kernels[-1]["wmma_ms"] = sum(
+            r["wmma_ms"] * r["sites"] for r in wrn_bf16 if r["kernel"] == name)
+    # The wmma kernel runs on neither main path (fp32 and unaligned calls
+    # only): its line holds its time at WRN's 13 narrow sites through the
+    # forced path, per WRN step, with those sites' bound, plain and cuDNN
+    # times, and its fp32 rows beside.
+    narrow = [r for r in wrn_bf16 if r["kernel"] == K4_NARROW]
+    fp32 = [r for r in k4_rows if r["dtype"] == "float32"]
+    check(wrn_counts.get(K4_WMMA, 0) == 0 and all(
+        r["kernel"] == K4_WMMA for r in fp32), "K4 wmma kernel's rows")
+    kernels.append({
+        "name": K4_WMMA, "route": "cuda", "source": k4_source,
+        "replaces": "cnsn_tpu/ops/pallas/conv_wgrad.py:197",
+        "launches": wrn_counts.get(K4_WMMA, 0),
+        "max_abs_err": max([r["wmma_max_abs_err"] for r in narrow]
+                           + [r["max_abs_err"] for r in fp32]),
+        **{out: sum(r[key] * r["sites"] for r in narrow)
+           for key, out in (("wmma_ms", "ms"), ("plain_ms", "plain_ms"),
+                            ("bound_ms", "bound_ms"),
+                            ("library_ms", "library_ms"))},
+        "bound_by": "bytes",
+        "per": "WRN-40-2 b=128 bf16 training step's 13 narrow sites, "
+               "forced path (no launch on a main path)",
+        "fp32": [{"shape": r["shape"], "ms": r["kernel_ms"],
+                  "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
+                  "library_ms": r["library_ms"]} for r in fp32]})
+    kernels[-2]["flagship"] = {
         "per": "flagship b=128 bf16 training step, CNSN_CONV3X3=pallas",
         "launches": flagship_k4["launches"],
         "steps": flagship_k4["steps"], "ms": flagship_k4["kernel_ms"],

@@ -1,5 +1,5 @@
 // Weight gradient of a 3x3 / stride-1 / same-padding convolution (K4) for
-// Hopper (sm_90a): two kernels, chosen per call by shape.
+// Hopper (sm_90a): three kernels, chosen per call by shape.
 //
 // Replaces cnsn_tpu/ops/pallas/conv_wgrad.py: wgrad3x3_tiled (def :143,
 // pallas_call :170; batch-tiled, native-dtype operands with fp32 sums) and
@@ -20,7 +20,7 @@
 // wgmma reaches that rate, fed from shared memory faster than threads can
 // load it.
 //
-// Both kernels: one implicit GEMM, M = 9 * Cin, tap-major as the TPU
+// All three kernels: one implicit GEMM, M = 9 * Cin, tap-major as the TPU
 // kernel's block (row m is tap t = m / Cin, channel m mod Cin), N = Cout,
 // reduced over the rows r = (b, h, w).  Split-K: where the output tiles leave
 // the card short of blocks, the rows are cut into chunks, each block writes
@@ -52,9 +52,43 @@
 // per chunk, mostly from the L2), the grid is not persistent, and no warp
 // is specialised by register count.
 //
-// wmma kernel (everything else: fp32, the narrow WRN shapes 3->16, 16->32,
-// 32->32, unaligned views; TMA needs 16-byte aligned bases and strides, and
-// a 64-row wgmma slice needs 64 channels of one tap).  A block computes one
+// narrow kernel (bf16, 1 <= Cin, Cout <= 32, W <= 128, x and dy 16-byte
+// aligned: WRN-40-2's 13 narrow sites, 3->16, 16->32 and 32->32 at 32^2).  It
+// follows wgrad3x3_pallas (def :188, pallas_call :197), which stages one
+// padded image of x and of dy in VMEM, runs the nine tap products against
+// that one copy and keeps the (9 * Cin, Cout) block resident.  Bound at
+// b=128: 5.0, 12.6 and 16.8 MB of x and dy, 0.0015, 0.0038 and 0.0050 ms at
+// 3.35 TB/s; the ~2.4 GFLOP of a site take 0.0024 ms at 989 TFLOP/s, so
+// the bytes set it.  One block of 9 warps owns the whole output: warp t
+// holds tap t's Cin x Cout rows in registers as mma.sync m16n8k16
+// fragments (Cin padded to 16, Cout to 8: at most 2 x 4 fragments, 32 fp32
+// registers), so no tile is re-read for another part of M or N.  A step is
+// a band of R image rows of one image (R = 8 at W = 32: ~256 pixels, fewer
+// where 3 stages do not fit); cp.async.cg brings x's R + 2 rows (a halo row
+// above and below, 16 zero bytes from a 0-byte copy outside the image) into
+// a tile of (R + 2) x (W + 2) pixels whose border columns are zeroed once,
+// and dy's R rows into an R x W tile, in a ring of 3-4 stages.  Tap (kh, kw)
+// of pixel (h, w) reads the tile at (h - h0 + kh, w + kw): ldmatrix.x4.trans
+// takes a row address per lane, so every warp's A fragments come from the
+// one staged copy, and x leaves the L2 (R + 2) / R times, dy once.  Pixels
+// are an odd number of 16-byte units apart in shared memory, so the eight
+// rows of one ldmatrix fall in distinct bank groups.  Where Cin (Cout) is
+// not a multiple of 8 (the stem's 6-byte pixels) the band's rows, contiguous
+// in memory, are copied raw in 16-byte chunks and spread by the threads into
+// a tile padded to 8 channels a pixel, zeros in the pad, and the same
+// fragment code reads it.  About one or two blocks per SM each walk a
+// contiguous range of bands and write one fp32 partial; a second launch
+// adds the partials, each of its warps over every eighth block in order and
+// then the eight sums in order.  Against the wmma kernel at these shapes:
+// no 64 x 64 tile wasted on Cin = 3 or Cout = 16 and x read once per tap
+// instead of 4.5 times (cause 1); 16-byte copies without a border test per
+// element, the stem included (2); one barrier per band of ~256 rows, 8 mma
+// per 4 ldmatrix at 32->32, 2-3 bands in flight (3); one partial per block
+// instead of 106-256 chunks of a tile each, added in parallel (4).
+//
+// wmma kernel (everything else: fp32, unaligned views, shapes outside the
+// other two; TMA needs 16-byte aligned bases and strides, and a 64-row
+// wgmma slice needs 64 channels of one tap).  A block computes one
 // 64 x 64 tile over one chunk of rows, 32 rows per step.  A column of its x
 // tile reads row r shifted by (kh-1)*W + (kw-1) for its tap, the zero border
 // masked in the kernel; dy's rows are read as they are; ragged tiles and the
@@ -835,14 +869,603 @@ bool wgmma_legal(int dtype, const void* x, const void* dy, int cin,
          reinterpret_cast<uintptr_t>(dy) % 16 == 0;
 }
 
+// ---- narrow kernel ---------------------------------------------------------
+
+constexpr int kNaWarps = 9;  // one per tap
+constexpr int kNaThreads = kNaWarps * 32;
+constexpr int kNaMaxC = 32;         // Cin and Cout at most
+constexpr int kNaMaxW = 128;        // image width at most
+constexpr int kNaPixels = 256;      // pixels of a band the plan aims at
+constexpr int kNaMinStages = 3;
+constexpr int kNaMaxStages = 4;
+constexpr int kNaBlocksPerSm = 2;   // at most
+constexpr int kNaZero = 64;         // bytes of the zero row
+constexpr int kNaSumSplit = 8;      // warps of a block of the sum kernel
+
+// What the host plans for one call.  Band g is image g / bands_h, image
+// rows [h0, h0 + rows) with h0 = (g mod bands_h) * rows, cut at the image's
+// last row; block k takes bands [k * bands / blocks, (k + 1) * bands /
+// blocks).  A stage of the ring holds a band's x tile (rows + 2 image rows
+// by w + 2 columns, borders zero) and its dy tile (rows by w), pixels sx and
+// sd bytes apart; an operand whose channels are not a multiple of 8 is
+// staged as the raw bytes of its image rows instead and spread into a
+// padded tile of its own before the band's products.
+struct NaPlan {
+  int h, w, cin, cout;
+  int rows;
+  int bands_h;
+  int bands;
+  int blocks;
+  int stages;
+  int cs, cn;       // channels of a pixel in shared memory: a multiple of 8
+  int sx, sd;       // bytes between pixels in shared memory
+  int spread_x, spread_dy;
+  int x_bytes;      // a stage's x region
+  int dy_bytes;     // a stage's dy region
+  int stage_bytes;
+  int xtile_bytes;  // the padded tiles of the spread operands (0 if none)
+  int dytile_bytes;
+  int smem;
+  int per_sm;       // blocks that fit on an SM
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src)),
+                  "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lanes 8 j .. 8 j + 7 give the 16-byte
+// rows of matrix j, and register j of lane l holds column l / 4, rows
+// 2 (l % 4) and 2 (l % 4) + 1 of it.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, col-major).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct NaBand {
+  int b, h0, nrows;
+  __device__ __forceinline__ NaBand(const NaPlan& p, int g) {
+    b = g / p.bands_h;
+    h0 = (g - b * p.bands_h) * p.rows;
+    nrows = min(p.rows, p.h - h0);
+  }
+};
+
+// A thread's walk over the cells (row, col) of a grid `width` wide, from
+// cell threadIdx.x on, kNaThreads cells at a time, without a division.
+struct NaWalk {
+  int row, col, drow, dcol, width;
+  __device__ __forceinline__ explicit NaWalk(int w)
+      : row(threadIdx.x / w), col(threadIdx.x % w), drow(kNaThreads / w),
+        dcol(kNaThreads % w), width(w) {}
+  __device__ __forceinline__ void next() {
+    row += drow;
+    col += dcol;
+    if (col >= width) {
+      col -= width;
+      ++row;
+    }
+  }
+};
+
+// Bytes of padding a pixel of c channels (a multiple of 8) carries in
+// shared memory, per 16-byte chunk index i of a pixel run: 16 per pixel
+// before i where the pixel is padded (c / 8 even), else 0.
+__device__ __forceinline__ int na_pad(int c, int i) {
+  const int cpp = c / 8;
+  return cpp % 2 != 0 ? 0 : (i >> (cpp == 4 ? 2 : 1)) * 16;
+}
+
+// The bytes [begin, end) of t (16-byte aligned) into dst as whole 16-byte
+// chunks from begin rounded down; none past end is read.
+__device__ __forceinline__ void na_load_raw(unsigned char* dst,
+                                            const unsigned char* t,
+                                            size_t begin, size_t end) {
+  const size_t a0 = begin & ~static_cast<size_t>(15);
+  const int n = static_cast<int>((end - a0 + 15) / 16);
+  for (int i = threadIdx.x; i < n; i += kNaThreads) {
+    const size_t off = a0 + 16 * static_cast<size_t>(i);
+    cp_async16(dst + 16 * i, t + off, end - off < 16 ? int(end - off) : 16);
+  }
+}
+
+// Issue the loads of band g into a stage: x's image rows h0 - 1 .. h0 + rows,
+// zero outside the image (a copy of 0 source bytes fills 16 zeros), and dy's
+// rows h0 .. h0 + nrows - 1.  walk: over (tile row, 16-byte chunk of a row)
+// of x where x is not spread.
+__device__ __forceinline__ void na_load(const NaPlan& p, const NaWalk& walk,
+                                        const unsigned char* x,
+                                        const unsigned char* dy, int g,
+                                        unsigned char* stage) {
+  const NaBand band(p, g);
+  const size_t img = static_cast<size_t>(band.b) * p.h;
+  const size_t xrow = static_cast<size_t>(p.w) * p.cin * 2;
+  const size_t drow = static_cast<size_t>(p.w) * p.cout * 2;
+  if (p.spread_x) {
+    na_load_raw(stage, x, (img + max(0, band.h0 - 1)) * xrow,
+                (img + min(p.h, band.h0 + p.rows + 1)) * xrow);
+  } else {
+    for (NaWalk it = walk; it.row < p.rows + 2; it.next()) {
+      const int hh = band.h0 - 1 + it.row;
+      const bool in = hh >= 0 && hh < p.h;
+      cp_async16(stage + (it.row * (p.w + 2) + 1) * p.sx + it.col * 16 +
+                     na_pad(p.cin, it.col),
+                 in ? x + (img + hh) * xrow + it.col * 16 : x, in ? 16 : 0);
+    }
+  }
+  unsigned char* ds = stage + p.x_bytes;
+  const size_t d0 = (img + band.h0) * drow;
+  if (p.spread_dy) {
+    na_load_raw(ds, dy, d0, d0 + band.nrows * drow);
+  } else {
+    const int n = band.nrows * p.w * (p.cout / 8);
+    for (int i = threadIdx.x; i < n; i += kNaThreads) {
+      cp_async16(ds + i * 16 + na_pad(p.cout, i),
+                 dy + d0 + 16 * static_cast<size_t>(i), 16);
+    }
+  }
+}
+
+// A spread operand's raw rows into its padded tile: every channel below
+// cin (cout) of the tile's pixels is written, x's halo rows outside the
+// image as zeros; the borders and the pad channels keep their zeros.
+// walk: over (tile row, column) of x where x is spread.
+__device__ __forceinline__ void na_spread(const NaPlan& p, const NaWalk& walk,
+                                          int g, const unsigned char* stage,
+                                          unsigned char* xtile,
+                                          unsigned char* dytile) {
+  const NaBand band(p, g);
+  const size_t img = static_cast<size_t>(band.b) * p.h;
+  if (p.spread_x) {
+    const int hs = max(0, band.h0 - 1);
+    const int he = min(p.h, band.h0 + p.rows + 1);
+    // the raw copy starts at a 16-byte boundary: 8 elements
+    const unsigned short* raw = reinterpret_cast<const unsigned short*>(stage) +
+                                (img + hs) * p.w * p.cin % 8;
+    unsigned short* t = reinterpret_cast<unsigned short*>(xtile);
+    for (NaWalk it = walk; it.row < p.rows + 2; it.next()) {
+      const int hh = band.h0 - 1 + it.row;
+      const bool in = hh >= hs && hh < he;
+      const unsigned short* src =
+          raw + (in ? ((hh - hs) * p.w + it.col) * p.cin : 0);
+      unsigned short* dst = t + (it.row * (p.w + 2) + it.col + 1) * (p.sx / 2);
+      for (int c = 0; c < p.cin; ++c) dst[c] = in ? src[c] : 0;
+    }
+  }
+  if (p.spread_dy) {
+    const unsigned short* raw =
+        reinterpret_cast<const unsigned short*>(stage + p.x_bytes) +
+        (img + band.h0) * p.w * p.cout % 8;
+    unsigned short* t = reinterpret_cast<unsigned short*>(dytile);
+    const int n = band.nrows * p.w;
+    for (int q = threadIdx.x; q < n; q += kNaThreads) {
+      for (int c = 0; c < p.cout; ++c) {
+        t[q * (p.sd / 2) + c] = raw[q * p.cout + c];
+      }
+    }
+  }
+}
+
+// One step's fragments: MT m16 x k16 tiles of x^T, NP n8 x k16 tiles of dy.
+template <int MT, int NP>
+struct NaFrags {
+  uint32_t a[MT][4];
+  uint32_t b[NP / 2][4];
+};
+
+// Where a lane reads a band's steps, 16 columns of one image row each, in
+// order: every lane names one 16-byte row of one ldmatrix, for A (x^T, 16
+// channels by 16 pixels) the row of column w0 + 8 (j / 2) + r at channels
+// 8 (j % 2) (+ 16 per m tile), shifted by the warp's tap inside the x tile;
+// for B (dy, 16 pixels by 16 channels) column w0 + 8 (j % 2) + r at
+// channels 8 (j / 2) (+ 16 per n8 pair), with j = lane / 8, r = lane % 8.
+// Columns past the row read the zero row; channel blocks past the staged
+// ones read block 0 again, into rows and columns never written out.
+template <int MT, int NP>
+struct NaCursor {
+  uint32_t xrow, drow;  // the lane's A and B rows at column 0 of the row
+  uint32_t zero;
+  uint32_t a_off[MT];
+  uint32_t b_off[NP / 2];
+  int pa, pb;           // the lane's column within a step, for A and B
+  int w0;               // the step's first column
+
+  __device__ __forceinline__ NaCursor(const NaPlan& p, uint32_t xs,
+                                      uint32_t ds, uint32_t zero_row) {
+    const int lane = threadIdx.x % 32;
+    const int tap = threadIdx.x / 32;
+    const int j = lane / 8;
+    pa = 8 * (j / 2) + lane % 8;
+    pb = 8 * (j % 2) + lane % 8;
+    xrow = xs + ((tap / 3) * (p.w + 2) + tap % 3 + pa) * p.sx;
+    drow = ds + pb * p.sd;
+    zero = zero_row;
+    w0 = 0;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int blk = 2 * mi + j % 2;
+      a_off[mi] = (blk * 8 < p.cs ? blk : 0) * 16;
+    }
+#pragma unroll
+    for (int q = 0; q < NP / 2; ++q) {
+      const int blk = 2 * q + j / 2;
+      b_off[q] = (blk * 8 < p.cn ? blk : 0) * 16;
+    }
+  }
+
+  // The next step's fragments.
+  __device__ __forceinline__ void fetch(const NaPlan& p, NaFrags<MT, NP>& f) {
+    const uint32_t xa = w0 + pa < p.w ? xrow + w0 * p.sx : zero;
+    const uint32_t da = w0 + pb < p.w ? drow + w0 * p.sd : zero;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) ldsm_x4_t(f.a[mi], xa + a_off[mi]);
+#pragma unroll
+    for (int q = 0; q < NP / 2; ++q) ldsm_x4_t(f.b[q], da + b_off[q]);
+    w0 += 16;
+    if (w0 >= p.w) {
+      w0 = 0;
+      xrow += (p.w + 2) * p.sx;
+      drow += p.w * p.sd;
+    }
+  }
+};
+
+template <int MT, int NP>
+__device__ __forceinline__ void na_mma(const NaFrags<MT, NP>& f,
+                                       float (&acc)[MT][NP][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+      mma16816(acc[mi][n], f.a[mi], f.b[n / 2][2 * (n % 2)],
+               f.b[n / 2][2 * (n % 2) + 1]);
+}
+
+// One band's products into warp `tap`'s accumulator: MT m16 tiles of its
+// Cin rows, NP n8 tiles of Cout, over the band's rows 16 columns at a time;
+// the next step's fragments are fetched before this step's mma.
+template <int MT, int NP>
+__device__ __forceinline__ void na_product(const NaPlan& p, uint32_t xs,
+                                           uint32_t ds, uint32_t zero,
+                                           int nrows,
+                                           float (&acc)[MT][NP][4]) {
+  NaCursor<MT, NP> cur(p, xs, ds, zero);
+  const int steps = nrows * ((p.w + 15) / 16);
+  NaFrags<MT, NP> f0;
+  NaFrags<MT, NP> f1;
+  cur.fetch(p, f0);
+  int s = 0;
+  for (; s + 2 <= steps; s += 2) {
+    cur.fetch(p, f1);
+    na_mma(f0, acc);
+    if (s + 2 < steps) cur.fetch(p, f0);
+    na_mma(f1, acc);
+  }
+  if (s < steps) na_mma(f0, acc);
+}
+
+// fp32 row length of the staging tile of the output: 8 mod 32 words, so
+// that a warp's 8-byte stores of one fragment register pair hit distinct
+// banks.
+__host__ __device__ __forceinline__ int na_out_ld(int cn) {
+  return (cn + 15) / 16 * 16 + 8;
+}
+
+// Grid (blocks); block: 9 warps, warp t the tap t = 3 kh + kw.  out:
+// (blocks, 9 * Cin, Cout) fp32 partial sums, or dW itself for one block.
+template <int MT, int NP>
+__global__ void __launch_bounds__(kNaThreads)
+wgrad3x3_narrow_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ dy,
+                       float* __restrict__ out, const NaPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem + kNaZero;
+  unsigned char* xtile = ring + p.stages * p.stage_bytes;
+  unsigned char* dytile = xtile + p.xtile_bytes;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const unsigned char* db = reinterpret_cast<const unsigned char*>(dy);
+  const int first = static_cast<int>(static_cast<long long>(blockIdx.x) *
+                                     p.bands / p.blocks);
+  const int nb = static_cast<int>(static_cast<long long>(blockIdx.x + 1) *
+                                  p.bands / p.blocks) - first;
+  const NaWalk walk(p.spread_x ? p.w : p.w * (p.cin / 8));
+
+  // the zeros no load writes: the zero row, the spread tiles (borders and
+  // pad channels) and the border columns of every stage's x tile
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < kNaZero / 16; i += kNaThreads) {
+    reinterpret_cast<uint4*>(smem)[i] = z;
+  }
+  for (int i = threadIdx.x; i < (p.xtile_bytes + p.dytile_bytes) / 16;
+       i += kNaThreads) {
+    reinterpret_cast<uint4*>(xtile)[i] = z;
+  }
+  if (!p.spread_x) {
+    const int vecs = p.sx / 16;
+    const int edges = 2 * (p.rows + 2);  // (tile row, side) of a stage
+    for (int i = threadIdx.x; i < p.stages * edges * vecs; i += kNaThreads) {
+      const int e = i / vecs % edges;
+      const int pix = e / 2 * (p.w + 2) + e % 2 * (p.w + 1);
+      *reinterpret_cast<uint4*>(ring + i / vecs / edges * p.stage_bytes +
+                                pix * p.sx + i % vecs * 16) = z;
+    }
+  }
+
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < nb) na_load(p, walk, xb, db, first + s, ring + s * p.stage_bytes);
+    cp_async_commit();
+  }
+  float acc[MT][NP][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+  for (int i = 0; i < nb; ++i) {
+    // band i has landed (this thread's copies), and after the barrier every
+    // thread's; every warp is done with band i - 1, whose stage is reloaded
+    if (p.stages == 4) {
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();
+    const int next = i + p.stages - 1;
+    if (next < nb) {
+      na_load(p, walk, xb, db, first + next,
+              ring + next % p.stages * p.stage_bytes);
+    }
+    cp_async_commit();
+    unsigned char* stage = ring + i % p.stages * p.stage_bytes;
+    if (p.spread_x || p.spread_dy) {
+      na_spread(p, walk, first + i, stage, xtile, dytile);
+      __syncthreads();
+    }
+    na_product<MT, NP>(p, smem_u32(p.spread_x ? xtile : stage),
+                       smem_u32(p.spread_dy ? dytile : stage + p.x_bytes),
+                       smem_u32(smem), NaBand(p, first + i).nrows, acc);
+  }
+
+  // The accumulators through a shared staging tile (9 * Cin rows of
+  // na_out_ld(cn) floats), then out as whole rows of Cout.  Fragment of
+  // m16n8: registers 2 h and 2 h + 1 of lane l hold row l / 4 + 8 h,
+  // columns 2 (l % 4) and 2 (l % 4) + 1.
+  cp_async_wait<0>();
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int tap = threadIdx.x / 32;
+  const int ld = na_out_ld(p.cn);
+  float* st = reinterpret_cast<float*>(smem + kNaZero);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mi * 16 + lane / 4 + 8 * h;
+        const int co = n * 8 + 2 * (lane % 4);
+        if (m < p.cin && co < p.cn) {
+          *reinterpret_cast<float2*>(st + (tap * p.cin + m) * ld + co) =
+              make_float2(acc[mi][n][2 * h], acc[mi][n][2 * h + 1]);
+        }
+      }
+  __syncthreads();
+  float* dst = out + static_cast<size_t>(blockIdx.x) * 9 * p.cin * p.cout;
+  const int rows_out = 9 * p.cin;
+  if (p.cout % 4 == 0) {  // dst is 16-byte aligned: 9 cin cout % 4 == 0
+    const int per = p.cout / 4;
+    for (int i = threadIdx.x; i < rows_out * per; i += kNaThreads) {
+      const int row = i / per;
+      reinterpret_cast<float4*>(dst)[i] =
+          *reinterpret_cast<const float4*>(st + row * ld + 4 * (i - row * per));
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows_out * p.cout; i += kNaThreads) {
+      const int row = i / p.cout;
+      dst[i] = st[row * ld + i - row * p.cout];
+    }
+  }
+}
+
+// out[i] = the sum over the blocks k of part[k][i]: warp q of a block adds
+// blocks q, q + 8, q + 16, ... for 32 elements, in that order, and warp 0
+// then adds the eight sums in the order of q.
+__global__ void __launch_bounds__(32 * kNaSumSplit)
+wgrad3x3_narrow_sum_kernel(const float* __restrict__ part,
+                           float* __restrict__ out, int n, int blocks) {
+  __shared__ float sums[kNaSumSplit][32];
+  const int e = threadIdx.x % 32;
+  const int q = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + e;
+  float s = 0.f;
+  if (i < n) {
+#pragma unroll 4
+    for (int k = q; k < blocks; k += kNaSumSplit) {
+      s += part[static_cast<size_t>(k) * n + i];
+    }
+  }
+  sums[q][e] = s;
+  __syncthreads();
+  if (q == 0 && i < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < kNaSumSplit; ++k) t += sums[k][e];
+    out[i] = t;
+  }
+}
+
+// 16-byte units between pixels in shared memory: odd, so that the rows of
+// eight neighbouring pixels that one ldmatrix reads lie in eight distinct
+// 16-byte bank groups.
+int na_units(int c) {
+  const int u = (c + 7) / 8;
+  return u % 2 == 0 ? u + 1 : u;
+}
+
+int round16(long long bytes) {
+  return static_cast<int>((bytes + 15) / 16 * 16);
+}
+
+// The card's shared memory per SM; 0 if it cannot be queried.
+int smem_per_sm() {
+  static int m = -1;
+  if (m < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&m, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev) != cudaSuccess) {
+      m = -1;
+      return 0;
+    }
+  }
+  return m;
+}
+
+// The band height, stages and blocks for a shape; rows and blocks above 0
+// replace the planned ones (for sweeps).  False if the device cannot be
+// queried, the shape is outside the kernel's domain or nothing fits.
+// Rows: enough for ~kNaPixels pixels a band, fewer where kNaMinStages
+// stages of them do not fit; stages: as many as fit, up to kNaMaxStages;
+// blocks: up to kNaBlocksPerSm per SM as shared memory allows, then as few
+// as give every block the same greatest number of bands.
+bool plan_narrow(int batch, int h, int w, int cin, int cout, int rows,
+                 int blocks, NaPlan* out) {
+  int sms = 0;
+  int smem_optin = 0;
+  const int per_sm_smem = smem_per_sm();
+  if (!card(&sms, &smem_optin) || per_sm_smem == 0 || batch < 1 || h < 1 ||
+      w < 1 || w > kNaMaxW || cin < 1 || cin > kNaMaxC || cout < 1 ||
+      cout > kNaMaxC || rows < 0 || blocks < 0) {
+    return false;
+  }
+  NaPlan p{};
+  p.h = h;
+  p.w = w;
+  p.cin = cin;
+  p.cout = cout;
+  p.cs = (cin + 7) / 8 * 8;
+  p.cn = (cout + 7) / 8 * 8;
+  p.sx = 16 * na_units(cin);
+  p.sd = 16 * na_units(cout);
+  p.spread_x = cin % 8 != 0;
+  p.spread_dy = cout % 8 != 0;
+  const int most = rows > 0 ? rows : std::min(h, (kNaPixels + w - 1) / w);
+  for (int r = most; r >= (rows > 0 ? rows : 1); --r) {
+    p.rows = r;
+    p.x_bytes = p.spread_x ? round16(2LL * (r + 2) * w * cin) + 16
+                           : (r + 2) * (w + 2) * p.sx;
+    p.dy_bytes = p.spread_dy ? round16(2LL * r * w * cout) + 16 : r * w * p.sd;
+    p.stage_bytes = p.x_bytes + p.dy_bytes;
+    p.xtile_bytes = p.spread_x ? (r + 2) * (w + 2) * p.sx : 0;
+    p.dytile_bytes = p.spread_dy ? r * w * p.sd : 0;
+    const int room = smem_optin - kNaZero - p.xtile_bytes - p.dytile_bytes;
+    p.stages = std::min(kNaMaxStages, room / p.stage_bytes);
+    if (p.stages >= kNaMinStages) break;
+  }
+  if (p.stages < kNaMinStages || p.rows > h) return false;
+  // the output's staging tile reuses the ring and the tiles
+  p.smem = kNaZero + std::max(p.stages * p.stage_bytes + p.xtile_bytes +
+                                  p.dytile_bytes,
+                              9 * cin * na_out_ld(p.cn) * 4);
+  if (p.smem > smem_optin) return false;
+  p.bands_h = (h + p.rows - 1) / p.rows;
+  const long long bands = static_cast<long long>(batch) * p.bands_h;
+  if (bands >= INT_MAX) return false;
+  p.bands = static_cast<int>(bands);
+  // the runtime keeps 1 KB of each SM's shared memory per block
+  p.per_sm = std::max(
+      1, std::min(kNaBlocksPerSm, per_sm_smem / (p.smem + 1024)));
+  const long long per_block =
+      (bands + static_cast<long long>(p.per_sm) * sms - 1) / (p.per_sm * sms);
+  p.blocks = blocks > 0 ? blocks
+                        : static_cast<int>((bands + per_block - 1) / per_block);
+  if (p.blocks > p.bands || p.blocks > 65535) return false;
+  *out = p;
+  return true;
+}
+
+// bf16 is checked by the caller: the narrow kernel takes nothing else.
+bool narrow_legal(const void* x, const void* dy, int w, int cin, int cout) {
+  return cin >= 1 && cin <= kNaMaxC && cout >= 1 && cout <= kNaMaxC &&
+         w <= kNaMaxW &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+}
+
+template <int MT, int NP>
+cudaError_t launch_narrow(const void* x, const void* dy, float* out,
+                          const NaPlan& p, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      wgrad3x3_narrow_kernel<MT, NP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  wgrad3x3_narrow_kernel<MT, NP><<<p.blocks, kNaThreads, p.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), out, p);
+  return cudaGetLastError();
+}
+
+// The narrow kernel and, for more than one block, the sum of its partials.
+int run_narrow(const void* x, const void* dy, void* part, void* out,
+               int batch, int h, int w, int cin, int cout, int rows,
+               int blocks, cudaStream_t s) {
+  NaPlan p;
+  if (!narrow_legal(x, dy, w, cin, cout) ||
+      !plan_narrow(batch, h, w, cin, cout, rows, blocks, &p) ||
+      (p.blocks > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* dst = static_cast<float*>(p.blocks > 1 ? part : out);
+  const bool two_m = p.cs > 16;
+  const bool four_n = p.cn > 16;
+  const cudaError_t err =
+      two_m ? (four_n ? launch_narrow<2, 4>(x, dy, dst, p, s)
+                      : launch_narrow<2, 2>(x, dy, dst, p, s))
+            : (four_n ? launch_narrow<1, 4>(x, dy, dst, p, s)
+                      : launch_narrow<1, 2>(x, dy, dst, p, s));
+  if (err != cudaSuccess || p.blocks == 1) return static_cast<int>(err);
+  const int n = 9 * cin * cout;
+  wgrad3x3_narrow_sum_kernel<<<(n + 31) / 32, 32 * kNaSumSplit, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), n, p.blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // path: 0 = the wmma kernel, 1 = the wgmma kernel (bf16, cin and cout
-// multiples of 64, x and dy 16-byte aligned; the caller decides, by shape).
+// multiples of 64, x and dy 16-byte aligned), 2 = the narrow kernel (bf16,
+// 1 <= cin, cout <= 32, w <= 128, x and dy 16-byte aligned); the caller
+// decides, by shape.
 
-// Number of row chunks of a path: the caller allocates (chunks, 3, 3, cin,
-// cout) fp32 scratch when it is above 1.  -1 if the device cannot be queried
-// or the wgmma kernel has no plan for the shape.
+// Number of row chunks of a path (the narrow kernel's blocks): the caller
+// allocates (chunks, 3, 3, cin, cout) fp32 scratch when it is above 1.  -1
+// if the device cannot be queried or the wgmma or narrow kernel has no plan
+// for the shape.
 extern "C" int cnsn_wgrad3x3_chunks(int path, int batch, int h, int w,
                                     int cin, int cout) {
   int sms = 0;
@@ -854,6 +1477,10 @@ extern "C" int cnsn_wgrad3x3_chunks(int path, int batch, int h, int w,
   if (path == 1) {  // a shape the kernel does not take is refused at launch
     WgPlan p;
     return plan_wgmma(batch, h, w, cin, cout, &p) ? p.chunks : -1;
+  }
+  if (path == 2) {
+    NaPlan p;
+    return plan_narrow(batch, h, w, cin, cout, 0, 0, &p) ? p.blocks : -1;
   }
   const long long rows = static_cast<long long>(batch) * h * w;
   const long long blocks =
@@ -891,26 +1518,67 @@ extern "C" int cnsn_wgrad3x3_wgmma_plan(int batch, int h, int w, int cin,
   return 0;
 }
 
+// The narrow kernel's plan for a shape, for reports; rows and blocks above 0
+// replace the planned ones.  plan[0..9] = image rows per band, bands, ring
+// stages, blocks, dynamic shared memory of a block, whether x and dy are
+// spread, the bytes its loads bring into shared memory in all, the bytes of
+// the blocks' partials (written once and read once; 0 for one block), and
+// blocks per SM that fit.  -1 if the device cannot be queried or no plan
+// fits.
+extern "C" int cnsn_wgrad3x3_narrow_plan(int batch, int h, int w, int cin,
+                                         int cout, int rows, int blocks,
+                                         long long* plan) {
+  NaPlan p;
+  if (!plan_narrow(batch, h, w, cin, cout, rows, blocks, &p)) return -1;
+  long long fill = 0;  // x's halo rows inside the image, dy's rows
+  for (int h0 = 0; h0 < h; h0 += p.rows) {
+    const int xrows = std::min(h, h0 + p.rows + 1) - std::max(0, h0 - 1);
+    fill += (static_cast<long long>(xrows) * cin +
+             static_cast<long long>(std::min(p.rows, h - h0)) * cout) * w * 2;
+  }
+  const long long values[10] = {
+      p.rows, p.bands, p.stages, p.blocks, p.smem, p.spread_x, p.spread_dy,
+      fill * batch,
+      p.blocks > 1 ? 4LL * p.blocks * 9 * cin * cout : 0, p.per_sm};
+  std::copy(values, values + 10, plan);
+  return 0;
+}
+
+// The narrow kernel with its band height and block count chosen (0: as
+// planned), for sweeps; arguments otherwise as cnsn_wgrad3x3's (bf16), with
+// (blocks, 3, 3, cin, cout) fp32 scratch in part for more than one block.
+extern "C" int cnsn_wgrad3x3_narrow(const void* x, const void* dy, void* part,
+                                    void* out, int batch, int h, int w,
+                                    int cin, int cout, int rows, int blocks,
+                                    void* stream) {
+  return run_narrow(x, dy, part, out, batch, h, w, cin, cout, rows, blocks,
+                    static_cast<cudaStream_t>(stream));
+}
+
 // dtype: 0 = float32, 1 = bfloat16; vec (wmma path): 1, or 4 (fp32) / 8
 // (bf16) when it divides cin and cout and x and dy are 16-byte aligned.  x
 // (batch, h, w, cin) and dy (batch, h, w, cout) are contiguous, of one dtype;
 // out is (3, 3, cin, cout) fp32; part is the scratch above (unused when
-// chunks is 1).  Returns the cudaError_t of the launches (0 on success), and
-// cudaErrorInvalidValue, launching nothing, for a path the shape does not
-// allow.
+// chunks is 1); the narrow path runs `chunks` blocks.  Returns the
+// cudaError_t of the launches (0 on success), and cudaErrorInvalidValue,
+// launching nothing, for a path the shape does not allow.
 extern "C" int cnsn_wgrad3x3(int path, int dtype, int vec, const void* x,
                              const void* dy, void* part, void* out, int batch,
                              int h, int w, int cin, int cout, int chunks,
                              void* stream) {
   const long long rows = static_cast<long long>(batch) * h * w;
   if (batch < 1 || h < 1 || w < 1 || cin < 1 || cout < 1 || rows >= (1LL << 31) ||
-      chunks < 1 || chunks > 65535 || (path != 0 && path != 1)) {
+      chunks < 1 || chunks > 65535 || path < 0 || path > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((dtype != 0 && dtype != 1) || (chunks > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 2) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return run_narrow(x, dy, part, out, batch, h, w, cin, cout, 0, chunks, s);
+  }
   float* dst = static_cast<float*>(chunks > 1 ? part : out);
   if (path == 1) {
     WgPlan p;

@@ -6,7 +6,8 @@ them at first use; ``LAUNCHES`` counts their launches, by wrapper name.
   K2  ``bn_stats``    shifted BatchNorm sums and backward (``csrc/bn_stats.cu``)
   K3  ``selfnorm``    fused eval SelfNorm                 (``csrc/selfnorm.cu``)
   K4  ``conv_wgrad``  3×3 stride-1 conv weight gradient   (``csrc/conv_wgrad.cu``;
-                      a wgmma and a wmma kernel, ``wgrad3x3_path`` between them)
+                      a wgmma, a narrow and a wmma kernel, ``wgrad3x3_path``
+                      between them)
 """
 from ._build import LAUNCHES, build
 from .bn_stats import (BnSums, bn_sums_bwd_cuda, bn_sums_bwd_reference,

@@ -3,12 +3,14 @@
 Port of ``cnsn_tpu/ops/pallas/conv_wgrad.py``.  Its two TPU entry points,
 ``wgrad3x3_pallas`` (one image per grid step, fp32 operands) and
 ``wgrad3x3_tiled`` (batch-tiled, native-dtype operands, fp32 sums),
-compute the same dW and become two hand-written CUDA kernels in
+compute the same dW and become three hand-written CUDA kernels in
 ``cnsn_tpu_torch/csrc/conv_wgrad.cu`` (its header states the designs and
 the bounds): a ``wgmma`` kernel fed by TMA for bf16 with Cin and Cout
-multiples of 64, and a ``wmma`` kernel for every other call.
-``wgrad3x3_path`` is the rule between them; ``wgrad3x3_reference`` is
-their plain PyTorch version.  The
+multiples of 64, a ``narrow`` kernel on ``mma.sync`` for bf16 with Cin
+and Cout of at most 32, which stages each band of image rows once and
+reads all nine taps from shared memory, and a ``wmma`` kernel for every
+other call.  ``wgrad3x3_path`` is the rule between them;
+``wgrad3x3_reference`` is their plain PyTorch version.  The
 TPU's VMEM plans (``wgrad3x3_fits``, ``wgrad3x3_tile_plan``) have no
 counterpart here; the measured shape gate of ``wgrad3x3_tiled_wins`` is
 copied in ``ops/convdot.py``.
@@ -29,11 +31,15 @@ from ._build import LAUNCHES
 from ._launch import (DTYPE_CODE, INT, PTR, bind, check_activation,
                       check_launch, stream, vector_width)
 
-__all__ = ["wgrad3x3_cuda", "wgrad3x3_path", "wgrad3x3_reference",
-           "wgrad3x3_wgmma_plan"]
+__all__ = ["wgrad3x3_cuda", "wgrad3x3_narrow_plan", "wgrad3x3_path",
+           "wgrad3x3_reference", "wgrad3x3_wgmma_plan"]
 
 # the C interface's path codes, and the LAUNCHES key of each path's kernel
-PATHS = {"wmma": (0, "conv_wgrad3x3"), "wgmma": (1, "conv_wgrad3x3_wgmma")}
+PATHS = {"wmma": (0, "conv_wgrad3x3"), "wgmma": (1, "conv_wgrad3x3_wgmma"),
+         "narrow": (2, "conv_wgrad3x3_narrow")}
+# the narrow kernel's domain (csrc/conv_wgrad.cu, kNaMaxC and kNaMaxW)
+NARROW_MAX_C = 32
+NARROW_MAX_W = 128
 
 
 def _check_shapes(x: torch.Tensor, dy: torch.Tensor) -> None:
@@ -58,13 +64,24 @@ def wgrad3x3_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 def wgrad3x3_path(x: torch.Tensor, dy: torch.Tensor) -> str:
-    """Which kernel takes the call: ``"wgmma"`` for bf16 with Cin and Cout
-    multiples of 64 and both operands 16-byte aligned (the TMA loads'
-    64-channel boxes and aligned bases), ``"wmma"`` for the rest."""
-    wide = (x.dtype == dy.dtype == torch.bfloat16
-            and x.shape[-1] % 64 == 0 and dy.shape[-1] % 64 == 0)
-    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    return "wgmma" if wide and aligned else "wmma"
+    """Which kernel takes the call, in this order:
+
+    * ``"wgmma"``: bf16, Cin and Cout multiples of 64, x and dy 16-byte
+      aligned (the TMA loads' 64-channel boxes and aligned bases);
+    * ``"narrow"``: bf16, 1 ≤ Cin ≤ 32, 1 ≤ Cout ≤ 32, W ≤ 128, x and dy
+      16-byte aligned (its 16-byte copies start at the tensors' bases; a
+      band of 3 stages fits in shared memory up to that width);
+    * ``"wmma"``: every other call (fp32, unaligned views, the rest)."""
+    if not (x.dtype == dy.dtype == torch.bfloat16
+            and x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0):
+        return "wmma"
+    cin, cout = x.shape[-1], dy.shape[-1]
+    if cin % 64 == 0 and cout % 64 == 0:
+        return "wgmma"
+    if (1 <= cin <= NARROW_MAX_C and 1 <= cout <= NARROW_MAX_C
+            and x.shape[2] <= NARROW_MAX_W):
+        return "narrow"
+    return "wmma"
 
 
 @functools.cache
@@ -92,6 +109,29 @@ def wgrad3x3_wgmma_plan(b: int, h: int, w: int, cin: int,
         raise RuntimeError(f"conv_wgrad3x3_wgmma: no plan for "
                            f"{(b, h, w, cin)} -> {cout}")
     return dict(zip(_PLAN_KEYS, out))
+
+
+_NARROW_KEYS = ("rows", "bands", "stages", "blocks", "smem_bytes",
+                "spread_x", "spread_dy", "smem_fill_bytes", "partial_bytes",
+                "blocks_per_sm")
+
+
+def wgrad3x3_narrow_plan(b: int, h: int, w: int, cin: int, cout: int,
+                         rows: int = 0, blocks: int = 0) -> dict:
+    """The narrow kernel's plan for a shape on the current device, for
+    reports: image rows per band, bands, ring stages, blocks, a block's
+    shared memory, whether x and dy are spread from raw rows, the bytes
+    its loads bring into shared memory in one call, the bytes of the
+    blocks' fp32 partials, and blocks per SM.  ``rows`` and ``blocks``
+    above 0 replace the planned ones (as ``k4_sweep`` runs them)."""
+    fn = bind("conv_wgrad", "cnsn_wgrad3x3_narrow_plan", INT, INT, INT, INT,
+              INT, INT, INT, ctypes.POINTER(ctypes.c_longlong))
+    out = (ctypes.c_longlong * len(_NARROW_KEYS))()
+    if fn(b, h, w, cin, cout, rows, blocks, out) != 0:
+        raise RuntimeError(f"conv_wgrad3x3_narrow: no plan for "
+                           f"{(b, h, w, cin)} -> {cout} at rows={rows}, "
+                           f"blocks={blocks}")
+    return dict(zip(_NARROW_KEYS, out))
 
 
 def wgrad3x3_cuda(x: torch.Tensor, dy: torch.Tensor,

@@ -26,7 +26,9 @@ _FAMILIES = (
     ("ins_stats", ("ins_sums_kernel", "ins_finalize_kernel")),  # K1
     ("bn_stats_bwd", ("bn_bwd_kernel",)),            # K2 backward
     ("bn_stats", ("bn_sums_kernel", "bn_finalize_kernel")),     # K2
-    ("conv_wgrad3x3", ("wgrad3x3_",)),               # K4, before cuDNN's wgrad
+    # K4's wmma, wgmma and narrow kernels and their sums, before cuDNN's
+    # wgrad
+    ("conv_wgrad3x3", ("wgrad3x3_",)),
     ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bn_infer")),
     ("pool", ("pool",)),
     ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "implicit", "fprop",

@@ -93,10 +93,15 @@ def test_conv2d_custom_bwd_pallas_modes_match_jax(wgrad, stride,
 
 
 @pytest.mark.parametrize("shape,cout", [((3, 10, 12, 8), 16),
-                                        ((2, 9, 7, 3), 16)])
+                                        ((2, 9, 7, 3), 16),
+                                        ((2, 6, 8, 3), 16),
+                                        ((2, 6, 8, 16), 32),
+                                        ((2, 6, 8, 32), 32)])
 def test_wgrad3x3_reference_matches_pallas_kernels(shape, cout):
     """The plain version against both TPU entry points (interpret mode),
-    at the shape of tests/test_convdot.py and at Cin=3 (the WRN stem)."""
+    at the shape of tests/test_convdot.py, at Cin=3 (the WRN stem), and at
+    the channels of WRN-40-2's three narrow sites (3→16, 16→32, 32→32),
+    which the narrow kernel takes on the card."""
     rng = np.random.RandomState(shape[-1])
     x = rng.randn(*shape).astype(np.float32)
     dy = rng.randn(*shape[:3], cout).astype(np.float32)

@@ -500,3 +500,112 @@ def test_wgrad3x3_refuses_a_forced_wgmma_path_the_rule_excludes():
             wgrad3x3_cuda(x, dy, path="wgmma")
     torch.cuda.synchronize()
     assert _k4_counts() == before
+
+
+# The narrow kernel: WRN-40-2's three narrow shapes (bf16, Cin, Cout <= 32).
+K4_NARROW = [s for s in K4_SHAPES if s[1] <= 32 and s[2] <= 32]
+NARROW = PATHS["narrow"][1]
+
+
+def _narrow_count():
+    return LAUNCHES[NARROW]
+
+
+@pytest.mark.parametrize("h,cin,cout", K4_NARROW)
+def test_wgrad3x3_narrow_matches_plain(h, cin, cout):
+    x = _x((4, h, h, cin), 80, torch.bfloat16)
+    dy = _x((4, h, h, cout), 81, torch.bfloat16, offset=0.0)
+    assert wgrad3x3_path(x, dy) == "narrow"
+    before = (*_k4_counts(), _narrow_count())
+    got = wgrad3x3_cuda(x, dy)
+    torch.cuda.synchronize()
+    assert (*_k4_counts(), _narrow_count()) == (*before[:2], before[2] + 1)
+    _k4_close(got, x, dy)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (1, 32, 32, 32, 32),   # one image: one block per band
+    (2, 1, 1, 16, 16),     # 1x1: every tap but the centre reads zeros
+    (3, 9, 13, 16, 32),    # W not a multiple of 8; pixels past the band
+    (2, 45, 12, 8, 8),     # H that the band height (22) does not divide
+    (2, 5, 7, 1, 16),      # Cin 1, 3, 5, 7: x spread from raw rows whose
+    (2, 5, 7, 3, 16),      # starts lie off 16-byte boundaries
+    (2, 5, 7, 5, 16),
+    (2, 5, 7, 7, 16),
+    (2, 6, 10, 16, 1),     # Cout 1: dy spread; Cout 24: an odd n8 tile
+    (2, 6, 10, 8, 24),
+    (3, 3, 5, 32, 32),     # fewer pixels than one k-step of 16
+    (5, 17, 19, 3, 7),     # both spread, odd everything
+    (1, 3, 128, 32, 32),   # W = 128, the widest: bands of 2 rows, 3 stages
+    (1, 2, 128, 31, 31),   # the same with both operands spread
+])
+def test_wgrad3x3_narrow_edges(b, h, w, cin, cout):
+    x = _x((b, h, w, cin), 82, torch.bfloat16)
+    dy = _x((b, h, w, cout), 83, torch.bfloat16, offset=0.0)
+    assert wgrad3x3_path(x, dy) == "narrow"
+    got = wgrad3x3_cuda(x, dy)
+    torch.cuda.synchronize()
+    _k4_close(got, x, dy)
+
+
+def test_wgrad3x3_narrow_is_deterministic():
+    x = _x((16, 32, 32, 32), 84, torch.bfloat16)
+    dy = _x((16, 32, 32, 32), 85, torch.bfloat16, offset=0.0)
+    assert _chunks(x, 32, "narrow") > 1
+    assert torch.equal(wgrad3x3_cuda(x, dy), wgrad3x3_cuda(x, dy))
+
+
+@pytest.mark.parametrize("h,cin,cout", K4_NARROW)
+def test_wgrad3x3_narrow_agrees_with_wmma(h, cin, cout):
+    """The narrow kernel and the forced wmma kernel at the same shape:
+    each within the bound of the plain version, and of each other."""
+    x = _x((8, h, h, cin), 86, torch.bfloat16)
+    dy = _x((8, h, h, cout), 87, torch.bfloat16, offset=0.0)
+    before = (LAUNCHES[WMMA], _narrow_count())
+    new = wgrad3x3_cuda(x, dy)
+    old = wgrad3x3_cuda(x, dy, path="wmma")
+    torch.cuda.synchronize()
+    assert (LAUNCHES[WMMA], _narrow_count()) == (before[0] + 1,
+                                                 before[1] + 1)
+    _k4_close(new, x, dy)
+    _k4_close(old, x, dy)
+    scale = wgrad3x3_reference(x.abs(), dy.abs())
+    assert bool(((new - old).abs() <= 1e-5 * scale).all())
+
+
+def test_wgrad3x3_narrow_counts_launches_by_path():
+    base = _x((2 * 6 * 6 * 32 + 8,), 88, torch.bfloat16)
+    cases = [(_x((2, 6, 6, 32), 89, torch.bfloat16), 32, "narrow"),
+             (_x((2, 6, 6, 3), 89, torch.bfloat16), 16, "narrow"),
+             (_x((2, 6, 6, 32), 89), 32, "wmma"),
+             (_x((2, 6, 6, 33), 90, torch.bfloat16), 32, "wmma"),
+             (_x((2, 6, 6, 64), 91, torch.bfloat16), 64, "wgmma"),
+             (base[1:1 + 2 * 6 * 6 * 32].view(2, 6, 6, 32), 32, "wmma")]
+    keys = (WMMA, WGMMA, NARROW)
+    for x, cout, path in cases:
+        dy = _x((2, 6, 6, cout), 92, x.dtype, offset=0.0)
+        assert wgrad3x3_path(x, dy) == path
+        before = [LAUNCHES[k] for k in keys]
+        _k4_close(wgrad3x3_cuda(x, dy), x, dy)
+        after = [LAUNCHES[k] for k in keys]
+        assert [a - b for a, b in zip(after, before)] == [
+            int(PATHS[path][1] == k) for k in keys]
+
+
+def test_wgrad3x3_refuses_a_forced_narrow_path_the_rule_excludes():
+    """fp32, Cin 33, Cout 33, W 129 and an x off a 16-byte boundary: the
+    narrow kernel is refused before any launch, and nothing is counted."""
+    base = _x((2 * 6 * 6 * 32 + 8,), 93, torch.bfloat16)
+    cases = [(_x((2, 6, 6, 32), 94), 32),
+             (_x((2, 6, 6, 33), 95, torch.bfloat16), 32),
+             (_x((2, 6, 6, 32), 96, torch.bfloat16), 33),
+             (_x((1, 2, 129, 8), 97, torch.bfloat16), 8),
+             (base[1:1 + 2 * 6 * 6 * 32].view(2, 6, 6, 32), 32)]
+    before = (*_k4_counts(), _narrow_count())
+    for x, cout in cases:
+        dy = _x((*x.shape[:3], cout), 98, x.dtype, offset=0.0)
+        assert wgrad3x3_path(x, dy) == "wmma"
+        with pytest.raises(RuntimeError, match=NARROW):
+            wgrad3x3_cuda(x, dy, path="narrow")
+    torch.cuda.synchronize()
+    assert (*_k4_counts(), _narrow_count()) == before

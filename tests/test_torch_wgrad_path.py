@@ -1,4 +1,4 @@
-"""K4's rule between its two kernels (``wgrad3x3_path``), on the CPU: the
+"""K4's rule between its three kernels (``wgrad3x3_path``), on the CPU: the
 rule is pure Python over dtype, channel counts and addresses, so it is
 checked here at every stride-1 3x3 shape of the two training paths that
 ``chip_smoke.py`` drives, where the card then counts each kernel's
@@ -35,21 +35,72 @@ def _pair(hw, cin, cout, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("model,shape", K4_CASES)
 def test_bf16_shapes_of_the_training_paths(model, shape):
+    """Every wide site takes the wgmma kernel; WRN-40-2's three narrow
+    shapes (3→16, 16→32, 32→32 at 32²) take the narrow kernel."""
     hw, cin, cout, _ = shape
-    want = "wgmma" if cin % 64 == 0 and cout % 64 == 0 else "wmma"
+    if cin % 64 == 0 and cout % 64 == 0:
+        want = "wgmma"
+    else:
+        assert (hw, cin, cout) in ((32, 3, 16), (32, 16, 32), (32, 32, 32))
+        want = "narrow"
     assert wgrad3x3_path(*_pair(hw, cin, cout)) == want
 
 
 def test_launches_per_step_by_kernel():
     """What chip_smoke checks on the card: every ResNet-50 site and 22 of
-    WRN-40-2's 35 take the wgmma kernel."""
-    def wide(shapes):
+    WRN-40-2's 35 take the wgmma kernel, WRN's other 13 the narrow
+    kernel, and none the wmma kernel."""
+    def sites(shapes, path):
         return sum(s[3] for s in shapes
-                   if wgrad3x3_path(*_pair(*s[:3])) == "wgmma")
+                   if wgrad3x3_path(*_pair(*s[:3])) == path)
 
-    assert wide(_SMOKE.K4_R50) == _SMOKE.R50_K4 == 13
-    assert wide(_SMOKE.K4_WRN) == _SMOKE.WRN_K4_WGMMA == 22
+    assert sites(_SMOKE.K4_R50, "wgmma") == _SMOKE.R50_K4 == 13
+    assert sites(_SMOKE.K4_R50, "narrow") == sites(_SMOKE.K4_R50, "wmma") == 0
+    assert sites(_SMOKE.K4_WRN, "wgmma") == _SMOKE.WRN_K4_WGMMA == 22
+    assert sites(_SMOKE.K4_WRN, "narrow") == _SMOKE.WRN_K4_NARROW == 13
+    assert sites(_SMOKE.K4_WRN, "wmma") == 0
     assert sum(s[3] for s in _SMOKE.K4_WRN) == _SMOKE.WRN_K4 == 35
+
+
+@pytest.mark.parametrize("cin,cout,want", [
+    (1, 16, "narrow"), (3, 16, "narrow"), (32, 16, "narrow"),
+    (16, 1, "narrow"), (16, 8, "narrow"), (16, 32, "narrow"),
+    (32, 32, "narrow"), (5, 7, "narrow"),
+    (33, 32, "wmma"), (32, 33, "wmma"), (33, 33, "wmma"),
+    (16, 64, "wmma"), (64, 16, "wmma"), (64, 64, "wgmma")])
+def test_narrow_domain_by_channels(cin, cout, want):
+    """bf16 with 1 ≤ Cin, Cout ≤ 32 takes the narrow kernel; one side
+    past 32 goes to wmma, both multiples of 64 to wgmma."""
+    assert wgrad3x3_path(*_pair(4, cin, cout)) == want
+
+
+@pytest.mark.parametrize("w,want", [(1, "narrow"), (32, "narrow"),
+                                    (128, "narrow"), (129, "wmma")])
+def test_narrow_domain_by_width(w, want):
+    """The narrow kernel stages a band of whole image rows: W ≤ 128,
+    where three stages of one row at 32 channels fit in shared memory."""
+    x = torch.zeros(1, 2, w, 32, dtype=torch.bfloat16)
+    dy = torch.zeros(1, 2, w, 32, dtype=torch.bfloat16)
+    assert wgrad3x3_path(x, dy) == want
+
+
+@pytest.mark.parametrize("operand", ["x", "dy", "fp32"])
+def test_narrow_needs_aligned_bf16(operand):
+    """The narrow kernel's 16-byte copies start at each tensor's base:
+    an unaligned view, like fp32, takes the wmma kernel."""
+    x, dy = _pair(32, 32, 32)
+    assert wgrad3x3_path(x, dy) == "narrow"
+    if operand == "fp32":
+        x, dy = x.float(), dy.float()
+    else:
+        base = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+        view = base[1:].view(x.shape)
+        assert view.data_ptr() % 16 != 0
+        if operand == "x":
+            x = view
+        else:
+            dy = view
+    assert wgrad3x3_path(x, dy) == "wmma"
 
 
 @pytest.mark.parametrize("model,shape", K4_CASES)
