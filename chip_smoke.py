@@ -9,8 +9,11 @@ It builds the port's CUDA kernels (K1 instance statistics, K2 BatchNorm
 sums, K3 eval SelfNorm, K4 3×3 conv weight gradient) from the sources in
 the checkout, all at once, and holds each kernel, forward and backward,
 against its plain PyTorch version at the shapes ResNet-50 and WRN-40-2
-give it, with times beside its bound and the library's call.  Then it
-drives the port's main paths with the launch counts read around each:
+give it, with times beside its bound and the library's call (K3 at
+ResNet-50's shapes at b=64 and b=1 and WRN-40-2's at b=128, its staged
+kernel with the first, v1 kernel beside it).  Then it drives the port's
+main paths with the launch counts read around each (and, in the profiled
+training steps, one K2 forward kernel per BatchNorm2d layer):
 
   * training, the flagship recipe (``cnsn_tpu/configs/imagenet/resnet50/
     cnsn.yaml``: SelfNorm at pos='post', image CrossNorm gated per batch
@@ -63,6 +66,11 @@ BATCH = 64
 IMAGE = 224
 # (H = W, C, sites) of the 16 SelfNorm sites of ResNet-50 at 224², pos='post'
 SN_SHAPES = ((56, 256, 3), (28, 512, 4), (14, 1024, 6), (7, 2048, 3))
+# WRN-40-2 at 32², pos='pre': (H = W, C, sites) of its 18 SelfNorm sites
+# (each group's first block normalises the group's input), and of its 37
+# BatchNorm2d inputs (each block's two, and the last after group 3)
+WRN_SN_SHAPES = ((32, 16, 1), (32, 32, 6), (16, 64, 6), (8, 128, 5))
+WRN_BN_SHAPES = ((32, 16, 1), (32, 32, 12), (16, 64, 12), (8, 128, 12))
 RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "imagenet", "resnet50",
                       "cnsn.yaml")
 # bench.py's loop: 5 warm-up steps, then 3 timed windows of 10, gated by
@@ -98,6 +106,10 @@ WRN_K4_WGMMA, WRN_K4_NARROW = 22, 13
 K4_WMMA, K4_WGMMA, K4_NARROW = ("conv_wgrad3x3", "conv_wgrad3x3_wgmma",
                                 "conv_wgrad3x3_narrow")
 K4_KERNELS = (K4_WMMA, K4_WGMMA, K4_NARROW)
+# K3's two kernels (ops/kernels/selfnorm.py::selfnorm_path): staged for
+# every SelfNorm site of both models (bf16 and fp32, C a multiple of the
+# 16-byte vector, aligned), v1 (the first port's kernel) for the rest
+K3_STAGED, K3_V1 = "selfnorm_infer_staged", "selfnorm_infer"
 FLAGSHIP_K4_STEPS = 5
 # K4 against its plain version: 1e-5 of Σ|x|·|dy| per element.  Both sum
 # exact (bf16) or singly rounded (fp32) products in fp32 in other orders;
@@ -209,50 +221,60 @@ def _row(kernel, shape, dtype, sites, err, tol, flush, run, plain,
 
 
 def phase_k3_vs_plain(dev, flush):
+    """K3 at the 4 SelfNorm shapes of ResNet-50 at b=64 and b=1 (serving's
+    batch and its latency case) and at the 4 of WRN-40-2 at b=128 (its
+    eval batch), fp32 and bf16: the kernel selfnorm_path picks (the staged
+    one at every such shape) against the plain version, bit for bit
+    against itself run to run, with the v1 kernel checked and timed beside
+    it through the forced path (v1_ms, v1_max_abs_err), and the staged
+    kernel's plan."""
     from cnsn_tpu_torch.ops import (selfnorm_infer_cuda,
-                                    selfnorm_infer_reference)
+                                    selfnorm_infer_reference, selfnorm_path)
+    from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS, selfnorm_plan
     gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [("resnet50", batch, shape) for batch in (BATCH, 1)
+             for shape in SN_SHAPES]
+    cases += [("wrn", 128, shape) for shape in WRN_SN_SHAPES]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for hw_side, c, sites in SN_SHAPES:
-            shape = (BATCH, hw_side, hw_side, c)
+        for model, batch, (hw_side, c, sites) in cases:
+            shape = (batch, hw_side, hw_side, c)
             x = (torch.randn(shape, generator=gen, device=dev) * 1.5
                  + 0.3).to(dtype)
             w = torch.randn(c, 2, generator=gen, device=dev) * 0.3
             a = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
             b = torch.randn(c, generator=gen, device=dev) * 0.1
+            path = selfnorm_path(x)
+            check(path == "staged", f"K3 {shape} {dtype} takes {path}")
             got = selfnorm_infer_cuda(x, w, a, b)
+            again = selfnorm_infer_cuda(x, w, a, b)
+            old = selfnorm_infer_cuda(x, w, a, b, path="v1")
             want = selfnorm_infer_reference(x, w, a, b)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             torch.testing.assert_close(got.float(), want.float(),
                                        **TOL[dtype])
+            torch.testing.assert_close(old.float(), want.float(),
+                                       **TOL[dtype])
             check(torch.isfinite(got).all().item(), f"finite K3 {shape}")
-            del got, want
+            check(torch.equal(got, again), f"K3 {shape} run to run")
+            v1_err = (old.float() - want.float()).abs().max().item()
+            del got, again, old, want
             rows.append(_row(
-                "selfnorm_infer", shape, dtype, sites, err, TOL[dtype], flush,
-                lambda: selfnorm_infer_cuda(x, w, a, b),
+                PATHS[path][1], shape, dtype, sites, err, TOL[dtype],
+                flush, lambda: selfnorm_infer_cuda(x, w, a, b),
                 lambda: selfnorm_infer_reference(x, w, a, b), None,
-                "null: no single PyTorch call computes the fused SelfNorm",
+                "null: no single PyTorch call computes the fused "
+                "SelfNorm",
                 2 * x.numel() * x.element_size() + 4 * c * 4,
-                5 * x.numel()))
+                5 * x.numel(), path=path, model=model,
+                plan=selfnorm_plan(x),
+                v1_ms=time_ms(lambda: selfnorm_infer_cuda(
+                    x, w, a, b, path="v1"), 20, flush),
+                v1_max_abs_err=v1_err))
             del x
     torch.cuda.empty_cache()
     return rows
-
-
-def bn_shapes():
-    """{(H = W, C): layers} of ResNet-50's BatchNorm2d inputs at 224²."""
-    from cnsn_tpu_torch.models.resnet import block_plan
-    shapes = collections.Counter({(IMAGE // 2, 64): 1})  # the stem's BN
-    hw = IMAGE // 4
-    for blk in block_plan((3, 4, 6, 3)):
-        out_hw = hw // blk["stride"]
-        shapes[(hw, blk["planes"])] += 1            # bn1, after a 1x1
-        shapes[(out_hw, blk["planes"])] += 1        # bn2, after the 3x3
-        shapes[(out_hw, 4 * blk["planes"])] += 1 + blk["has_downsample"]
-        hw = out_hw
-    return shapes
 
 
 def phase_k1_vs_plain(dev, flush):
@@ -309,27 +331,38 @@ def phase_k1_vs_plain(dev, flush):
 
 def phase_k2_vs_plain(dev, flush):
     """K2 forward and backward at the 12 distinct BatchNorm2d input shapes
-    of ResNet-50 at b=128 224² bf16, with a warm running mean."""
+    of ResNet-50 at b=128 224² and the 4 of WRN-40-2 at b=128 32², bf16,
+    with a warm running mean."""
     from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
                                     bn_sums_cuda, bn_sums_reference)
+    from cnsn_tpu_torch.ops.kernels.bn_stats import bn_sums_plan
+    from cnsn_tpu_torch.utils.stats_sweep import bn_shapes
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
-    shapes = bn_shapes()
+    shapes = bn_shapes(IMAGE)
     check(len(shapes) == 12 and sum(shapes.values()) == BN_LAYERS,
           f"ResNet-50 BN shapes {dict(shapes)}")
-    for (hw, c), sites in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
+    cases = [("resnet50", hw, c, sites) for (hw, c), sites in
+             sorted(shapes.items(), key=lambda kv: -kv[0][0])]
+    cases += [("wrn", hw, c, sites) for hw, c, sites in WRN_BN_SHAPES]
+    check(sum(r[3] for r in cases if r[0] == "wrn") == WRN_BN,
+          f"WRN-40-2 BN shapes {WRN_BN_SHAPES}")
+    for model, hw, c, sites in cases:
         shape = (128, hw, hw, c)
         x = (torch.randn(shape, generator=gen, device=dev) * 1.5
              + 0.5).to(torch.bfloat16)
         m0 = torch.randn(c, generator=gen, device=dev) * 0.3
         elems = x.numel()
         s1, s2 = bn_sums_cuda(x, m0)
+        a1, a2 = bn_sums_cuda(x, m0)
         w1, w2 = bn_sums_reference(x, m0)
         torch.cuda.synchronize()
+        check(torch.equal(s1, a1) and torch.equal(s2, a2),
+              f"K2 forward {shape} run to run")
         d_abs = (x.float() - m0).abs().sum(dim=(0, 1, 2))
         err = max((s1 - w1).abs().max().item(), (s2 - w2).abs().max().item())
-        # fp32 sums of up to 1.6M terms in other orders: 1e-5 of Σ|x−m0|
-        # (s1 may cancel to near 0) and of s2
+        # the plain version adds up to 1.6M terms in fp32, the kernel in
+        # fp64: 1e-5 of Σ|x−m0| (s1 may cancel to near 0) and of s2
         check(bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
               and bool(((s2 - w2).abs() <= 1e-5 * w2).all()),
               f"K2 forward {shape}: {err}")
@@ -338,7 +371,8 @@ def phase_k2_vs_plain(dev, flush):
             {"s1_of_sum_abs": 1e-5, "s2_rtol": 1e-5}, flush,
             lambda: bn_sums_cuda(x, m0), lambda: bn_sums_reference(x, m0),
             lambda: torch.var_mean(x, dim=(0, 1, 2)), "torch.var_mean",
-            elems * 2 + 3 * c * 4, 4 * elems))
+            elems * 2 + 3 * c * 4, 4 * elems, model=model,
+            plan=bn_sums_plan(x)))
         g1 = torch.randn(c, generator=gen, device=dev)
         g2 = torch.randn(c, generator=gen, device=dev) * 1e-3
         got = bn_sums_bwd_cuda(x, m0, g1, g2)
@@ -354,7 +388,7 @@ def phase_k2_vs_plain(dev, flush):
             lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
             lambda: bn_sums_bwd_reference(x, m0, g1, g2), None,
             "null: no single PyTorch call computes this backward",
-            2 * elems * 2 + 3 * c * 4, 4 * elems))
+            2 * elems * 2 + 3 * c * 4, 4 * elems, model=model))
         del x, got, want
     torch.cuda.empty_cache()
     return rows
@@ -457,7 +491,7 @@ def phase_model_vs_cpu(dev):
         LAUNCHES.clear()
         got = model(images.to(dev))
         torch.cuda.synchronize()
-    launches = LAUNCHES["selfnorm_infer"]
+    launches = dict(LAUNCHES)
     got = got.cpu()
     check(got.shape == (4, 1000) and torch.isfinite(got).all().item(),
           "finite (4, 1000) logits")
@@ -469,7 +503,8 @@ def phase_model_vs_cpu(dev):
           "selfnorm_launches_per_forward": launches})
     check(err <= LOGIT_TOL * scale, f"card vs CPU logits {err} > "
           f"{LOGIT_TOL} * {scale}")
-    check(launches == 16, f"{launches} K3 launches per forward, not 16")
+    check(launches == {K3_STAGED: SN_SITES},
+          f"{launches} K3 launches per forward, not {SN_SITES} staged")
 
 
 def phase_serving(dev):
@@ -499,7 +534,7 @@ def phase_serving(dev):
     emit({"phase": "serving_main_path", "export_save_load_s": export_s,
           "artifact_bytes": artifact_bytes, "batches": [1, BATCH],
           "launches": counts})
-    check(counts.get("selfnorm_infer") == 16 * len(requests),
+    check(counts == {K3_STAGED: SN_SITES * len(requests)},
           f"main path launches {counts}")
 
     for x, y in zip(requests, served):
@@ -738,6 +773,9 @@ def phase_train(dev):
         prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
         emit({"phase": "train_profile", "step": kind, "batch": b,
               "dtype": "bfloat16", **prof})
+        # K2's forward is one launch per BatchNorm2d layer
+        check(prof["launches_by_family"].get("bn_stats") == BN_LAYERS,
+              f"K2 forward kernels per step {prof['launches_by_family']}")
 
     LAUNCHES.clear()
     out = steps.eval_step(state, images[:BATCH], labels[:BATCH])
@@ -746,7 +784,7 @@ def phase_train(dev):
     logits = out["logits"]
     emit({"phase": "train_then_eval", "batch": BATCH, "launches": k3,
           "loss": out["loss"].item(), "correct": out["correct"].item()})
-    check(k3 == {"selfnorm_infer": SN_SITES}, f"eval launches {k3}")
+    check(k3 == {K3_STAGED: SN_SITES}, f"eval launches {k3}")
     check(logits.shape == (BATCH, 1000)
           and bool(torch.isfinite(logits).all()), "finite eval logits")
     del state, images
@@ -1010,6 +1048,9 @@ def phase_train_wrn(dev):
         prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
         emit({"phase": "train_wrn_profile", "conv3x3": mode, "batch": b,
               "dtype": "bfloat16", **prof})
+        check(prof["launches_by_family"].get("bn_stats") == WRN_BN,
+              f"K2 forward kernels per WRN step "
+              f"{prof['launches_by_family']}")
         if mode == "pallas":
             wrn_counts = counts
             LAUNCHES.clear()
@@ -1019,7 +1060,7 @@ def phase_train_wrn(dev):
             emit({"phase": "train_wrn_then_eval", "batch": b, "launches": k3,
                   "loss": out["loss"].item(),
                   "correct": out["correct"].item()})
-            check(k3 == {"selfnorm_infer": WRN_SN}, f"WRN eval launches {k3}")
+            check(k3 == {K3_STAGED: WRN_SN}, f"WRN eval launches {k3}")
             check(out["logits"].shape == (b, cfg.num_classes)
                   and bool(torch.isfinite(out["logits"]).all()),
                   "finite WRN eval logits")
@@ -1099,19 +1140,39 @@ def main():
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
     counts = timed("serving", phase_serving, dev)
 
-    bf16 = [r for r in k3_rows if r["dtype"] == "bfloat16"]
-    k3 = {"name": "selfnorm_infer", "route": "cuda",
-          "source": "cnsn_tpu_torch/csrc/selfnorm.cu",
-          "replaces": "cnsn_tpu/ops/pallas/selfnorm.py:64",
-          "launches": counts["selfnorm_infer"],
+    def per_forward(batch, key, model="resnet50"):
+        """K3 per bf16 forward of ``model`` at ``batch``: each shape's time
+        by its sites."""
+        return sum(r[key] * r["sites"] for r in k3_rows
+                   if r["dtype"] == "bfloat16" and r["shape"][0] == batch
+                   and r["model"] == model)
+
+    k3_source = {"route": "cuda", "source": "cnsn_tpu_torch/csrc/selfnorm.cu",
+                 "replaces": "cnsn_tpu/ops/pallas/selfnorm.py:64",
+                 "bound_by": "bytes", "library_ms": None}
+    k3 = {"name": K3_STAGED, **k3_source, "launches": counts[K3_STAGED],
           "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
-          "bound_by": "bytes", "library_ms": None,
-          "per": "b=64 bf16 serving forward"}
-    # per b=64 bf16 forward: each shape's time times its number of sites
-    for key, out in (("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
-                     ("bound_ms", "bound_ms")):
-        k3[out] = sum(r[key] * r["sites"] for r in bf16)
-    kernels = [summarize(rows, name, "cuda", f"cnsn_tpu_torch/csrc/{src}",
+          "ms": per_forward(BATCH, "kernel_ms"),
+          "plain_ms": per_forward(BATCH, "plain_ms"),
+          "bound_ms": per_forward(BATCH, "bound_ms"),
+          "v1_ms": per_forward(BATCH, "v1_ms"),
+          "b1": {key: per_forward(1, key) for key in
+                 ("kernel_ms", "v1_ms", "plain_ms", "bound_ms")},
+          "wrn_eval": {key: per_forward(128, key, "wrn") for key in
+                       ("kernel_ms", "v1_ms", "plain_ms", "bound_ms")},
+          "per": f"b={BATCH} bf16 serving forward"}
+    # The v1 kernel runs on no main path (unaligned views, C not a multiple
+    # of the vector): its line holds its time at the same 16 sites through
+    # the forced path
+    k3_v1 = {"name": K3_V1, **k3_source, "launches": counts.get(K3_V1, 0),
+             "max_abs_err": max(r["v1_max_abs_err"] for r in k3_rows),
+             "ms": per_forward(BATCH, "v1_ms"),
+             "plain_ms": per_forward(BATCH, "plain_ms"),
+             "bound_ms": per_forward(BATCH, "bound_ms"),
+             "per": f"b={BATCH} bf16 serving forward's {SN_SITES} sites, "
+                    "forced path (no launch on a main path)"}
+    r50 = [r for r in rows if r.get("model", "resnet50") == "resnet50"]
+    kernels = [summarize(r50, name, "cuda", f"cnsn_tpu_torch/csrc/{src}",
                          replaces, train_counts[name], TRAIN_STEPS, n_cn)
                for name, src, replaces in (
                    ("ins_stats", "ins_stats.cu",
@@ -1122,6 +1183,16 @@ def main():
                     "cnsn_tpu/ops/pallas/bn_stats.py:109"),
                    ("bn_sums_bwd", "bn_stats.cu",
                     "cnsn_tpu/ops/pallas/bn_stats.py:146"))]
+    # K2 per WRN-40-2 step, beside the flagship's
+    wrn_k2 = [r for r in rows if r.get("model") == "wrn"]
+    for k in kernels:
+        if k["name"] in ("bn_sums", "bn_sums_bwd"):
+            k["wrn"] = {key: sum(r[key] * r["sites"] for r in wrn_k2
+                                 if r["kernel"] == k["name"])
+                        for key in ("kernel_ms", "plain_ms", "bound_ms")}
+            k["wrn"]["launches"] = wrn_counts[k["name"]]
+            k["wrn"]["per"] = ("WRN-40-2 b=128 bf16 training step, "
+                               "CNSN_CONV3X3=pallas")
     wrn_bf16 = [r for r in k4_rows
                 if r["model"] == "wrn" and r["dtype"] == "bfloat16"]
     k4_source = "cnsn_tpu_torch/csrc/conv_wgrad.cu"
@@ -1168,7 +1239,7 @@ def main():
         "library_ms": flagship_k4["library_ms"]}
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
-    emit({"kernels": [k3] + kernels})
+    emit({"kernels": [k3, k3_v1] + kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ them at first use; ``LAUNCHES`` counts their launches, by wrapper name.
 
   K1  ``ins_stats``   instance mean/std and its backward  (``csrc/ins_stats.cu``)
   K2  ``bn_stats``    shifted BatchNorm sums and backward (``csrc/bn_stats.cu``)
-  K3  ``selfnorm``    fused eval SelfNorm                 (``csrc/selfnorm.cu``)
+  K3  ``selfnorm``    fused eval SelfNorm                 (``csrc/selfnorm.cu``;
+                      a staged and a v1 kernel, ``selfnorm_path`` between
+                      them)
   K4  ``conv_wgrad``  3×3 stride-1 conv weight gradient   (``csrc/conv_wgrad.cu``;
                       a wgmma, a narrow and a wmma kernel, ``wgrad3x3_path``
                       between them)

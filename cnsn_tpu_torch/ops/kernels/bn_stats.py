@@ -15,6 +15,7 @@ gives it no gradient, so the TPU backward's dm0 term is not ported.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -24,7 +25,7 @@ from ._launch import (DTYPE_CODE, INT, PTR, bind, check_activation,
                       check_f32, check_launch, stream, vector_width)
 
 __all__ = ["BnSums", "bn_sums_bwd_cuda", "bn_sums_bwd_reference",
-           "bn_sums_cuda", "bn_sums_reference"]
+           "bn_sums_cuda", "bn_sums_plan", "bn_sums_reference"]
 
 
 def _float(x: torch.Tensor) -> torch.Tensor:
@@ -49,37 +50,90 @@ def bn_sums_bwd_reference(x, m0, g1, g2):
 
 @functools.cache
 def _kernels():
-    return (bind("bn_stats", "cnsn_bn_sums_chunks", INT, INT, INT),
+    return (bind("bn_stats", "cnsn_bn_sums_plan", INT, INT, INT, INT, INT,
+                 ctypes.POINTER(ctypes.c_int)),
             bind("bn_stats", "cnsn_bn_sums", INT, INT, PTR, PTR, PTR, PTR,
-                 PTR, INT, INT, INT, PTR),
+                 INT, PTR, PTR, INT, INT, INT, INT, INT, PTR),
             bind("bn_stats", "cnsn_bn_sums_bwd", INT, INT, PTR, PTR, PTR,
                  PTR, PTR, INT, INT, PTR))
 
 
+_PLAN_KEYS = ("chunks", "ctiles", "blocks_per_sm", "tile", "cluster")
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(device: int, dtype: int, vec: int, rows: int, c: int,
+          chunks: int) -> tuple:
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        err = _kernels()[0](dtype, vec, rows, c, chunks, out)
+    if err != 0:
+        raise RuntimeError(f"bn_sums: no plan for {rows} rows x {c} "
+                           f"(cudaError {err})")
+    return tuple(out)
+
+
+def bn_sums_plan(x: torch.Tensor, chunks: int = 0) -> dict:
+    """The forward kernel's plan for x on its device: row chunks per
+    channel tile, channel tiles, resident blocks per SM, channels per tile
+    and blocks per cluster (``chunks`` > 0 forces the chunk count, as
+    sweeps run it)."""
+    c = x.shape[-1]
+    return dict(zip(_PLAN_KEYS, _plan(x.device.index, DTYPE_CODE[x.dtype],
+                                      vector_width(x), x.numel() // c, c,
+                                      chunks)))
+
+
+# The forward's ticket counters, one zeroed int32 buffer per (device,
+# stream): a kernel leaves its counters at 0, calls on one stream run in
+# order, and two streams never share a buffer.
+_TICKETS: dict = {}
+
+
+def _tickets(x: torch.Tensor, n: int) -> torch.Tensor:
+    key = (x.device.index, stream(x))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=x.device)
+        _TICKETS[key] = buf
+    return buf
+
+
 def bn_sums_cuda(x: torch.Tensor, m0: torch.Tensor):
-    """Launch the forward kernels on the current stream; raise on a
+    """Launch the forward kernel on the current stream; raise on a
     refused launch.  x is contiguous with C last (an NHWC activation);
     arguments and results as for ``bn_sums_reference``."""
+    s1, s2 = _launch(x, m0)
+    LAUNCHES["bn_sums"] += 1
+    return s1, s2
+
+
+def _launch(x: torch.Tensor, m0: torch.Tensor, chunks: int = 0,
+            finish: bool = True):
+    """One launch of the forward kernel, not counted (sweeps and the card
+    tests force a plan through it): ``chunks`` > 0 forces the plan's
+    chunk count; ``finish=False`` stops the kernel at its partials and
+    returns them, (2, partials, C) fp64, instead of (s1, s2)."""
     check_activation(x)
     c = x.shape[-1]
     rows = x.numel() // c
     check_f32(x, "m0", m0, (c,))
     vec = vector_width(x)
-    chunks_of, fwd, _ = _kernels()
+    plan = bn_sums_plan(x, chunks)
     s1 = torch.empty(c, dtype=torch.float32, device=x.device)
     s2 = torch.empty_like(s1)
+    part = torch.empty((2, plan["chunks"] // plan["cluster"], c),
+                       dtype=torch.float64, device=x.device)
+    tickets = _tickets(x, plan["ctiles"])
     with torch.cuda.device(x.device):
-        chunks = chunks_of(rows, c, vec)
-        if chunks < 1:
-            raise RuntimeError("bn_sums: cannot query the device")
-        part = torch.empty((2, chunks, c), dtype=torch.float32,
-                           device=x.device)
-        err = fwd(DTYPE_CODE[x.dtype], vec, x.data_ptr(), m0.data_ptr(),
-                  part.data_ptr(), s1.data_ptr(), s2.data_ptr(), rows, c,
-                  chunks, stream(x))
+        err = _kernels()[1](DTYPE_CODE[x.dtype], vec, x.data_ptr(),
+                            m0.data_ptr(), part.data_ptr(),
+                            tickets.data_ptr(), tickets.numel(),
+                            s1.data_ptr(), s2.data_ptr(), rows, c,
+                            plan["chunks"], plan["cluster"], int(finish),
+                            stream(x))
     check_launch(err, "bn_sums")
-    LAUNCHES["bn_sums"] += 1
-    return s1, s2
+    return (s1, s2) if finish else part
 
 
 def bn_sums_bwd_cuda(x, m0, g1, g2):

@@ -15,31 +15,49 @@ the difference on.  So a float32 run is compared with a float64 run that
 both then compute the same piecewise-linear function, and what is left
 between them is rounding alone.
 
-    python -m cnsn_tpu_torch.train.rounding [--device cuda|cpu]
+Rounding alone is not small at step 3.  SelfNorm's BatchNorm1d
+normalises over a batch of 4, whose variance can be a small difference of
+large terms, so the last bits of the statistics below it come out
+amplified, and not in proportion to their error: two float32 runs whose
+BatchNorm sums differ only in the order of their fp32 additions can lie
+10x apart from their twins at step 3.  ``--seeds`` reads that spread: for
+each input seed, the card's run with K2 and with two other BatchNorm sums
+(torch's own, and ``exact_bn_sums``), and the CPU's run, each against its
+replaying twin.
 
-prints one JSON line: for the float32 run on ``--device`` and for the
-CPU's, the error against its replaying float64 twin, and, for step 1
-against a float64 run with its own masks, each module's forward and
-gradient error from the loss back to the stem and the ReLU inputs whose
-sign differs.
+    python -m cnsn_tpu_torch.train.rounding [--device cuda|cpu]
+    python -m cnsn_tpu_torch.train.rounding --seeds 3,0,1 [--baseline DIR]
+
+The first prints one JSON line: for the float32 run on ``--device`` and
+for the CPU's, the error against its replaying float64 twin, and, for
+step 1 against a float64 run with its own masks, each module's forward
+and gradient error from the loss back to the stem and the ReLU inputs
+whose sign differs.  The second (on the card) prints one line per input
+seed: each run's errors against its replaying twin, as ``compare_runs``
+gives them; ``--baseline`` adds a run with the K2 forward built from an
+earlier checkout's ``cnsn_tpu_torch/csrc`` (``utils/stats_sweep.py``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 from dataclasses import dataclass, field
-from typing import Optional
+from pathlib import Path
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..models import build_model
 from ..models import resnet as _resnet
+from ..ops.kernels import bn_stats as _bn_stats
+from ..ops.kernels.bn_stats import bn_sums_reference as _plain_sums
 from ..utils.device import resolve_device
 from .schedules import cosine_lr
 from .steps import StepFns, create_train_state
 
-__all__ = ["KINDS", "Run", "compare_runs", "compare_traces", "run_steps"]
+__all__ = ["KINDS", "Run", "compare_runs", "compare_traces", "exact_bn_sums",
+           "run_steps", "seed_spread"]
 
 KINDS = ("plain", "cn_image", "plain")
 BATCH, SIZE, CLASSES = 4, 64, 10  # 64² leaves layer4 at 2x2
@@ -114,13 +132,28 @@ def _trace_hooks(model, trace: dict) -> list:
             for n, m in model.named_modules() if n]
 
 
+def exact_bn_sums(x: torch.Tensor, m0: torch.Tensor):
+    """K2's sums correctly rounded: the float32 differences x − m0 and
+    their rounded squares, as the kernel and the plain version form them,
+    added in float64 and rounded once to float32, as the card's K2
+    forward adds them (``csrc/bn_stats.cu``)."""
+    d = x.float() - m0
+    axes = tuple(range(x.dim() - 1))
+    return (d.double().sum(dim=axes).float(),
+            (d * d).double().sum(dim=axes).float())
+
+
 def run_steps(device: str | torch.device, dtype: torch.dtype, *,
-              replay: Optional[list] = None, trace: bool = False) -> Run:
+              replay: Optional[list] = None, trace: bool = False,
+              seed: int = 3, sums: Optional[Callable] = None) -> Run:
     """The three steps on ``device`` (TF32 off) in ``dtype`` (float32 or
-    float64, the whole model).  ``replay``: the tape of another run, whose
-    ReLU masks and max-pool choices this run applies."""
+    float64, the whole model), on images and labels drawn from ``seed``.
+    ``replay``: the tape of another run, whose ReLU masks and max-pool
+    choices this run applies.  ``sums``: a function (x, m0) -> (s1, s2)
+    that takes the place of K2's forward and of its plain version for
+    this run's BatchNorm sums."""
     device = resolve_device(device)
-    gen = torch.Generator().manual_seed(3)
+    gen = torch.Generator().manual_seed(seed)
     images = torch.randn(len(KINDS), BATCH, SIZE, SIZE, 3, generator=gen)
     labels = torch.randint(0, CLASSES, (len(KINDS), BATCH), generator=gen)
     model = build_model("resnet50", CLASSES,
@@ -137,6 +170,11 @@ def run_steps(device: str | torch.device, dtype: torch.dtype, *,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     _resnet.F = tape
+    patched = {k: getattr(_bn_stats, k)
+               for k in ("bn_sums_reference", "bn_sums_cuda")}
+    if sums is not None:
+        for k in patched:
+            setattr(_bn_stats, k, sums)
     try:
         for i, kind in enumerate(KINDS):
             x = images[i].to(device, dtype)
@@ -154,6 +192,8 @@ def run_steps(device: str | torch.device, dtype: torch.dtype, *,
                 states[i + 1] = _snapshot(state)
     finally:
         _resnet.F = F
+        for k, fn in patched.items():
+            setattr(_bn_stats, k, fn)
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
     return Run(losses, states, tape.record, traced)
@@ -208,10 +248,40 @@ def compare_traces(run: Run, ref: Run) -> list:
     return rows
 
 
+def seed_spread(seeds, baseline=None) -> list:
+    """Per input seed, the float32 runs on the card (K2's sums, torch's,
+    ``exact_bn_sums``, and a ``baseline`` K2 where given) and on the CPU,
+    each against its replaying float64 twin (``compare_runs``)."""
+    variants = {"card": ("cuda", None),
+                "card_torch_sums": ("cuda", _plain_sums),
+                "card_exact_bn_sums": ("cuda", exact_bn_sums),
+                "cpu": ("cpu", None)}
+    if baseline is not None:
+        variants["card_baseline"] = ("cuda", baseline)
+    rows = []
+    for seed in seeds:
+        row = {"seed": seed}
+        for name, (device, sums) in variants.items():
+            run = run_steps(device, torch.float32, seed=seed, sums=sums)
+            row[name] = compare_runs(run, run_steps(
+                "cpu", torch.float64, replay=run.tape, seed=seed))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--seeds", help="comma-separated input seeds")
+    parser.add_argument("--baseline", type=Path)
     args = parser.parse_args(argv)
+    if args.seeds:
+        base = None
+        if args.baseline is not None:
+            from ..utils.stats_sweep import _baseline
+            base = _baseline(args.baseline)
+        return seed_spread([int(s) for s in args.seeds.split(",")], base)
     devices = [resolve_device(args.device)]
     if devices[0].type != "cpu":
         devices.append(torch.device("cpu"))

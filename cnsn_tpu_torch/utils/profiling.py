@@ -3,9 +3,10 @@
 
 ``device_time_breakdown`` runs a callable a few times under the profiler
 and sums the device time of every kernel by name and by family (conv /
-GEMM, batch norm, each of the port's kernels, elementwise, ...), beside the busy
-time of the device (the union of kernel intervals) and the host's wall
-time of the window, whose difference is the device's idle share.
+GEMM, batch norm, each of the port's kernels, elementwise, ...), with
+each family's launches, beside the busy time of the device (the union of
+kernel intervals) and the host's wall time of the window, whose
+difference is the device's idle share.
 """
 from __future__ import annotations
 
@@ -21,11 +22,13 @@ __all__ = ["device_time_breakdown", "kernel_family"]
 
 # (family, substrings of the kernel name), first match wins
 _FAMILIES = (
-    ("selfnorm", ("selfnorm",)),                     # K3
+    ("selfnorm", ("selfnorm",)),         # K3: staged and v1 kernels
     ("ins_stats_bwd", ("ins_bwd_kernel",)),          # K1 backward
     ("ins_stats", ("ins_sums_kernel", "ins_finalize_kernel")),  # K1
     ("bn_stats_bwd", ("bn_bwd_kernel",)),            # K2 backward
-    ("bn_stats", ("bn_sums_kernel", "bn_finalize_kernel")),     # K2
+    # K2 forward (bn_sums_persistent_kernel; the two-launch design's
+    # bn_sums_kernel and bn_finalize_kernel), before batch_norm's "bn_fw"
+    ("bn_stats", ("bn_sums_", "bn_finalize_kernel")),
     # K4's wmma, wgmma and narrow kernels and their sums, before cuDNN's
     # wgrad
     ("conv_wgrad3x3", ("wgrad3x3_",)),
@@ -62,9 +65,10 @@ def _union_us(intervals):
 
 def device_time_breakdown(fn: Callable[[], object], iters: int = 5,
                           warmup: int = 2, top: int = 10) -> Dict:
-    """Per-call device milliseconds of ``fn`` by kernel family and for the
-    ``top`` kernels by name, the device's busy time, the host's wall time
-    and the idle share ``1 − busy/wall``, over ``iters`` calls."""
+    """Per-call device milliseconds of ``fn`` by kernel family (and the
+    family's launches per call) and for the ``top`` kernels by name, the
+    device's busy time, the host's wall time and the idle share
+    ``1 − busy/wall``, over ``iters`` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -86,8 +90,10 @@ def device_time_breakdown(fn: Callable[[], object], iters: int = 5,
         by_name[evt.name] += e - s
         launches[evt.name] += 1
     by_family: Dict[str, float] = defaultdict(float)
+    family_launches: Dict[str, int] = defaultdict(int)
     for name, us in by_name.items():
         by_family[kernel_family(name)] += us
+        family_launches[kernel_family(name)] += launches[name]
     busy_us = _union_us(intervals)
     per_call_ms = 1e-3 / iters
     top_names = sorted(by_name, key=by_name.get, reverse=True)[:top]
@@ -99,6 +105,8 @@ def device_time_breakdown(fn: Callable[[], object], iters: int = 5,
         "kernels_per_call": sum(launches.values()) / iters,
         "by_family_ms": {k: v * per_call_ms for k, v in
                          sorted(by_family.items(), key=lambda kv: -kv[1])},
+        "launches_by_family": {k: family_launches[k] / iters
+                               for k in by_family},
         "top_kernels_ms": [{"name": n[:96], "ms": by_name[n] * per_call_ms,
                             "launches": launches[n] / iters}
                            for n in top_names],

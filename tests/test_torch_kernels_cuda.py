@@ -17,11 +17,16 @@ from cnsn_tpu_torch.ops import (BnSums, InsStats, bn_sums_bwd_cuda,
                                 ins_stats_bwd_reference, ins_stats_cuda,
                                 ins_stats_reference, instance_mean_std,
                                 selfnorm_infer_cuda, selfnorm_infer_reference,
-                                wgrad3x3_cuda, wgrad3x3_path,
+                                selfnorm_path, wgrad3x3_cuda, wgrad3x3_path,
                                 wgrad3x3_reference)
 from cnsn_tpu_torch.ops.convdot import Conv2dCustomBwd
 from cnsn_tpu_torch.ops.kernels import LAUNCHES
+from cnsn_tpu_torch.ops.kernels import bn_stats
+from cnsn_tpu_torch.ops.kernels.bn_stats import bn_sums_plan
 from cnsn_tpu_torch.ops.kernels.conv_wgrad import PATHS, _kernels
+from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS as SN_PATHS
+from cnsn_tpu_torch.ops.kernels.selfnorm import _launch as sn_launch
+from cnsn_tpu_torch.ops.kernels.selfnorm import selfnorm_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -65,9 +70,10 @@ def test_selfnorm_kernel_matches_plain(shape, dtype):
 
 def test_op_on_cuda_launches_the_kernel():
     x, w, a, b = _inputs((2, 6, 6, 64), 3)
-    before = LAUNCHES["selfnorm_infer"]
+    key = SN_PATHS[selfnorm_path(x)][1]
+    before = LAUNCHES[key]
     got = torch.ops.cnsn_tpu_torch.selfnorm_infer(x, w, a, b, 1e-12)
-    assert LAUNCHES["selfnorm_infer"] == before + 1
+    assert LAUNCHES[key] == before + 1
     torch.testing.assert_close(got, selfnorm_infer_reference(x, w, a, b),
                                **TOL[torch.float32])
 
@@ -609,3 +615,260 @@ def test_wgrad3x3_refuses_a_forced_narrow_path_the_rule_excludes():
             wgrad3x3_cuda(x, dy, path="narrow")
     torch.cuda.synchronize()
     assert (*_k4_counts(), _narrow_count()) == before
+
+
+# K2's one-launch forward: the widest and narrowest channel counts (C = 16
+# and 2048 take 16-byte loads, C = 3 one-element loads and one-float
+# partials), fewer rows than one block step (15 rows; a step is 32 rows at
+# C = 64), and a single row.
+BN_EDGES = [(2, 5, 7, 16), (2, 7, 7, 2048), (1, 7, 7, 3), (1, 3, 5, 64),
+            (1, 1, 1, 256), (1, 1, 1, 3)]
+
+
+def _bn_close(s, x, m0):
+    s1, s2 = s
+    w1, w2 = bn_sums_reference(x, m0)
+    torch.cuda.synchronize()
+    d = x.float() - m0
+    assert (s1 - w1).abs().max() <= 1e-5 * d.abs().sum(
+        dim=tuple(range(x.dim() - 1))).max()
+    assert (s2 - w2).abs().max() <= 1e-5 * w2.max()
+
+
+@pytest.mark.parametrize("shape", BN_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_one_launch_edges(shape, dtype):
+    x = _x(shape, 110, dtype, offset=1.0)
+    m0 = _vec(shape[-1:], 111, scale=0.5)
+    _bn_close(bn_sums_cuda(x, m0), x, m0)
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 255, 256, 1000])
+@pytest.mark.parametrize("c,dtype", [(128, torch.bfloat16),
+                                     (128, torch.float32),
+                                     (3, torch.bfloat16)])
+def test_bn_sums_forced_chunk_counts(chunks, c, dtype):
+    """Any chunk count gives the same bits as the plan and as the sums
+    rounded once from float64, the same bits twice: the last
+    block's groups of partials and the ticket hold from one chunk to more
+    partials than threads, with clusters of 8 (256 and 1000 chunks, 125
+    clusters: more than one wave, some chunks without rows) and without
+    (255), for 16-byte loads and for C = 3's one-element loads."""
+    x = _x((4, 28, 28, c), 112, dtype, offset=1.0)
+    m0 = _vec((c,), 113, scale=0.5)
+    plan = bn_sums_plan(x, chunks)
+    assert plan["cluster"] == (8 if chunks in (256, 1000) else 1)
+    got = bn_stats._launch(x, m0, chunks=chunks)
+    _bn_close(got, x, m0)
+    for u, v in zip(got, bn_stats._launch(x, m0, chunks=chunks)):
+        assert torch.equal(u, v)
+    # fp64 sums rounded once: the planned launch's bits, and the float64
+    # sums of the same fp32 differences and rounded squares
+    d = (x.float() - m0).reshape(-1, c)
+    want = (d.double().sum(0).float(), (d * d).double().sum(0).float())
+    for u, v, e in zip(got, bn_sums_cuda(x, m0), want):
+        assert torch.equal(u, v) and torch.equal(u, e)
+
+
+def test_bn_sums_plan_fills_one_wave():
+    """At ResNet-50's stem (b=128: one channel tile) the chunks fill the
+    card's resident blocks once, in clusters of 8; at 7x7x512 (8 tiles of
+    64 channels, 196 row steps of 32 rows) they hold 8 row steps each, 25
+    chunks, no cluster."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = bn_sums_plan(torch.empty((128, 112, 112, 64), device="cuda",
+                                   dtype=torch.bfloat16))
+    assert big["ctiles"] == 1 and big["tile"] == 64 and big["cluster"] == 8
+    wave = big["blocks_per_sm"] * sms
+    assert big["chunks"] % 8 == 0 and wave // 2 <= big["chunks"] <= wave
+    small = bn_sums_plan(torch.empty((128, 7, 7, 512), device="cuda",
+                                     dtype=torch.bfloat16))
+    assert (small["ctiles"], small["tile"], small["chunks"],
+            small["cluster"]) == (8, 64, 25, 1)
+
+
+def test_bn_sums_back_to_back_and_on_two_streams():
+    """The ticket counters go back to 0: calls queued back to back on one
+    stream, at shapes with other tile counts, each give their own sums;
+    calls on two streams at once use two counter buffers and both give
+    theirs."""
+    shapes = [(8, 28, 28, 256), (4, 7, 7, 2048), (16, 14, 14, 64),
+              (8, 28, 28, 256)]
+    xs = [_x(s, 116 + i, torch.bfloat16, offset=1.0)
+          for i, s in enumerate(shapes)]
+    ms = [_vec(s[-1:], 120 + i, 0.5) for i, s in enumerate(shapes)]
+    got = [bn_sums_cuda(x, m) for x, m in zip(xs, ms)]
+    for s, x, m in zip(got, xs, ms):
+        _bn_close(s, x, m)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(3):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(bn_sums_cuda(xs[i], ms[i]))
+    torch.cuda.synchronize()
+    for i, st in enumerate(streams):
+        for s in outs[i]:
+            _bn_close(s, xs[i], ms[i])
+            for u, v in zip(s, outs[i][0]):
+                assert torch.equal(u, v)
+    bufs = {bn_stats._TICKETS[(0, st.cuda_stream)].data_ptr()
+            for st in streams}
+    assert len(bufs) == 2
+
+
+def test_bn_sums_is_one_launch_per_call():
+    """The profiler sees one K2 forward kernel per call, clusters and
+    all."""
+    from torch.profiler import ProfilerActivity, profile
+    x = _x((128, 56, 56, 64), 124, torch.bfloat16)
+    m0 = _vec((64,), 125)
+    bn_sums_cuda(x, m0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            bn_sums_cuda(x, m0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    k2 = [n for n in names if "bn_sums" in n]
+    assert len(k2) == 3 and all("bn_sums_persistent_kernel" in n
+                                for n in k2), names
+    assert bn_sums_plan(x)["cluster"] == 8
+
+
+# K3's staged kernel: ResNet-50's layer1 and layer4 planes, WRN-40-2's
+# 32x32x32, a plane one row over what one block holds at C = 16 (86x86:
+# a cluster of 2), one that needs a cluster of 8 (180x180), H*W = 1, and
+# C = 8 and 24, where a bf16 row segment is one 16-byte lane.
+SN_STAGED = [(56, 56, 256), (7, 7, 2048), (32, 32, 32), (86, 86, 16),
+             (180, 180, 16), (1, 1, 64), (5, 5, 8), (9, 9, 24)]
+# (H = W, C) of the SelfNorm sites: ResNet-50 at 224² (serving) and
+# WRN-40-2 at 32² (eval)
+SN_R50 = ((56, 256), (28, 512), (14, 1024), (7, 2048))
+SN_WRN = ((32, 16), (32, 32), (16, 64), (8, 128))
+
+
+def _plan_of(shape, dtype):
+    return selfnorm_plan(torch.empty(shape, device="cuda", dtype=dtype))
+
+
+@pytest.mark.parametrize("hwc", [(s, s, c) for s, c in SN_R50 + SN_WRN])
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selfnorm_plan_fits_and_covers_every_row_once(hwc, n, dtype):
+    """At every SelfNorm shape of both models, at b=1 and b=64, the plan
+    fits a block's shared memory on this card, its cluster is 1, 2, 4 or
+    8, its lanes of 16 bytes span a tile that divides C, and the cluster's
+    row ranges [rank·rows, min(hw, (rank+1)·rows)) cover every row exactly
+    once, none of them empty."""
+    h, w, c = hwc
+    hw, item = h * w, torch.tensor([], dtype=dtype).element_size()
+    p = _plan_of((n, h, w, c), dtype)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert p is not None and p["smem_bytes"] <= optin
+    assert p["smem_bytes"] >= p["rows"] * p["tile"] * item
+    assert p["cluster"] in (1, 2, 4, 8)
+    assert p["lanes"] in (2, 4, 8, 16, 32)  # row segments of 32 B or more
+    assert p["tile"] == p["lanes"] * 16 // item and c % p["tile"] == 0
+    covered = []
+    for rank in range(p["cluster"]):
+        rows = range(rank * p["rows"], min(hw, (rank + 1) * p["rows"]))
+        assert len(rows) > 0
+        covered.extend(rows)
+    assert covered == list(range(hw))
+    assert p["blocks"] == n * (c // p["tile"]) * p["cluster"]
+
+
+@pytest.mark.parametrize("hwc", [(s, s, c) for s, c in SN_R50 + SN_WRN])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selfnorm_plan_fills_the_card(hwc, dtype):
+    """At the paths' batches (ResNet-50 serving at b=64, WRN-40-2's eval
+    at b=128) every SM gets a block where x holds 32 KB a block, each
+    within half an SM's shared memory (two resident); at b=1 a ResNet-50
+    sample spreads over at least 32 blocks (the v1 kernel: C/32 blocks, 8
+    at layer1)."""
+    h, w, c = hwc
+    props = torch.cuda.get_device_properties(0)
+    item = torch.tensor([], dtype=dtype).element_size()
+    n = 128 if (h, c) in SN_WRN else 64
+    full = _plan_of((n, h, w, c), dtype)
+    assert full["blocks"] >= min(props.multi_processor_count,
+                                 n * h * w * c * item // 32768)
+    assert full["smem_bytes"] <= props.shared_memory_per_block_optin // 2
+    if (h, c) in SN_R50:
+        assert _plan_of((1, h, w, c), dtype)["blocks"] >= 32
+
+
+def test_selfnorm_plan_takes_a_cluster_where_a_block_cannot_hold_the_plane():
+    """bf16 C = 16 (one 32-byte row segment a row): one block holds 85²
+    rows and not 86² (a forced single-block launch is taken, then refused),
+    so the plan splits 86² over a cluster; 180² need a cluster of 8, 400²
+    fit no cluster."""
+    bf16 = torch.bfloat16
+    x, w, a, b = _inputs((1, 85, 85, 16), 140, bf16)
+    got = sn_launch(x, w, a, b, 1e-12, "staged", 2, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), selfnorm_infer_reference(x, w, a, b).float(),
+        **TOL[bf16])
+    x = _inputs((1, 86, 86, 16), 141, bf16)[0]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        sn_launch(x, w, a, b, 1e-12, "staged", 2, 1)
+    assert _plan_of((1024, 86, 86, 16), bf16)["cluster"] >= 2
+    assert _plan_of((1, 180, 180, 16), bf16)["cluster"] == 8
+    assert _plan_of((1, 400, 400, 16), bf16) is None
+
+
+@pytest.mark.parametrize("hwc", SN_STAGED)
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selfnorm_staged_matches_plain(hwc, n, dtype):
+    x, w, a, b = _inputs((n, *hwc), 130, dtype)
+    assert selfnorm_path(x) == "staged"
+    key = SN_PATHS["staged"][1]
+    before = LAUNCHES[key]
+    got = selfnorm_infer_cuda(x, w, a, b)
+    want = selfnorm_infer_reference(x, w, a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("hwc", [(56, 56, 256), (86, 86, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selfnorm_staged_is_deterministic_and_agrees_with_v1(hwc, dtype):
+    x, w, a, b = _inputs((2, *hwc), 131, dtype)
+    got = selfnorm_infer_cuda(x, w, a, b)
+    assert torch.equal(got, selfnorm_infer_cuda(x, w, a, b))
+    old = selfnorm_infer_cuda(x, w, a, b, path="v1")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), old.float(), **TOL[dtype])
+
+
+def test_selfnorm_refuses_a_forced_staged_path_the_rule_excludes():
+    """bf16 C = 12, fp32 C = 6, an x off a 16-byte boundary and a plane
+    too large for a cluster of 8: the rule picks v1, a forced staged call
+    is refused before any launch and nothing is counted, and v1 takes
+    each call."""
+    base = _x((2 * 5 * 5 * 16 + 8,), 132)
+    cases = [_inputs((2, 5, 5, 12), 133, torch.bfloat16),
+             _inputs((2, 5, 5, 6), 134),
+             (base[1:1 + 2 * 5 * 5 * 16].view(2, 5, 5, 16),
+              *_inputs((2, 5, 5, 16), 135)[1:]),
+             _inputs((1, 400, 400, 16), 136, torch.bfloat16)]
+    keys = [SN_PATHS[p][1] for p in ("v1", "staged")]
+    for x, w, a, b in cases:
+        assert selfnorm_path(x) == "v1"
+        before = [LAUNCHES[k] for k in keys]
+        with pytest.raises(RuntimeError, match=keys[1]):
+            selfnorm_infer_cuda(x, w, a, b, path="staged")
+        torch.cuda.synchronize()
+        assert [LAUNCHES[k] for k in keys] == before
+        got = selfnorm_infer_cuda(x, w, a, b)
+        assert [LAUNCHES[k] for k in keys] == [before[0] + 1, before[1]]
+        torch.testing.assert_close(
+            got.float(), selfnorm_infer_reference(x, w, a, b).float(),
+            **TOL[x.dtype])

@@ -29,6 +29,14 @@ from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
     ("(anonymous namespace)::bn_finalize_kernel(...)", "bn_stats"),
     ("void (anonymous namespace)::bn_bwd_kernel<__nv_bfloat16, 8>(...)",
      "bn_stats_bwd"),
+    ("void (anonymous namespace)::bn_sums_persistent_kernel<__nv_bfloat16, "
+     "8>(__nv_bfloat16 const*, float const*, double*, unsigned int*, float*,"
+     " float*, int, int, int, int)", "bn_stats"),
+    ("void (anonymous namespace)::bn_sums_persistent_kernel<float, 1>(...)",
+     "bn_stats"),
+    ("void (anonymous namespace)::selfnorm_staged_kernel<__nv_bfloat16>("
+     "__nv_bfloat16 const*, float const*, float const*, float const*, "
+     "__nv_bfloat16*, int, int, int, int, float, float)", "selfnorm"),
     ("void cudnn::bn_bw_1C11_kernel_new<float, float>(...)", "batch_norm"),
     ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "conv_gemm"),

@@ -66,3 +66,41 @@ def test_compare_traces_counts_sign_flips(f64_run):
         "layer2.0.cnsn"]
     assert row["sign_flips"] == 1
     assert row["grad_err"] > 0 and row["grad_err_where_signs_agree"] == 0
+
+
+def test_exact_bn_sums_are_the_float64_sums_rounded_once():
+    """The exactly rounded K2 sums: float32 differences and rounded
+    squares, added in float64, rounded once."""
+    from cnsn_tpu_torch.train.rounding import exact_bn_sums
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(3, 5, 7, 6, generator=gen) * 3 + 1
+    m0 = torch.randn(6, generator=gen)
+    d = (x - m0).double()
+    s1, s2 = exact_bn_sums(x, m0)
+    assert s1.dtype == s2.dtype == torch.float32
+    assert torch.equal(s1, d.sum(dim=(0, 1, 2)).float())
+    assert torch.equal(s2, (x - m0).square().double().sum(dim=(0, 1, 2))
+                       .float())
+
+
+def test_run_with_other_sums_and_seed_puts_the_plain_version_back():
+    """``sums`` takes the place of the BatchNorm sums for one run only;
+    ``seed`` draws other inputs (seed 3 is the default)."""
+    from cnsn_tpu_torch.ops.kernels import bn_stats
+    from cnsn_tpu_torch.train.rounding import exact_bn_sums
+    plain = (bn_stats.bn_sums_reference, bn_stats.bn_sums_cuda)
+    calls = []
+
+    def sums(x, m0):
+        calls.append(x.shape[-1])
+        return exact_bn_sums(x, m0)
+
+    run = run_steps("cpu", torch.float32, sums=sums)
+    assert (bn_stats.bn_sums_reference, bn_stats.bn_sums_cuda) == plain
+    # 17 BatchNorm2d layers of layers (1, 1, 1, 1), three steps
+    assert len(calls) == 3 * 17
+    assert all(map(torch.isfinite, map(torch.tensor, run.losses)))
+    other = run_steps("cpu", torch.float32, seed=4, sums=sums)
+    assert other.losses != run.losses
+    assert run_steps("cpu", torch.float32, seed=3).losses[0] == \
+        run_steps("cpu", torch.float32).losses[0]
