@@ -30,6 +30,17 @@ training steps, one K2 forward kernel per BatchNorm2d layer):
     again with cuDNN's gradients, profiled, then evaluated through K3;
     before it, one float32 step of a reduced WRN under both, from the
     same weights, every conv weight's gradient compared;
+  * training with in-network CrossNorm, the CIFAR ``cn`` regime
+    (``cnsn_tpu/configs/cifar10/wideresnet/cn.yaml``: CrossNorm sites at
+    pos='post', crop 'neither'; ``cnsn.yaml``: CNSN sites, crop 'both'; 2
+    of 18 sites on per cn step), WRN-40-2 at b=128 32² bf16 under
+    CNSN_CONV3X3=pallas, 35 gated steps of each timed and profiled, the
+    launches checked step by step, then an eval step of the cnsn.yaml
+    model through K3; before it, one cn step of a reduced WRN with fixed
+    draws for three knob sets (CrossNorm 'neither', CNSN 'both', the fused
+    CNSN 'style'), on the card and on the CPU, each held against a
+    float64 twin; after it, 5 steps of ``imagenet/resnet50/cn.yaml``
+    (image CrossNorm, crop 'both', on a plain ResNet-50);
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -71,6 +82,16 @@ SN_SHAPES = ((56, 256, 3), (28, 512, 4), (14, 1024, 6), (7, 2048, 3))
 # BatchNorm2d inputs (each block's two, and the last after group 3)
 WRN_SN_SHAPES = ((32, 16, 1), (32, 32, 6), (16, 64, 6), (8, 128, 5))
 WRN_BN_SHAPES = ((32, 16, 1), (32, 32, 12), (16, 64, 12), (8, 128, 12))
+# WRN-40-2 at pos 'post': (H = W, C, sites) of each group's block outputs,
+# where cn.yaml's CrossNorm and cnsn.yaml's CrossNorm and SelfNorm sit
+WRN_POST_SHAPES = ((32, 32, 6), (16, 64, 6), (8, 128, 6))
+# K1's calls on the three WRN-40-2 recipes at b=128 bf16: (recipe, shapes,
+# eps): SelfNorm's statistics (eps 1e-12) at sn.yaml's 18 pos-'pre' sites
+# and cnsn.yaml's 18 pos-'post' sites on every step, CrossNorm's (eps
+# 1e-5) at cn.yaml's active sites (2 of 18 per cn step)
+WRN_K1_CASES = (("sn.yaml", WRN_SN_SHAPES, 1e-12),
+                ("cnsn.yaml", WRN_POST_SHAPES, 1e-12),
+                ("cn.yaml", WRN_POST_SHAPES, 1e-5))
 RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "imagenet", "resnet50",
                       "cnsn.yaml")
 # bench.py's loop: 5 warm-up steps, then 3 timed windows of 10, gated by
@@ -132,6 +153,18 @@ ARTIFACT_TOL = 1e-3
 CARD_VS_CPU_ROUNDING = 8
 ROUNDING_FLOOR = 1e-6
 SERVE_REQUESTS = 100  # timed requests per (batch, path): p90 has 10 beyond
+WRN_CN_RECIPES = tuple(os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
+                                    "wideresnet", name)
+                       for name in ("cn.yaml", "cnsn.yaml"))
+R50_CN_RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "imagenet",
+                             "resnet50", "cn.yaml")
+R50_CN_STEPS = 5
+# K1 per cn step of the reduced WRN (3 sites, sites 1 and 3 on): CrossNorm
+# 'neither' takes its statistics at the 2 active sites; CNSN 'both' takes
+# SelfNorm's at all 3 (CrossNorm's are masked, plain torch); the fused
+# CNSN 'style' site takes CrossNorm's unmasked ones at all 3, on or not
+CN_STEP_K1 = {"cn_neither": 2, "cnsn_both": 3, "cnsn_style": 3}
+CN_STEP_BN = 7  # BatchNorm2d layers of WRN-10-2
 SPIN_CYCLES = 2_000_000  # ~1 ms of card clock: host head start per launch
 
 
@@ -278,22 +311,30 @@ def phase_k3_vs_plain(dev, flush):
 
 
 def phase_k1_vs_plain(dev, flush):
-    """K1 forward and backward at the 16 SelfNorm sites (b=128 bf16) and
-    at the image CrossNorm statistics (b=128 224² fp32, once per cn_image
-    step; its backward is not on the path, no gradient reaches images)."""
+    """K1 forward and backward at the 16 SelfNorm sites of ResNet-50
+    (b=128 bf16), at the image CrossNorm statistics (b=128 224² fp32, once
+    per cn_image step; its backward is not on the path, no gradient
+    reaches images), and at the calls of WRN-40-2's sn.yaml, cnsn.yaml
+    and cn.yaml (b=128 32² bf16, ``WRN_K1_CASES``, each at its eps)."""
     from cnsn_tpu_torch.ops import (ins_stats_bwd_cuda,
                                     ins_stats_bwd_reference, ins_stats_cuda,
                                     ins_stats_reference)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    shapes = [((n, n, c), torch.bfloat16, sites) for n, c, sites in SN_SHAPES]
-    shapes.append(((IMAGE, IMAGE, 3), torch.float32, 0))
-    for (h, w, c), dtype, sites in shapes:
+    cases = [((n, n, c), torch.bfloat16, sites, 1e-5, {})
+             for n, c, sites in SN_SHAPES]
+    cases.append(((IMAGE, IMAGE, 3), torch.float32, 0, 1e-5, {}))
+    for recipe, shapes, eps in WRN_K1_CASES:
+        check(sum(r[2] for r in shapes) == WRN_SN, f"{recipe} K1 shapes")
+        cases += [((n, n, c), torch.bfloat16, sites, eps,
+                   {"model": "wrn", "recipe": recipe, "eps": eps})
+                  for n, c, sites in shapes]
+    for (h, w, c), dtype, sites, eps, tags in cases:
         shape = (128, h, w, c)
         x = (torch.randn(shape, generator=gen, device=dev) * 1.5
              + 0.3).to(dtype)
         elems, itemsize, stats = x.numel(), x.element_size(), 128 * c * 4
-        got, want = ins_stats_cuda(x), ins_stats_reference(x)
+        got, want = ins_stats_cuda(x, eps), ins_stats_reference(x, eps)
         torch.cuda.synchronize()
         err = max((g - r).abs().max().item() for g, r in zip(got, want))
         # both sum fp32 in other orders: 1e-5 relative
@@ -301,11 +342,12 @@ def phase_k1_vs_plain(dev, flush):
             torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
         rows.append(_row(
             "ins_stats", shape, dtype, sites, err,
-            {"rtol": 1e-5, "atol": 1e-5}, flush, lambda: ins_stats_cuda(x),
-            lambda: ins_stats_reference(x),
+            {"rtol": 1e-5, "atol": 1e-5}, flush,
+            lambda: ins_stats_cuda(x, eps),
+            lambda: ins_stats_reference(x, eps),
             lambda: torch.std_mean(x, dim=(1, 2)), "torch.std_mean",
             elems * itemsize + 2 * stats, 3 * elems,
-            cn_sites=0 if sites else 1))
+            cn_sites=0 if sites else 1, **tags))
         mean, std = want
         gm = torch.randn(128, c, generator=gen, device=dev)
         gs = torch.randn(128, c, generator=gen, device=dev)
@@ -316,14 +358,14 @@ def phase_k1_vs_plain(dev, flush):
         # one fp32 expression per element, rounded once to x's type
         rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-6
         check(err <= rel * want.float().abs().max().item(),
-              f"K1 backward {shape} {dtype}: {err}")
+              f"K1 backward {shape} {dtype} eps {eps}: {err}")
         rows.append(_row(
             "ins_stats_bwd", shape, dtype, sites, err,
             {"of_max_abs": rel}, flush,
             lambda: ins_stats_bwd_cuda(x, mean, std, gm, gs),
             lambda: ins_stats_bwd_reference(x, mean, std, gm, gs), None,
             "null: no single PyTorch call computes this backward",
-            2 * elems * itemsize + 4 * stats, 4 * elems))
+            2 * elems * itemsize + 4 * stats, 4 * elems, **tags))
         del x, got, want, mean, std
     torch.cuda.empty_cache()
     return rows
@@ -674,14 +716,15 @@ def conv3x3_mode(mode):
             os.environ["CNSN_CONV3X3"] = old
 
 
-def flagship(dev):
-    """The flagship recipe's train state and step, b=128 224² bf16, built
-    as a user builds it; ``step(cn)`` runs a cn_image or a plain step."""
+def flagship(dev, recipe=RECIPE):
+    """The flagship recipe's (or another ImageNet cn_image recipe's) train
+    state and step, b=128 224² bf16, built as a user builds it;
+    ``step(cn)`` runs a cn_image or a plain step."""
     from cnsn_tpu_torch.config import load_config
     from cnsn_tpu_torch.models import build_model
     from cnsn_tpu_torch.train import (StepFns, create_train_state,
                                       imagenet_step_lr)
-    cfg = load_config(RECIPE, compute_dtype="bf16")
+    cfg = load_config(recipe, compute_dtype="bf16")
     check(cfg.regime == "cn_image" and cfg.schedule == "imagenet_step",
           f"recipe resolves to {cfg.regime}, {cfg.schedule}")
     model = build_model(cfg.model, cfg.num_classes,
@@ -693,12 +736,14 @@ def flagship(dev):
                                 STEPS_PER_EPOCH),
         momentum=cfg.momentum, weight_decay=cfg.weight_decay,
         nesterov=cfg.nesterov, device=dev)
-    steps = StepFns(image_crop=cfg.crop)
+    steps = StepFns(image_crop=cfg.crop, image_beta=cfg.beta)
     b = cfg.batch_size
     gen = torch.Generator().manual_seed(cfg.seed)
     images = torch.randn(b, IMAGE, IMAGE, 3, generator=gen).to(dev)
     labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).to(dev)
-    perm_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    # the pairing is drawn on the card; a crop's boxes only on the host
+    perm_gen = torch.Generator(
+        device=dev if cfg.crop == "neither" else "cpu").manual_seed(cfg.seed)
     gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < cfg.cn_prob
 
     def step(cn):
@@ -800,6 +845,34 @@ def step_launches(step, per_step):
     per_step.append({k: v - before.get(k, 0) for k, v in LAUNCHES.items()
                      if v != before.get(k, 0)})
     return out
+
+
+def timed_windows(step):
+    """``step(i)`` for i in range(TRAIN_STEPS), timed as bench.py times
+    its loop: WARMUP steps, then WINDOWS windows of WINDOW steps, the host
+    waiting for each window's last loss; the launches of each step
+    (``step_launches``), the peak memory counted from the first window.
+    Returns (launches per step, losses on the host, ms per step of each
+    window, warm-up seconds)."""
+    per_step, losses, window_ms = [], [], []
+
+    def one(i):
+        losses.append(step_launches(lambda: step(i), per_step)[1]["loss"])
+
+    t0 = time.perf_counter()
+    for i in range(WARMUP):
+        one(i)
+    float(losses[-1])
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for w in range(WINDOWS):
+        t0 = time.perf_counter()
+        for i in range(WARMUP + w * WINDOW, WARMUP + (w + 1) * WINDOW):
+            one(i)
+        float(losses[-1])
+        window_ms.append((time.perf_counter() - t0) * 1e3 / WINDOW)
+    torch.cuda.synchronize()
+    return per_step, torch.stack(losses).float().cpu(), window_ms, warmup_s
 
 
 def phase_train_flagship_k4(dev, conv_ms, k4_rows):
@@ -993,32 +1066,13 @@ def phase_train_wrn(dev):
         if mode == "pallas":
             want[K4_WGMMA] = WRN_K4_WGMMA
             want[K4_NARROW] = WRN_K4_NARROW
-        per_step, losses, window_ms = [], [], []
-
-        def one():
-            losses.append(step_launches(
-                lambda: steps.plain(state, images, labels),
-                per_step)[1]["loss"])
-
         torch.cuda.synchronize()
         LAUNCHES.clear()
         LAYOUT_COPIES.clear()
-        t0 = time.perf_counter()
-        for _ in range(WARMUP):
-            one()
-        float(losses[-1])
-        warmup_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(WINDOWS):
-            t0 = time.perf_counter()
-            for _ in range(WINDOW):
-                one()
-            float(losses[-1])
-            window_ms.append((time.perf_counter() - t0) * 1e3 / WINDOW)
-        torch.cuda.synchronize()
+        per_step, losses, window_ms, warmup_s = timed_windows(
+            lambda i: steps.plain(state, images, labels))
         counts, copies = dict(LAUNCHES), dict(LAYOUT_COPIES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        losses = torch.stack(losses).float().cpu()
         med = statistics.median(window_ms)
         rates[mode] = med
         emit({"phase": "train_wrn", "recipe": os.path.relpath(WRN_RECIPE,
@@ -1072,6 +1126,215 @@ def phase_train_wrn(dev):
           "img_per_s_conv": b / rates["conv"] * 1e3,
           "card": nvidia_smi_name_power()})
     return wrn_counts
+
+
+def phase_cn_card_vs_cpu(dev):
+    """One cn step of a reduced WRN (depth 10, widen 2, pos 'post', b=8
+    32², float32, TF32 off) with fixed draws (sites 1 and 3 on, each
+    site's permutation and boxes from a seed: ``train/rounding.py``'s
+    ``run_cn_step``), for CrossNorm 'neither' (K1 and its backward at the
+    active sites), CNSN 'both' (masked statistics) and CNSN 'style' (the
+    fused site), on the card and on the CPU.  Each run is held to a
+    float64 twin on the CPU that replays its ReLU masks; the card's error
+    may be at most ``CARD_VS_CPU_ROUNDING`` times the CPU's (floored at
+    ``ROUNDING_FLOOR``), as in train_card_vs_cpu: in the loss, and in the
+    worst tensor of the state and of the momentum buffers after the
+    step.  The card's K1 and K2 launches are checked."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train.rounding import (CN_KNOBS, CN_MASK,
+                                               compare_runs, run_cn_step)
+    f32, f64 = torch.float32, torch.float64
+    for knobs in CN_KNOBS:
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        card = run_cn_step(dev, f32, knobs)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        cpu = run_cn_step("cpu", f32, knobs)
+        errs = {name: compare_runs(run, run_cn_step(
+            "cpu", f64, knobs, replay=run.tape))
+            for name, run in (("card", card), ("cpu", cpu))}
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in card.states[1].values())
+        k1 = CN_STEP_K1[knobs]
+        want = {"bn_sums": CN_STEP_BN, "bn_sums_bwd": CN_STEP_BN,
+                "ins_stats": k1, "ins_stats_bwd": k1}
+        emit({"phase": "cn_card_vs_cpu", "knobs": knobs,
+              "model": "wideresnet depth 10 widen 2 pos post", "batch": 8,
+              "image": 32, "dtype": "float32", "tf32": False,
+              "mask": list(CN_MASK), "loss_card": card.losses[0],
+              "loss_cpu": cpu.losses[0], "vs_replaying_float64": errs,
+              "bound": f"card <= {CARD_VS_CPU_ROUNDING} x max(cpu, "
+                       f"{ROUNDING_FLOOR})", "launches": launches,
+              "expected_launches": want, "finite": finite})
+        check(finite, f"finite parameters after the {knobs} cn step")
+        check(launches == want, f"{knobs} cn step launches {launches}, "
+              f"expected {want}")
+        for key, cpu_err in errs["cpu"].items():
+            # the loss's one-step list, or a tensor's (error, name)
+            got, ref = errs["card"][key][0], cpu_err[0]
+            check(got <= CARD_VS_CPU_ROUNDING * max(ref, ROUNDING_FLOOR),
+                  f"{knobs} card vs float64 {key}: {got} against the "
+                  f"CPU's {ref}")
+
+
+def phase_train_wrn_cn(dev):
+    """The CIFAR cn regime at full width: cn.yaml (CrossNorm 'neither' at
+    pos 'post', cn_prob 0.5) and cnsn.yaml (CNSN 'both', cn_prob 0.25),
+    each WRN-40-2 at b=128 32² bf16 under CNSN_CONV3X3=pallas, 2 of the
+    18 sites on per cn step, 35 steps gated by
+    ``RandomState(GATE_SEED).rand(35) < cn_prob`` (cn or plain, as
+    ``cnsn_tpu/train/trainer.py:263-264`` picks) and timed as phase_train
+    times them, the launches checked step by step, one cn step of each
+    profiled; then one eval step of the cnsn.yaml model through K3.  The
+    site masks and boxes are drawn on the host from a CPU generator.
+    Returns each recipe's launches over its 35 steps."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    out = {}
+    for recipe in WRN_CN_RECIPES:
+        name = os.path.basename(recipe)
+        cfg = load_config(recipe, compute_dtype="bf16")
+        check((cfg.model, cfg.regime, cfg.pos, cfg.active_num)
+              == ("wideresnet", "cn", "post", 2), f"{name} resolves to {cfg}")
+        b = cfg.batch_size
+        gen = torch.Generator().manual_seed(cfg.seed)
+        images = torch.randn(b, WRN_IMAGE, WRN_IMAGE, 3, generator=gen).to(dev)
+        labels = torch.randint(0, cfg.num_classes, (b,),
+                               generator=gen).to(dev)
+        with conv3x3_mode("pallas"):
+            model = build_model(
+                cfg.model, cfg.num_classes,
+                generator=torch.Generator().manual_seed(cfg.seed),
+                pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
+                cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16)
+        state = create_train_state(
+            model, cosine_lr(cfg.lr, cfg.epochs * WRN_STEPS_PER_EPOCH),
+            momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+            nesterov=cfg.nesterov, device=dev)
+        check(state.model.cn_num == WRN_SN, f"{name} cn_num")
+        steps = StepFns(active_num=cfg.active_num, image_crop=cfg.crop,
+                        image_beta=cfg.beta)
+        draws = torch.Generator().manual_seed(cfg.seed)
+        gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < \
+            cfg.cn_prob
+
+        def step(cn):
+            if cn:
+                return steps.cn(state, images, labels, generator=draws)
+            return steps.plain(state, images, labels)
+
+        base = {"bn_sums": WRN_BN, "bn_sums_bwd": WRN_BN,
+                K4_WGMMA: WRN_K4_WGMMA, K4_NARROW: WRN_K4_NARROW}
+        sn = WRN_SN if "sn" in cfg.cnsn_type else 0
+        want = [{**base, "ins_stats": sn + 2 * (cfg.cnsn_type == "cn") * g,
+                 "ins_stats_bwd": sn + 2 * (cfg.cnsn_type == "cn") * g}
+                for g in gates]
+        want = [{k: v for k, v in w.items() if v} for w in want]
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        per_step, losses, window_ms, warmup_s = timed_windows(
+            lambda i: step(gates[i]))
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(window_ms)
+        n_cn = int(gates.sum())
+        emit({"phase": "train_wrn_cn", "recipe": os.path.relpath(recipe,
+                                                                  ROOT),
+              "regime": cfg.regime, "cnsn_type": cfg.cnsn_type,
+              "crop": cfg.crop, "cn_prob": cfg.cn_prob,
+              "active_num": cfg.active_num, "conv3x3": "pallas",
+              "batch": b, "image": WRN_IMAGE, "dtype": "bfloat16",
+              "steps": TRAIN_STEPS, "cn_steps": n_cn,
+              "gates": [int(g) for g in gates], "launches": counts,
+              "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+              "losses_finite": bool(torch.isfinite(losses).all()),
+              "warmup_s": warmup_s, "windows_ms_per_step": window_ms,
+              "ms_per_step": med, "img_per_s": b / med * 1e3,
+              "peak_mem_gib": peak, "host_loadavg": os.getloadavg(),
+              "card": nvidia_smi_name_power()})
+        bad = [(i, got, exp) for i, (got, exp) in
+               enumerate(zip(per_step, want)) if got != exp]
+        check(not bad, f"{name} launches per step (step, got, expected): "
+              f"{bad[:3]}")
+        check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+        prof = device_time_breakdown(lambda: step(True), iters=3, warmup=1,
+                                     top=12)
+        prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
+        emit({"phase": "train_wrn_cn_profile", "recipe": name, "step": "cn",
+              "batch": b, "dtype": "bfloat16", **prof})
+        check(prof["launches_by_family"].get("bn_stats") == WRN_BN,
+              f"K2 forward kernels per {name} cn step "
+              f"{prof['launches_by_family']}")
+        if "sn" in cfg.cnsn_type:
+            LAUNCHES.clear()
+            ev = steps.eval_step(state, images, labels)
+            torch.cuda.synchronize()
+            k3 = dict(LAUNCHES)
+            emit({"phase": "train_wrn_cn_then_eval", "recipe": name,
+                  "batch": b, "launches": k3, "loss": ev["loss"].item(),
+                  "correct": ev["correct"].item()})
+            check(k3 == {K3_STAGED: WRN_SN}, f"{name} eval launches {k3}")
+            check(ev["logits"].shape == (b, cfg.num_classes)
+                  and bool(torch.isfinite(ev["logits"]).all()),
+                  f"finite {name} eval logits")
+        out[name] = counts
+        del state, model, images
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_resnet_cn_both(dev):
+    """``imagenet/resnet50/cn.yaml``: image CrossNorm at crop 'both' (the
+    style statistics inside one box, applied inside another, both masked:
+    plain torch) on a plain ResNet-50 (no CNSN site), b=128 224² bf16, for
+    R50_CN_STEPS steps gated as the flagship is: 53 K2 launches forward
+    and backward per step and no K1 launch; the time of the last three; a
+    profile of one cn_image step.  Returns the launches."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    cfg, state, _, step, gates, images, _ = flagship(dev, R50_CN_RECIPE)
+    check((cfg.cnsn_type, cfg.crop) == (None, "both"),
+          f"resnet50/cn.yaml resolves to {cfg}")
+    n = R50_CN_STEPS
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    per_step, losses = [], []
+    for i in range(n):
+        if i == 2:
+            float(losses[-1])
+            t0 = time.perf_counter()
+        losses.append(step_launches(lambda: step(gates[i]),
+                                    per_step)[1]["loss"])
+    float(losses[-1])
+    ms = (time.perf_counter() - t0) * 1e3 / (n - 2)
+    counts = dict(LAUNCHES)
+    losses = torch.stack(losses).float().cpu()
+    want = {"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS}
+    emit({"phase": "train_resnet_cn_both",
+          "recipe": os.path.relpath(R50_CN_RECIPE, ROOT),
+          "regime": cfg.regime, "crop": cfg.crop, "batch": cfg.batch_size,
+          "image": IMAGE, "dtype": "bfloat16", "steps": n,
+          "gates": [int(g) for g in gates[:n]], "launches": counts,
+          "per_step_launches": per_step, "ms_per_step_last3": ms,
+          "img_per_s": cfg.batch_size / ms * 1e3, "losses": losses.tolist(),
+          "card": nvidia_smi_name_power()})
+    check(all(d == want for d in per_step),
+          f"resnet50/cn.yaml launches per step {per_step}, expected {want}")
+    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+    prof = device_time_breakdown(lambda: step(True), iters=2, warmup=1,
+                                 top=12)
+    prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / ms
+    emit({"phase": "train_resnet_cn_both_profile", "step": "cn_image",
+          "batch": cfg.batch_size, "dtype": "bfloat16", **prof})
+    check(prof["launches_by_family"].get("bn_stats") == BN_LAYERS,
+          f"K2 forward kernels per step {prof['launches_by_family']}")
+    del state, images
+    torch.cuda.empty_cache()
+    return counts
 
 
 def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
@@ -1137,6 +1400,12 @@ def main():
                         flagship_ms, k4_rows)
     timed("wrn_k4_vs_cudnn", phase_wrn_k4_vs_cudnn, dev)
     wrn_counts = timed("train_wrn", phase_train_wrn, dev)
+    with conv3x3_mode("conv"):
+        timed("cn_card_vs_cpu", phase_cn_card_vs_cpu, dev)
+    cn_counts = timed("train_wrn_cn", phase_train_wrn_cn, dev)
+    with conv3x3_mode("conv"):
+        cn_counts["resnet50/cn.yaml"] = timed(
+            "train_resnet_cn_both", phase_train_resnet_cn_both, dev)
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
     counts = timed("serving", phase_serving, dev)
 
@@ -1183,6 +1452,31 @@ def main():
                     "cnsn_tpu/ops/pallas/bn_stats.py:109"),
                    ("bn_sums_bwd", "bn_stats.cu",
                     "cnsn_tpu/ops/pallas/bn_stats.py:146"))]
+    # K1's and K2's launches on the CrossNorm paths of this run (35 steps
+    # of each WRN cn recipe, 5 of resnet50/cn.yaml)
+    for k in kernels:
+        k["cn_paths"] = {recipe: counts_.get(k["name"], 0)
+                         for recipe, counts_ in cn_counts.items()}
+    # K1 per step of each WRN-40-2 recipe, beside the flagship's: its
+    # rows by their sites (cn.yaml: a cn step's 2 active sites of 18, mean
+    # over which), its launches in this run's 35 steps of the recipe
+    for k in kernels[:2]:
+        k["wrn"] = {}
+        for recipe, _, _ in WRN_K1_CASES:
+            part = [r for r in rows if r.get("recipe") == recipe
+                    and r["kernel"] == k["name"]]
+            share = 2 / WRN_SN if recipe == "cn.yaml" else 1
+            k["wrn"][recipe] = {
+                key: (None if part[0][key] is None else
+                      share * sum(r[key] * r["sites"] for r in part))
+                for key in ("kernel_ms", "plain_ms", "bound_ms",
+                            "library_ms")}
+            k["wrn"][recipe]["launches"] = (
+                wrn_counts if recipe == "sn.yaml"
+                else cn_counts[recipe]).get(k["name"], 0)
+            k["wrn"][recipe]["per"] = (
+                "WRN-40-2 b=128 bf16 " + ("cn step" if recipe == "cn.yaml"
+                                          else "training step"))
     # K2 per WRN-40-2 step, beside the flagship's
     wrn_k2 = [r for r in rows if r.get("model") == "wrn"]
     for k in kernels:

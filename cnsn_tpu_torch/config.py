@@ -30,6 +30,7 @@ class ExperimentConfig:
     crop: Optional[str] = None
     beta: Optional[float] = None
     cn_prob: Optional[float] = None
+    active_num: Optional[int] = None  # CrossNorm sites on per cn step
     # plain | cn | cn_consistency | cn_augmix | cn_image | cn_image_consist
     # | cn_image_augmix, or auto (resolved by infer())
     regime: str = "plain"

@@ -18,7 +18,7 @@ identical to the plain 7×7/s2 stem on the same parameter) and
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +27,7 @@ from torch import nn
 from ..ops.convdot import Conv2dCustomBwd
 
 __all__ = ["he_fanout_normal", "torch_linear_uniform", "Conv2d",
-           "ConvCustomBwd", "Linear", "conv_he_fanout"]
+           "ConvCustomBwd", "Linear", "conv_he_fanout", "site_gates"]
 
 # CNSN_CONV3X3 → (wgrad, dgrad) of a 3×3 conv's backward
 # (``cnsn_tpu/models/common.py:107-112``); 'conv' keeps the stock conv
@@ -142,3 +142,22 @@ def conv_he_fanout(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
         return ConvCustomBwd(in_ch, out_ch, kernel, stride, wgrad, dgrad,
                              dtype, generator)
     return Conv2d(in_ch, out_ch, kernel, stride, dtype, generator)
+
+
+def site_gates(cn_active: Optional[Sequence[bool]],
+               sites: int) -> List[Optional[bool]]:
+    """The host gate of each of a model's ``sites`` CNSN sites: None at
+    every site for a plain forward, else ``cn_active`` as Python bools (a
+    sequence, or a CPU bool tensor).  A gate on the card is refused:
+    reading it would wait for the card at every site."""
+    if cn_active is None:
+        return [None] * sites
+    if isinstance(cn_active, torch.Tensor):
+        if cn_active.device.type != "cpu":
+            raise ValueError("CrossNorm site gates live on the host; got a "
+                             f"mask on {cn_active.device}")
+        cn_active = cn_active.tolist()
+    gates = [bool(a) for a in cn_active]
+    if len(gates) != sites:
+        raise ValueError(f"{len(gates)} site gates for {sites} sites")
+    return gates

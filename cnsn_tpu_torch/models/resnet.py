@@ -19,7 +19,7 @@ from torch import nn
 
 from ..nn.cnsn import CNSN
 from ..nn.norm import BatchNorm
-from .common import Linear, conv_he_fanout
+from .common import Linear, conv_he_fanout, site_gates
 
 __all__ = ["Bottleneck", "ResNet", "block_plan", "resnet50"]
 
@@ -79,12 +79,19 @@ class Bottleneck(nn.Module):
                                generator=g),
                 BatchNorm(out_ch))
 
-    def forward(self, x: torch.Tensor,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, active: Optional[bool] = None,
+                draws: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``active``: the block's CrossNorm gate (None: no CrossNorm
+        forward); ``draws`` and ``generator``: its random draws
+        (``nn/cnsn.py::CrossNorm``)."""
+        def cnsn(t):
+            return self.cnsn(t, active, draws, generator)
+
         identity = x
         out = x
         if self.cnsn is not None and self.pos == "pre":
-            out = self.cnsn(out, active)
+            out = cnsn(out)
         out = F.relu(self.bn1(self.conv1(out)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
@@ -92,12 +99,12 @@ class Bottleneck(nn.Module):
             identity = self.downsample(x)
         if self.cnsn is not None:
             if self.pos == "residual":
-                out = self.cnsn(out, active)
+                out = cnsn(out)
             elif self.pos == "identity":
-                identity = self.cnsn(identity, active)
+                identity = cnsn(identity)
         out = out + identity
         if self.cnsn is not None and self.pos == "post":
-            out = self.cnsn(out, active)
+            out = cnsn(out)
         return F.relu(out)
 
 
@@ -146,19 +153,27 @@ class ResNet(nn.Module):
         return (self.layer1, self.layer2, self.layer3, self.layer4)
 
     def forward(self, images: torch.Tensor,
-                cn_active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``cn_active``: (cn_num,) bool, one gate per bottleneck's
-        CrossNorm site, or None (no site active)."""
+                cn_active: Optional[Sequence[bool]] = None,
+                cn_draws: Optional[Sequence[dict]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``cn_active``: one host gate per bottleneck's CrossNorm site
+        (cn_num bools, or a CPU bool tensor), or None (a plain forward);
+        ``cn_draws``: each site's draws, or None to draw them all from
+        ``generator``."""
         if images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected NHWC images (B, H, W, 3), got "
                              f"{tuple(images.shape)}")
+        gates = site_gates(cn_active,
+                           sum(len(layer) for layer in self._stages()))
         x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)  # implicit -inf padding, as flax's
         site = 0
         for layer in self._stages():
             for block in layer:
-                x = block(x, None if cn_active is None else cn_active[site])
+                x = block(x, gates[site],
+                          None if cn_draws is None else cn_draws[site],
+                          generator)
                 site += 1
         return self.fc(x.mean(dim=(2, 3)))
 

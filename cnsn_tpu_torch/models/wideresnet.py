@@ -14,7 +14,7 @@ Dropout (``drop_rate`` > 0) is not ported.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +22,7 @@ from torch import nn
 
 from ..nn.cnsn import CNSN
 from ..nn.norm import BatchNorm
-from .common import Linear, conv_he_fanout
+from .common import Linear, conv_he_fanout, site_gates
 
 __all__ = ["BasicBlock", "WideResNet"]
 
@@ -55,11 +55,18 @@ class BasicBlock(nn.Module):
                                                 stride, dtype=dtype,
                                                 generator=g)
 
-    def forward(self, x: torch.Tensor,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, active: Optional[bool] = None,
+                draws: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``active``: the block's CrossNorm gate (None: no CrossNorm
+        forward); ``draws`` and ``generator``: its random draws
+        (``nn/cnsn.py::CrossNorm``)."""
+        def cnsn(t):
+            return self.cnsn(t, active, draws, generator)
+
         if not self.equal:
             x = F.relu(self.bn1(x))
-        out = self.cnsn(x, active) if self.pos == "pre" else x
+        out = cnsn(x) if self.pos == "pre" else x
         if self.equal:
             out = F.relu(self.bn1(out))
         out = F.relu(self.bn2(self.conv1(out)))
@@ -67,12 +74,12 @@ class BasicBlock(nn.Module):
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         if self.pos == "residual":
-            out = self.cnsn(out, active)
+            out = cnsn(out)
         elif self.pos == "identity":
-            x = self.cnsn(x, active)
+            x = cnsn(x)
         out = x + out
         if self.pos == "post":
-            out = self.cnsn(out, active)
+            out = cnsn(out)
         return out
 
 
@@ -124,14 +131,21 @@ class WideResNet(nn.Module):
         return len(list(self._blocks())) if "cn" in self.cnsn_type else 0
 
     def forward(self, images: torch.Tensor,
-                cn_active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``cn_active``: (cn_num,) bool, one gate per block's CrossNorm
-        site, or None (no site active)."""
+                cn_active: Optional[Sequence[bool]] = None,
+                cn_draws: Optional[Sequence[dict]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``cn_active``: one host gate per block's CrossNorm site
+        (cn_num bools, or a CPU bool tensor), or None (a plain forward);
+        ``cn_draws``: each site's draws, or None to draw them all from
+        ``generator``."""
         if images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected NHWC images (B, H, W, 3), got "
                              f"{tuple(images.shape)}")
+        gates = site_gates(cn_active, len(list(self._blocks())))
         out = self.conv1(images.permute(0, 3, 1, 2))
         for site, block in enumerate(self._blocks()):
-            out = block(out, None if cn_active is None else cn_active[site])
+            out = block(out, gates[site],
+                        None if cn_draws is None else cn_draws[site],
+                        generator)
         out = F.relu(self.bn1(out))
         return self.fc(out.mean(dim=(2, 3)))

@@ -1,43 +1,80 @@
 """CrossNorm / SelfNorm / CNSN: port of ``cnsn_tpu/nn/cnsn.py``.
 
-Activations are NCHW tensors in ``torch.channels_last`` memory.  Eval
-SelfNorm folds its BatchNorm1d running statistics into an affine and runs
-the fused K3 op (``ops/kernels/selfnorm.py``); train SelfNorm takes its
-instance statistics through K1 (``ops/stats.py``).  An inactive CrossNorm
-is the identity; an active in-network site and the fused CNSN path are not
-ported yet.  Parameter names follow the reference torch modules
-(``selfnorm.g_fc.weight`` of shape (C, 1, 2), ``selfnorm.g_bn.*``).
+Activations are NCHW tensors in ``torch.channels_last`` memory; the ops
+see their NHWC-contiguous ``permute(0, 2, 3, 1)`` view.  Eval SelfNorm
+folds its BatchNorm1d running statistics into an affine and runs the
+fused K3 op (``ops/kernels/selfnorm.py``); train SelfNorm takes its
+instance statistics through K1 (``ops/stats.py``).  Parameter names
+follow the reference torch modules (``selfnorm.g_fc.weight`` of shape
+(C, 1, 2), ``selfnorm.g_bn.*``).
+
+A CrossNorm site's gate is a host bool (the train step samples the site
+mask on the host), and its random draws come from the caller or from a
+generator (``ops/crossnorm.py``), where JAX derives a key per site from
+its module path.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 from torch import nn
 
+from ..ops.crossnorm import (cross_norm_2ins, cross_norm_fma, draw,
+                             pair_stats)
 from ..ops.kernels.selfnorm import selfnorm_infer
 from ..ops.stats import instance_mean_std
 from .norm import BatchNorm1dStats
 
 __all__ = ["CrossNorm", "SelfNorm", "CNSN"]
 
+# CrossNorm's statistics eps (``ops/crossnorm.py``), which the fused CNSN
+# path's algebra removes again (``nn/cnsn.py:187``)
+EPS_CN = 1e-5
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
 
 class CrossNorm(nn.Module):
-    """One CrossNorm site (``crop`` region mode, ``beta`` of its bbox
-    draw).  ``active is None`` (eval, plain forward) is the identity; an
-    active site is not ported yet and raises."""
+    """One CrossNorm site (``nn/cnsn.py:38-71``) with the knobs the models
+    set, ``crop`` and ``beta`` (lam, chan and bbx_thres keep the defaults
+    the JAX models leave them at; one card pairs the whole batch).  The
+    implementation is read from ``CNSN_CN_IMPL`` when the site is built,
+    as JAX reads it: 'fma' (the default) is ``cross_norm_fma``, 'cond' is
+    ``cross_norm_2ins``.
+
+    ``active`` None (eval, plain forward) or False is the identity: JAX's
+    'fma' gives x·1 + 0 in fp32, cast back, which is x, and 'cond' takes
+    the identity branch; neither draws nor launches anything here."""
 
     def __init__(self, crop: str = "neither", beta: float = 1.0):
         super().__init__()
-        self.crop, self.beta = crop, beta
+        impl = os.environ.get("CNSN_CN_IMPL", "fma")
+        if impl not in ("fma", "cond"):
+            raise ValueError(f"CrossNorm impl must be 'fma' or 'cond', got "
+                             f"{impl!r}")
+        self.impl = impl
+        self.kw = dict(crop=crop, beta=beta)
 
-    def forward(self, x: torch.Tensor,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if active is None:
+    def forward(self, x: torch.Tensor, active: Optional[bool] = None,
+                draws: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``draws``: this site's perm, style_box and content_box, any of
+        them; the rest from ``generator``."""
+        if not active:
             return x
-        raise NotImplementedError(
-            "an active in-network CrossNorm site is not ported yet (ROADMAP "
-            "queue 1: in-network CrossNorm and the fused CNSN path)")
+        kw = dict(self.kw, generator=generator, **(draws or {}))
+        out = (cross_norm_fma(_nhwc(x), True, **kw) if self.impl == "fma"
+               else cross_norm_2ins(_nhwc(x), **kw))
+        return _nchw(out)
 
 
 class _PairFC(nn.Module):
@@ -74,24 +111,39 @@ class SelfNorm(nn.Module):
         self.g_fc = _PairFC(features, generator or torch.Generator())
         self.g_bn = BatchNorm1dStats(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats=None,
+                gate_only: bool = False) -> torch.Tensor:
+        """``stats``: precomputed (mean, std), each (N, C), which the fused
+        CNSN path knows analytically; ``gate_only`` returns the gate g,
+        (N, C, 1, 1) in x's type, instead of x·g."""
         w = self.g_fc.weight.reshape(self.features, 2)
-        if not self.training:
+        if not self.training and stats is None and not gate_only:
             a, b = self.g_bn.folded_affine()
-            out = selfnorm_infer(x.permute(0, 2, 3, 1), w, a, b, self.eps)
-            return out.permute(0, 3, 1, 2)
+            return _nchw(selfnorm_infer(_nhwc(x), w, a, b, self.eps))
         n, c = x.shape[0], self.features
-        mean, std = instance_mean_std(x.permute(0, 2, 3, 1), eps=self.eps)
+        if stats is None:
+            mean, std = instance_mean_std(_nhwc(x), eps=self.eps)
+            stats = (mean.reshape(n, c), std.reshape(n, c))
         sdt = torch.promote_types(x.dtype, torch.float32)
-        y = (mean.reshape(n, c).to(sdt) * w[:, 0]
-             + std.reshape(n, c).to(sdt) * w[:, 1])
-        g = torch.sigmoid(self.g_bn(y)).to(x.dtype)
-        return x * g.reshape(n, c, 1, 1)
+        y = stats[0].to(sdt) * w[:, 0] + stats[1].to(sdt) * w[:, 1]
+        g = torch.sigmoid(self.g_bn(y)).to(x.dtype).reshape(n, c, 1, 1)
+        return g if gate_only else x * g
 
 
 class CNSN(nn.Module):
     """CrossNorm-then-SelfNorm composition for ``cnsn_type`` in
-    {'cn', 'sn', 'cnsn'}."""
+    {'cn', 'sn', 'cnsn'} (``nn/cnsn.py:152-218``).
+
+    Fused path (unless ``CNSN_FUSE=0`` when the site is built, as JAX
+    reads it): on a
+    CrossNorm forward (``active`` not None, whether or not this site is
+    on) of a 'cnsn' site with crop 'neither' or 'style', CrossNorm's
+    output is x·scale + shift per (N, C), so SelfNorm's statistics follow
+    from CrossNorm's one pass (fp32, eps 1e-5, K1 on the card):
+    μ_out = μ_c·scale + shift, σ_out = sqrt(max(σ_c² − 1e-5, 0)·scale²
+    + 1e-12), and out = x·(scale·g) + shift·g in fp32.  An idle site has
+    scale 1 and shift 0, and still takes its SelfNorm statistics from
+    that pass, as JAX does."""
 
     def __init__(self, features: int, cnsn_type: str, crop: str = "neither",
                  beta: float = 1.0,
@@ -99,15 +151,48 @@ class CNSN(nn.Module):
         super().__init__()
         if cnsn_type not in ("cn", "sn", "cnsn"):
             raise ValueError(f"bad cnsn_type {cnsn_type!r}")
-        self.crossnorm = (CrossNorm(crop, beta)
-                          if "cn" in cnsn_type else None)
+        self.fused = (os.environ.get("CNSN_FUSE", "1") == "1"
+                      and cnsn_type == "cnsn"
+                      and crop in ("neither", "style"))
+        self.crossnorm = CrossNorm(crop, beta) if "cn" in cnsn_type else None
         self.selfnorm = (SelfNorm(features, generator=generator)
                          if "sn" in cnsn_type else None)
 
-    def forward(self, x: torch.Tensor,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, active: Optional[bool] = None,
+                draws: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        if self.fused and active is not None:
+            return self._fused(x, active, draws or {}, generator)
         if self.crossnorm is not None:
-            x = self.crossnorm(x, active)
+            x = self.crossnorm(x, active, draws, generator)
         if self.selfnorm is not None:
             x = self.selfnorm(x)
         return x
+
+    def _fused(self, x, active, draws, generator):
+        xh = _nhwc(x)
+        n, c = x.shape[0], x.shape[1]
+        ct = torch.promote_types(x.dtype, torch.float32)
+        if active:
+            kw = self.crossnorm.kw
+            d = draw(xh, kw["crop"], beta=kw["beta"], generator=generator,
+                     **draws)
+            (s_mean, s_std), (cm, cs) = pair_stats(xh, kw["crop"], d,
+                                                   EPS_CN, out_dtype=ct)
+            scale = s_std / cs
+            shift = s_mean - cm * scale
+            sn_mean = cm * scale + shift
+            var = torch.clamp(cs * cs - EPS_CN, min=0.0) * (scale * scale)
+        else:  # scale 1, shift 0: each expression, exactly
+            cm, cs = instance_mean_std(xh, eps=EPS_CN, out_dtype=ct)
+            sn_mean = cm
+            var = torch.clamp(cs * cs - EPS_CN, min=0.0)
+        sn_std = torch.sqrt(var + self.selfnorm.eps)
+        g = self.selfnorm(x, stats=(sn_mean.reshape(n, c),
+                                    sn_std.reshape(n, c)),
+                          gate_only=True).to(ct)
+        g = _nhwc(g)  # (N, 1, 1, C)
+        xf = xh.to(ct)
+        out = xf * (scale * g) + shift * g if active else xf * g
+        return _nchw(out.to(x.dtype))

@@ -28,6 +28,12 @@ replaying twin.
     python -m cnsn_tpu_torch.train.rounding [--device cuda|cpu]
     python -m cnsn_tpu_torch.train.rounding --seeds 3,0,1 [--baseline DIR]
 
+``run_cn_step`` is the same kind of run for in-network CrossNorm: one
+``cn`` step of a reduced WRN (depth 10, widen 2, pos 'post', b=8 32²)
+with fixed draws (``CN_MASK``, ``cn_draws``), for the knob sets of
+``CN_KNOBS``; its float32 runs are held to float64 twins that replay
+their ReLU masks in the same way (``chip_smoke.py``'s ``cn_card_vs_cpu``).
+
 The first prints one JSON line: for the float32 run on ``--device`` and
 for the CPU's, the error against its replaying float64 twin, and, for
 step 1 against a float64 run with its own masks, each module's forward
@@ -40,6 +46,7 @@ earlier checkout's ``cnsn_tpu_torch/csrc`` (``utils/stats_sweep.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -50,18 +57,30 @@ import torch.nn.functional as F
 
 from ..models import build_model
 from ..models import resnet as _resnet
+from ..models import wideresnet as _wideresnet
+from ..models.wideresnet import WideResNet
+from ..ops.bbox import sample_bbox
+from ..ops.crossnorm import grouped_permutation
 from ..ops.kernels import bn_stats as _bn_stats
 from ..ops.kernels.bn_stats import bn_sums_reference as _plain_sums
 from ..utils.device import resolve_device
 from .schedules import cosine_lr
 from .steps import StepFns, create_train_state
 
-__all__ = ["KINDS", "Run", "compare_runs", "compare_traces", "exact_bn_sums",
-           "run_steps", "seed_spread"]
+__all__ = ["CN_KNOBS", "CN_MASK", "KINDS", "Run", "cn_draws", "compare_runs",
+           "compare_traces", "exact_bn_sums", "run_cn_step", "run_steps",
+           "seed_spread"]
 
 KINDS = ("plain", "cn_image", "plain")
 BATCH, SIZE, CLASSES = 4, 64, 10  # 64² leaves layer4 at 2x2
 PERM = (2, 0, 3, 1)  # the cn_image step's partner of each instance
+# the cn step: a WRN of one block per group (3 sites: 32², 16², 8²), sites
+# 1 and 3 on, and the knob sets of cn.yaml, cnsn.yaml and the fused site
+CN_BATCH, CN_SIZE = 8, 32
+CN_MASK = (True, False, True)
+CN_KNOBS = {"cn_neither": dict(cnsn_type="cn", crop="neither"),
+            "cnsn_both": dict(cnsn_type="cnsn", crop="both"),
+            "cnsn_style": dict(cnsn_type="cnsn", crop="style")}
 
 
 class _Tape:
@@ -132,6 +151,23 @@ def _trace_hooks(model, trace: dict) -> list:
             for n, m in model.named_modules() if n]
 
 
+@contextlib.contextmanager
+def _exact(model_module, tape: _Tape):
+    """TF32 off, and the ReLUs and max-pools of the model defined in
+    ``model_module`` taken through ``tape``, while the block runs."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model_module.F = tape
+    try:
+        yield
+    finally:
+        model_module.F = F
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
 def exact_bn_sums(x: torch.Tensor, m0: torch.Tensor):
     """K2's sums correctly rounded: the float32 differences x − m0 and
     their rounded squares, as the kernel and the plain version form them,
@@ -165,38 +201,70 @@ def run_steps(device: str | torch.device, dtype: torch.dtype, *,
     steps, tape, traced = StepFns(), _Tape(replay), {}
     handles = _trace_hooks(state.model, traced) if trace else []
     losses, states = [], {}
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _resnet.F = tape
     patched = {k: getattr(_bn_stats, k)
                for k in ("bn_sums_reference", "bn_sums_cuda")}
     if sums is not None:
         for k in patched:
             setattr(_bn_stats, k, sums)
     try:
-        for i, kind in enumerate(KINDS):
-            x = images[i].to(device, dtype)
-            y = labels[i].to(device)
-            if kind == "plain":
-                state, metrics = steps.plain(state, x, y)
-            else:
-                state, metrics = steps.cn_image(
-                    state, x, y, perm=torch.tensor(PERM, device=device))
-            losses.append(float(metrics["loss"]))
-            for h in handles:
-                h.remove()
-            handles = []
-            if i in (0, len(KINDS) - 1):
-                states[i + 1] = _snapshot(state)
+        with _exact(_resnet, tape):
+            for i, kind in enumerate(KINDS):
+                x = images[i].to(device, dtype)
+                y = labels[i].to(device)
+                if kind == "plain":
+                    state, metrics = steps.plain(state, x, y)
+                else:
+                    state, metrics = steps.cn_image(
+                        state, x, y, perm=torch.tensor(PERM, device=device))
+                losses.append(float(metrics["loss"]))
+                for h in handles:
+                    h.remove()
+                handles = []
+                if i in (0, len(KINDS) - 1):
+                    states[i + 1] = _snapshot(state)
     finally:
-        _resnet.F = F
         for k, fn in patched.items():
             setattr(_bn_stats, k, fn)
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
     return Run(losses, states, tape.record, traced)
+
+
+def cn_draws(seed: int = 0) -> list:
+    """Fixed draws for the cn step's three sites, from a seeded CPU
+    generator: each site's partner permutation, style box and content
+    box (a crop uses what it needs)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for side in (CN_SIZE, CN_SIZE // 2, CN_SIZE // 4):
+        out.append({"perm": grouped_permutation(CN_BATCH, 1, gen),
+                    "style_box": sample_bbox(side, side, generator=gen),
+                    "content_box": sample_bbox(side, side, generator=gen)})
+    return out
+
+
+def run_cn_step(device: str | torch.device, dtype: torch.dtype, knobs: str,
+                *, replay: Optional[list] = None, seed: int = 3) -> Run:
+    """One ``cn`` step (``StepFns.cn``, sites ``CN_MASK`` on, draws
+    ``cn_draws()``) of the reduced WRN with the knobs ``CN_KNOBS[knobs]``
+    on ``device`` (TF32 off) in ``dtype``, from seeded weights and data;
+    ``replay``: another run's ReLU masks, applied.  The Run's state is
+    the one after the step (key 1)."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(CN_BATCH, CN_SIZE, CN_SIZE, 3, generator=gen)
+    labels = torch.randint(0, CLASSES, (CN_BATCH,), generator=gen)
+    model = WideResNet(depth=10, widen_factor=2, num_classes=CLASSES,
+                       pos="post", generator=torch.Generator().manual_seed(0),
+                       **CN_KNOBS[knobs])
+    state = create_train_state(model.to(dtype), cosine_lr(0.1, 4),
+                               momentum=0.9, weight_decay=5e-4,
+                               nesterov=True, device=device)
+    tape = _Tape(replay)
+    with _exact(_wideresnet, tape):
+        state, metrics = StepFns(active_num=sum(CN_MASK)).cn(
+            state, images.to(device, dtype), labels.to(device),
+            mask=CN_MASK, draws=cn_draws())
+        loss = float(metrics["loss"])
+    return Run([loss], {1: _snapshot(state)}, tape.record)
 
 
 def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -1,12 +1,17 @@
-"""Train and eval steps: port of ``cnsn_tpu/train/steps.py`` for the
-flagship ImageNet recipe (``configs/imagenet/resnet50/cnsn.yaml``):
-``StepFns.plain`` and ``StepFns.cn_image``, chosen per batch by the host
+"""Train and eval steps: port of ``cnsn_tpu/train/steps.py``:
+``StepFns.plain``, ``StepFns.cn`` (in-network CrossNorm at a random
+``active_num`` of the model's sites, the CIFAR ``cn`` regime) and
+``StepFns.cn_image`` (image-space CrossNorm at every crop mode, the
+ImageNet regime), each chosen per batch against ``plain`` by the host
 Bernoulli gate ``np.random.RandomState(seed).rand() < cn_prob``.
 
 PyTorch runs eagerly, so where JAX jits a pure function of the state, a
 step here updates the state in place (parameters, momentum buffers,
 running statistics, update count) and returns it with its metrics.  The
-metrics are device tensors: nothing in a step waits for the device.
+metrics are device tensors: nothing in a step waits for the device.  The
+random draws of a CrossNorm step (the site mask, each site's partner
+permutation and boxes) are made on the host from a CPU generator, or
+passed in by the caller.
 
 The optimizer is ``torch.optim.SGD(momentum, dampening=0, weight_decay,
 nesterov)``, which is the JAX package's ``make_sgd``
@@ -14,14 +19,14 @@ nesterov)``, which is the JAX package's ``make_sgd``
 every parameter's gradient (BN and SelfNorm's included) before the
 momentum buffer, and update s runs at lr = schedule(s), counted from 0.
 
-The other six regimes of the JAX package (cn, cn_consistency, augmix,
+The other five regimes of the JAX package (cn_consistency, augmix,
 augmix_cn, cn_image_consist, cn_image_augmix) are not ported yet
 (ROADMAP queue 1) and raise.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -63,7 +68,8 @@ def sample_cn_mask(cn_num: int, active_num: int, *,
                    ) -> torch.Tensor:
     """Boolean mask with exactly ``active_num`` of ``cn_num`` sites on:
     the first ``active_num`` entries of ``perm`` (drawn from
-    ``generator`` when None)."""
+    ``generator`` when None), on perm's device (the host for a CPU
+    generator, where the model reads it as site gates)."""
     if perm is None:
         device = generator.device if generator is not None else None
         perm = torch.randperm(cn_num, generator=generator, device=device)
@@ -80,27 +86,31 @@ def _not_ported(regime: str):
 
 
 class StepFns:
-    """The step functions of one knob set.  ``image_crop`` is the crop
-    mode of image-space CrossNorm ('neither' is the one ported).  One
-    card pairs instances over the whole batch: the per-shard pairing of
-    data parallelism comes with the parallel slice (ROADMAP queue 1)."""
+    """The step functions of one knob set (``steps.py:70-96``):
+    ``active_num`` CrossNorm sites on per ``cn`` step, of the model's
+    ``cn_num``; ``image_crop`` and ``image_beta`` for image-space
+    CrossNorm.  One card pairs instances over the whole batch: the
+    per-shard pairing of data parallelism comes with the parallel slice
+    (ROADMAP queue 1)."""
 
-    cn = staticmethod(_not_ported("cn"))
     cn_consistency = staticmethod(_not_ported("cn_consistency"))
     augmix = staticmethod(_not_ported("augmix"))
     augmix_cn = staticmethod(_not_ported("augmix_cn"))
     cn_image_consist = staticmethod(_not_ported("cn_image_consist"))
     cn_image_augmix = staticmethod(_not_ported("cn_image_augmix"))
 
-    def __init__(self, *, image_crop: str = "neither"):
+    def __init__(self, *, active_num: int = 1, image_crop: str = "neither",
+                 image_beta: float = 1.0):
+        self.active_num = active_num
         self.image_crop = image_crop
+        self.image_beta = image_beta
 
-    def plain(self, state: TrainState, images: torch.Tensor,
-              labels: torch.Tensor):
-        """One SGD update on the cross-entropy of a train-mode forward.
-        images: NHWC float32 (B, H, W, 3); labels: (B,) int."""
+    def _update(self, state: TrainState, images: torch.Tensor,
+                labels: torch.Tensor, **forward):
+        """One SGD update on the cross-entropy of a train-mode forward,
+        ``forward`` passed on to the model."""
         model = state.model.train()
-        logits = model(images)
+        logits = model(images, **forward)
         loss = cross_entropy(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -113,15 +123,42 @@ class StepFns:
         return state, {"loss": loss.detach(),
                        "err1": error_topk(logits, labels, 1)}
 
+    def plain(self, state: TrainState, images: torch.Tensor,
+              labels: torch.Tensor):
+        """One SGD update on the cross-entropy of a train-mode forward.
+        images: NHWC float32 (B, H, W, 3); labels: (B,) int."""
+        return self._update(state, images, labels)
+
+    def cn(self, state: TrainState, images: torch.Tensor,
+           labels: torch.Tensor, mask: Optional[Sequence[bool]] = None,
+           draws: Optional[Sequence[dict]] = None,
+           generator: Optional[torch.Generator] = None):
+        """In-network CrossNorm (``steps.py:142-156``): ``active_num`` of
+        the model's ``cn_num`` sites on, then the plain update.  ``mask``
+        (cn_num host bools) and ``draws`` (each site's perm and boxes,
+        ``nn/cnsn.py::CrossNorm``) are drawn from ``generator`` (a CPU
+        generator) when None."""
+        if mask is None:
+            mask = sample_cn_mask(state.model.cn_num, self.active_num,
+                                  generator=generator)
+        return self._update(state, images, labels, cn_active=mask,
+                            cn_draws=draws, generator=generator)
+
     def cn_image(self, state: TrainState, images: torch.Tensor,
                  labels: torch.Tensor, perm: Optional[torch.Tensor] = None,
+                 style_box: Optional[Sequence[int]] = None,
+                 content_box: Optional[Sequence[int]] = None,
                  generator: Optional[torch.Generator] = None):
-        """Image-space CrossNorm on the input batch (no gradient flows
-        into it), then the plain update.  ``perm`` pairs the instances;
-        when None it is drawn from ``generator``."""
+        """Image-space CrossNorm on the input batch (``steps.py:225-240``;
+        no gradient flows into it) at crop ``image_crop``, then the plain
+        update.  ``perm`` pairs the instances and the boxes crop them;
+        what is None is drawn from ``generator`` (the boxes need a CPU
+        one)."""
         with torch.no_grad():
-            images = cross_norm_2ins(images, perm=perm, generator=generator,
-                                     crop=self.image_crop)
+            images = cross_norm_2ins(
+                images, crop=self.image_crop, beta=self.image_beta,
+                perm=perm, style_box=style_box, content_box=content_box,
+                generator=generator)
         return self.plain(state, images, labels)
 
     def eval_step(self, state: TrainState, images: torch.Tensor,

@@ -43,6 +43,10 @@ _FAMILIES = (
 )
 
 
+# torch.cuda._sleep's kernel: the marker before a profiled window
+_MARK, _MARK_CYCLES = "spin_kernel", 1000
+
+
 def kernel_family(name: str) -> str:
     low = name.lower()
     for family, keys in _FAMILIES:
@@ -68,24 +72,39 @@ def device_time_breakdown(fn: Callable[[], object], iters: int = 5,
     """Per-call device milliseconds of ``fn`` by kernel family (and the
     family's launches per call) and for the ``top`` kernels by name, the
     device's busy time, the host's wall time and the idle share
-    ``1 − busy/wall``, over ``iters`` calls."""
+    ``1 − busy/wall``, over ``iters`` calls (after ``warmup`` calls, and
+    one more inside the profile that is not counted)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the card's activity is recorded from a moment after the profiler
+        # starts (the first few to ~30 kernels of a window go missing):
+        # one untimed call, then a spin kernel marks where the window
+        # begins, and only the kernels after it are counted
+        fn()
+        torch.cuda._sleep(_MARK_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    events = [evt for evt in prof.events()
+              if evt.device_type == DeviceType.CUDA]
+    marks = [evt.time_range.end for evt in events
+             if _MARK in evt.name]
+    if not marks:
+        raise RuntimeError("the profile holds no window marker: the card's "
+                           "activity was not recorded")
     by_name: Dict[str, float] = defaultdict(float)
     launches: Dict[str, int] = defaultdict(int)
     intervals = []
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
+    for evt in events:
         s, e = evt.time_range.start, evt.time_range.end
+        if s < marks[-1]:
+            continue
         intervals.append((s, e))
         by_name[evt.name] += e - s
         launches[evt.name] += 1

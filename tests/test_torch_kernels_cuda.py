@@ -872,3 +872,98 @@ def test_selfnorm_refuses_a_forced_staged_path_the_rule_excludes():
         torch.testing.assert_close(
             got.float(), selfnorm_infer_reference(x, w, a, b).float(),
             **TOL[x.dtype])
+
+
+# The CrossNorm sites of WRN-40-2 at pos 'post' (cn.yaml, cnsn.yaml), b=128:
+# (H = W, C) of each group's block outputs
+CN_WRN = [(32, 32), (16, 64), (8, 128)]
+
+
+@pytest.mark.parametrize("hw,c", CN_WRN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_at_crossnorm_sites_matches_plain(hw, c, dtype):
+    """K1 forward and backward at CrossNorm's eps 1e-5: the forward to
+    1e-5 (fp32 sums in other orders), the backward to 1e-6 of its scale
+    (fp32) or one bf16 ulp."""
+    x = _x((128, hw, hw, c), 140 + c, dtype)
+    got = ins_stats_cuda(x, eps=1e-5)
+    want = ins_stats_reference(x, eps=1e-5)
+    gm, gs = _vec((128, c), 141), _vec((128, c), 142)
+    dx = ins_stats_bwd_cuda(x, want[0], want[1], gm, gs)
+    want_dx = ins_stats_bwd_reference(x, want[0], want[1], gm, gs)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    _close_to_scale(dx, want_dx,
+                    1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("crop", ["neither", "style", "content"])
+@pytest.mark.parametrize("hw,c", CN_WRN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_crossnorm_on_the_card_launches_k1_for_its_unmasked_statistics(
+        crop, hw, c, dtype):
+    """An active CrossNorm site (cross_norm_fma) on a CUDA tensor at crop
+    'neither', 'style' or 'content': K1 runs once forward and once
+    backward, for the one set of unmasked statistics (the masked ones are
+    plain torch); output and input gradient equal the same op on the CPU,
+    where K1's plain version runs, fed the same draws.  fp32: 1e-5 of the
+    scale (statistics summed in other orders); bf16: 2^-6 of the scale
+    (a statistic rounded to bf16 may differ by one ulp on each side of
+    the scale σ_s/σ_c, then the output is rounded once)."""
+    from cnsn_tpu_torch.ops.bbox import sample_bbox
+    from cnsn_tpu_torch.ops.crossnorm import cross_norm_fma
+    gen = torch.Generator().manual_seed(c)
+    draws = {"perm": torch.randperm(128, generator=gen),
+             "style_box": sample_bbox(hw, hw, generator=gen),
+             "content_box": sample_bbox(hw, hw, generator=gen)}
+    x = _x((128, hw, hw, c), 143 + c, dtype)
+    ct = _x((128, hw, hw, c), 144 + c)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        xr = x.detach().to(dev).requires_grad_()
+        before = dict(LAUNCHES)
+        out = cross_norm_fma(xr, True, crop=crop, **draws)
+        (out.float() * ct.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        runs.append((out.detach().cpu(), xr.grad.cpu(),
+                     {k: LAUNCHES[k] - before.get(k, 0)
+                      for k in ("ins_stats", "ins_stats_bwd")}))
+    (out, dx, launches), (want, want_dx, cpu_launches) = runs
+    assert launches == {"ins_stats": 1, "ins_stats_bwd": 1}
+    assert cpu_launches == {"ins_stats": 0, "ins_stats_bwd": 0}
+    assert out.dtype == dtype
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -6
+    _close_to_scale(out, want, rtol)
+    _close_to_scale(dx, want_dx, rtol)
+
+
+@pytest.mark.parametrize("per_call", [1, 3])
+def test_device_time_breakdown_counts_each_call_once(per_call):
+    """The profile counts the kernels of its ``iters`` calls and no other:
+    K2's forward (one kernel per call) ``per_call`` times per call, none
+    of the untimed call's before the window marker, and the busy time
+    inside the wall time."""
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    x = _x((128, 32, 32, 64), 126, torch.bfloat16)
+    m0 = _vec((64,), 127)
+
+    def fn():
+        for _ in range(per_call):
+            bn_sums_cuda(x, m0)
+
+    prof = device_time_breakdown(fn, iters=4, warmup=1)
+    assert prof["launches_by_family"] == {"bn_stats": per_call}, prof
+    assert prof["kernels_per_call"] == per_call
+    assert 0 < prof["device_busy_ms"] <= prof["wall_ms"]
+
+
+def test_device_time_breakdown_raises_without_its_window_marker(
+        monkeypatch):
+    from cnsn_tpu_torch.utils import profiling
+    monkeypatch.setattr(profiling, "_MARK", "no_kernel_has_this_name")
+    x = _x((8, 8, 8, 64), 128, torch.bfloat16)
+    m0 = _vec((64,), 129)
+    with pytest.raises(RuntimeError, match="window marker"):
+        profiling.device_time_breakdown(lambda: bn_sums_cuda(x, m0),
+                                        iters=2, warmup=0)

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from cnsn_tpu.nn.cnsn import CNSN as JaxCNSN
+from cnsn_tpu.nn.cnsn import CrossNorm as JaxCrossNorm
 from cnsn_tpu.nn.cnsn import SelfNorm as JaxSelfNorm
 from cnsn_tpu.nn.norm import BatchNorm as JaxBatchNorm
 from cnsn_tpu.nn.norm import BatchNorm1dStats as JaxBatchNorm1dStats
+from cnsn_tpu.ops import crossnorm as jax_cn
 from cnsn_tpu_torch.nn import (CNSN, BatchNorm, BatchNorm1dStats, CrossNorm,
                                SelfNorm)
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
@@ -132,12 +134,26 @@ def test_cnsn_eval_matches_jax(cnsn_type):
     np.testing.assert_allclose(_nhwc_np(got), np.asarray(want), **F32_TOL)
 
 
-def test_inactive_crossnorm_is_identity():
-    x = _nchw(_x((2, 4, 4, 8), 4))
-    assert CrossNorm()(x) is x
-    assert CNSN(8, "cn")(x) is x
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        CrossNorm()(x, torch.tensor(True))
+def test_inactive_crossnorm_is_identity(monkeypatch):
+    """An absent or idle gate gives x back; an active site gives JAX's
+    CrossNorm (its default 'fma'), fed the partner permutation JAX drew."""
+    monkeypatch.delenv("CNSN_CN_IMPL", raising=False)
+    x = _x((2, 4, 4, 8), 4)
+    tx = _nchw(x)
+    assert CrossNorm()(tx) is tx
+    assert CrossNorm()(tx, False) is tx
+    assert CNSN(8, "cn")(tx) is tx
+    perms = []
+    perm = jax_cn.grouped_permutation
+    monkeypatch.setattr(jax_cn, "grouped_permutation",
+                        lambda *a: perms.append(perm(*a)) or perms[-1])
+    want = JaxCrossNorm(impl="fma").apply(
+        {}, jnp.asarray(x), jnp.asarray(True),
+        rngs={"crossnorm": jax.random.key(6)})
+    got = CrossNorm()(
+        tx, True, {"perm": torch.from_numpy(np.array(perms[0]))})
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_nhwc_np(got), np.asarray(want), **F32_TOL)
 
 
 @pytest.mark.parametrize("module", [BatchNorm(8, groups=2),

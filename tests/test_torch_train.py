@@ -40,6 +40,7 @@ from cnsn_tpu_torch.train import (StepFns, create_train_state, cosine_lr,
                                   jsd_consistency, poly_lr, sample_cn_mask,
                                   softmax_probs, step_lr)
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
+from test_torch_cnsn_sites import JaxDraws
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
@@ -240,13 +241,22 @@ def test_port_samplers_draw_valid_permutations_and_masks():
     assert fixed.tolist() == [False, True, False, True]
 
 
-def test_cross_norm_modes_not_ported_raise():
-    x = torch.randn(2, 4, 4, 3)
-    for kw in (dict(crop="style"), dict(crop="content"), dict(crop="both")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            cross_norm_2ins(x, perm=torch.tensor([1, 0]), **kw)
+def test_cross_norm_modes_not_ported_raise(monkeypatch):
+    """The crop modes 'style', 'content' and 'both' of image CrossNorm
+    (C=3 planes): the port fed the permutation and boxes JAX drew gives
+    JAX's output; an unknown crop raises."""
+    draws = JaxDraws(monkeypatch)
+    x = (np.random.RandomState(12).randn(4, 20, 17, 3) * 1.2 + 0.3).astype(
+        np.float32)
+    for crop in ("style", "content", "both"):
+        draws.clear()
+        want = jax_cn.cross_norm_2ins(jnp.asarray(x), jax.random.key(13),
+                                      crop=crop)
+        (site,) = draws.sites(crop)
+        got = cross_norm_2ins(torch.from_numpy(x), crop=crop, **site)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
     with pytest.raises(ValueError, match="crop must be one of"):
-        cross_norm_2ins(x, crop="middle")
+        cross_norm_2ins(torch.from_numpy(x), crop="middle")
 
 
 def test_losses_match_jax():
@@ -317,9 +327,35 @@ def test_recipes_resolve_as_jax_does():
     assert load_config(os.path.join(imagenet, "sn.yaml")).regime == "plain"
 
 
+def test_the_cn_recipes_resolve_as_jax_does():
+    """The recipes this slice trains: WRN-40-2 cn.yaml and cnsn.yaml train
+    the cn regime (2 sites on per step), ImageNet resnet50/cn.yaml
+    cn_image with crop 'both' on a plain ResNet-50; every recipe's
+    CrossNorm knobs equal the JAX loader's."""
+    wrn = os.path.join(_CONFIGS, "cifar10", "wideresnet")
+    want = {os.path.join(wrn, "cn.yaml"): ("cn", "cn", "neither", 2, 0.5),
+            os.path.join(wrn, "cnsn.yaml"): ("cn", "cnsn", "both", 2, 0.25),
+            os.path.join(_CONFIGS, "imagenet", "resnet50", "cn.yaml"): (
+                "cn_image", None, "both", None, 0.5)}
+    for path, (regime, cnsn_type, crop, active_num, cn_prob) in want.items():
+        cfg = load_config(path)
+        assert (cfg.regime, cfg.cnsn_type, cfg.crop, cfg.active_num,
+                cfg.cn_prob, cfg.beta) == (regime, cnsn_type, crop,
+                                           active_num, cn_prob, 1), path
+    fields = ("cnsn_type", "pos", "crop", "beta", "active_num", "cn_prob")
+    for p in sorted(p for d in ("cifar10", "cifar100", "imagenet")
+                    for p in glob.glob(os.path.join(_CONFIGS, d, "**",
+                                                    "*.yaml"), recursive=True)):
+        port, ref = load_config(p), jax_load_config(p)
+        assert ({f: getattr(port, f) for f in fields}
+                == {f: getattr(ref, f) for f in fields}), p
+
+
 def test_other_regimes_are_not_ported_and_cn_num():
+    """The five regimes still to port raise; cn_num is one site per
+    bottleneck where cnsn_type has CrossNorm, as in JAX."""
     steps = StepFns()
-    for name in ("cn", "cn_consistency", "augmix", "augmix_cn",
+    for name in ("cn_consistency", "augmix", "augmix_cn",
                  "cn_image_consist", "cn_image_augmix"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             getattr(steps, name)(None, None, None)
@@ -490,3 +526,49 @@ def test_one_bf16_step_matches_jax_loss_and_gradients_are_finite():
     for name, p in state.model.named_parameters():
         assert p.dtype == torch.float32, name
         assert bool(torch.isfinite(p.grad).all()), name
+
+
+def test_one_cn_image_step_with_crop_both_matches_jax(monkeypatch):
+    """resnet50/cn.yaml's image CrossNorm (crop 'both': the style
+    statistics inside one box, applied inside another) for one step of
+    the reduced ResNet-50+SN in float64: JAX's ``StepFns._cn_image``
+    (compiled, its permutation and boxes recorded and fed to the port)
+    against ``StepFns.cn_image``: the loss, the state and the momentum
+    buffers, at the float64 trajectory's bounds."""
+    draws = JaxDraws(monkeypatch)
+    rng = np.random.RandomState(2)
+    images = rng.randn(BATCH, SIZE, SIZE, 3)
+    labels = rng.randint(0, 10, BATCH)
+    with jax.enable_x64(True):
+        model = JaxResNet(**KW, stem="conv")
+        tx = make_sgd(jax_schedules.cosine_lr(*LR), **SGD)
+        state = jax_train_state(model, jax.random.key(0),
+                                (BATCH, SIZE, SIZE, 3), tx)
+        init = (_np_tree(state.params), _np_tree(state.batch_stats))
+        params, stats = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                                     (state.params, state.batch_stats))
+        state = state.replace(params=params, batch_stats=stats,
+                              opt_state=tx.init(params))
+        state, metrics = draws.jit(
+            JaxStepFns(model, image_crop="both")._cn_image)(
+            state, jnp.asarray(images), jnp.asarray(labels),
+            jax.random.key(3))
+        ref = dict(losses=[float(metrics["loss"])],
+                   params=_np_tree(state.params),
+                   stats=_np_tree(state.batch_stats),
+                   trace=_np_tree(_find_trace(state.opt_state)))
+    (site,) = draws.sites("both")
+    assert set(site) == {"perm", "style_box", "content_box"}
+
+    port = build_model("resnet50", generator=torch.Generator(), **KW)
+    port.load_state_dict(state_dict_from_jax(*init), strict=True)
+    ts = create_train_state(port.double(), cosine_lr(*LR), device="cpu",
+                            **SGD)
+    ts, got = StepFns(image_crop="both").cn_image(
+        ts, torch.from_numpy(images), torch.from_numpy(labels), **site)
+    opt = ts.optimizer
+    momentum = {name: opt.state[p]["momentum_buffer"]
+                for name, p in ts.model.named_parameters()}
+    errs = _errors(ref, [float(got["loss"])], ts.model.state_dict(),
+                   momentum)
+    assert all(e <= b for e, b in zip(errs, (1e-10, 1e-6, 1e-6))), errs

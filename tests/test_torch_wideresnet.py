@@ -28,6 +28,7 @@ from cnsn_tpu_torch.models import build_model
 from cnsn_tpu_torch.models.wideresnet import WideResNet
 from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
+from test_torch_cnsn_sites import JaxDraws
 
 DEPTH, WIDEN = 16, 2
 RECIPE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -201,16 +202,109 @@ def test_one_sgd_step_of_the_sn_recipe_matches_jax(mode, monkeypatch):
 
 @pytest.mark.parametrize("cnsn_type,want", [("sn", 0), ("cn", 6),
                                             ("cnsn", 6)])
-def test_cn_num_matches_jax_and_an_active_site_raises(cnsn_type, want):
+def test_cn_num_matches_jax_and_an_active_site_raises(cnsn_type, want,
+                                                      monkeypatch):
     """One CrossNorm site per block where cnsn_type has CrossNorm
-    (``wideresnet.py:89-92``); an active in-network site is not ported
-    and raises, as on ResNet."""
+    (``wideresnet.py:89-92``); a train-mode forward with one site on
+    (crop 'both', pos 'post') gives JAX's logits and running statistics,
+    fed JAX's draws (JAX compiled), in float64; the state dict carries both ways with no
+    key missing ('cn' has no SelfNorm keys)."""
+    draws = JaxDraws(monkeypatch)
     kw = dict(depth=DEPTH, widen_factor=WIDEN, pos="post",
-              cnsn_type=cnsn_type)
+              cnsn_type=cnsn_type, crop="both")
     model = WideResNet(**kw)
-    assert model.cn_num == JaxWideResNet(**kw).cn_num == want
-    if want:
-        active = torch.zeros(want, dtype=torch.bool)
-        active[2] = True
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            model.train()(torch.randn(2, 16, 16, 3), active)
+    jm = JaxWideResNet(**kw)
+    assert model.cn_num == jm.cn_num == want
+    sd = model.state_dict()
+    assert any("g_fc" in k for k in sd) == ("sn" in cnsn_type)
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 16, 16, 3)
+    active = np.zeros(max(want, 1), bool)
+    active[min(2, want)] = True
+    with jax.enable_x64(True):
+        v = jm.init({"params": jax.random.key(0)}, jnp.zeros((2, 16, 16, 3)),
+                    False, None)
+        params = _perturb(dict(v["params"]), rng, stats=False)
+        stats = _perturb(dict(v["batch_stats"]), rng, stats=True)
+        logits, mut = draws.jit(lambda v, xx, a: jm.apply(
+            v, xx, True, a, rngs={"crossnorm": jax.random.key(1)},
+            mutable=["batch_stats"]))(
+            _np64({"params": params, "batch_stats": stats}), jnp.asarray(x),
+            jnp.asarray(active[:want]) if want else None)
+        want_logits = np.asarray(logits)
+        want_stats = state_dict_from_jax(_np64(params),
+                                         _np64(mut["batch_stats"]))
+    model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    got = model.double().train()(
+        torch.from_numpy(x), torch.from_numpy(active[:want])
+        if want else None, draws.sites("both") or None)
+    np.testing.assert_allclose(got.detach().numpy(), want_logits, rtol=0,
+                               atol=1e-10 * np.abs(want_logits).max())
+    sd = model.state_dict()
+    stat_keys = [k for k in want_stats
+                 if k.endswith(("running_mean", "running_var"))]
+    assert _worst({k: sd[k] for k in stat_keys},
+                  {k: want_stats[k] for k in stat_keys}) <= 1e-6
+    zeros = jax.tree.map(np.zeros_like, (params, stats))
+    _, _, missing = convert_state_dict(sd, *zeros, strict=True)
+    assert missing == []
+
+
+CN_RECIPES = ("cn.yaml", "cnsn.yaml")
+
+
+@pytest.mark.parametrize("recipe", CN_RECIPES)
+def test_one_cn_step_of_the_cn_recipes_matches_jax(recipe, monkeypatch):
+    """cn.yaml (CrossNorm 'neither' at pos 'post', 2 of 6 sites on) and
+    cnsn.yaml (CNSN 'both'): one ``cn`` step of each in float64 from the
+    same weights, JAX's ``StepFns._cn`` (compiled, its site mask and
+    every site's draws recorded and fed to the port) against
+    ``StepFns.cn``: the loss, every parameter and running statistic after
+    the step, and every momentum buffer, at the bounds of the sn.yaml step
+    above."""
+    draws = JaxDraws(monkeypatch)
+    cfg = load_config(os.path.join(os.path.dirname(RECIPE), recipe))
+    assert (cfg.regime, cfg.pos, cfg.active_num) == ("cn", "post", 2)
+    sgd = dict(momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+               nesterov=cfg.nesterov)
+    total = cfg.epochs * STEPS_PER_EPOCH
+    kw = dict(depth=DEPTH, widen_factor=WIDEN, num_classes=cfg.num_classes,
+              pos=cfg.pos, cnsn_type=cfg.cnsn_type, crop=cfg.crop,
+              beta=cfg.beta)
+    rng = np.random.RandomState(4)
+    images = rng.randn(4, 16, 16, 3)
+    labels = rng.randint(0, 10, 4)
+
+    with jax.enable_x64(True):
+        model = JaxWideResNet(**kw)
+        tx = make_sgd(jax_schedules.cosine_lr(cfg.lr, total), **sgd)
+        state = jax_train_state(model, jax.random.key(0), (4, 16, 16, 3), tx)
+        init = (_np64(state.params), _np64(state.batch_stats))
+        params, stats = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                                     (state.params, state.batch_stats))
+        state = state.replace(params=params, batch_stats=stats,
+                              opt_state=tx.init(params))
+        state, metrics = draws.jit(
+            JaxStepFns(model, active_num=cfg.active_num)._cn)(
+            state, jnp.asarray(images), jnp.asarray(labels),
+            jax.random.key(2))
+        want_loss = float(metrics["loss"])
+        want = state_dict_from_jax(_np64(state.params),
+                                   _np64(state.batch_stats))
+        want_m = state_dict_from_jax(_np64(_find_trace(state.opt_state)), {})
+    mask = draws.mask()
+    assert sum(mask) == 2 and len(mask) == 6
+
+    tm = WideResNet(**kw)
+    tm.load_state_dict(state_dict_from_jax(*init), strict=True)
+    ts = create_train_state(tm.double(), cosine_lr(cfg.lr, total),
+                            device="cpu", **sgd)
+    ts, got = StepFns(active_num=cfg.active_num).cn(
+        ts, torch.from_numpy(images), torch.from_numpy(labels), mask=mask,
+        draws=draws.sites(cfg.crop))
+    opt = ts.optimizer
+    momentum = {n: opt.state[p]["momentum_buffer"]
+                for n, p in ts.model.named_parameters()}
+    errs = (abs(float(got["loss"]) - want_loss) / abs(want_loss),
+            _worst(ts.model.state_dict(), want), _worst(momentum, want_m))
+    assert all(e <= b for e, b in zip(errs, (1e-10, 1e-6, 1e-6))), errs
