@@ -41,6 +41,13 @@ training steps, one K2 forward kernel per BatchNorm2d layer):
     CNSN 'style'), on the card and on the CPU, each held against a
     float64 twin; after it, 5 steps of ``imagenet/resnet50/cn.yaml``
     (image CrossNorm, crop 'both', on a plain ResNet-50);
+  * the host side of CIFAR training on cnsn.yaml (phase ``trainer_wrn``):
+    ``cli train`` for two epochs on the synthetic set, ``cli eval
+    resume=`` reproducing the last epoch's Test Error and ``cli export
+    resume=`` against the checkpoint's eager forward; then a ``Trainer``
+    epoch of 40 steps and an evaluation of 10,000 images at batch 1000
+    (K3 at N = 1000) timed, their launches checked, beside the loader's
+    own time, the wait for staged batches and a profile of trainer steps;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -55,8 +62,14 @@ It exits non-zero, printing no result, where CUDA is absent or where the
 """
 import collections
 import contextlib
+import dataclasses
+import glob
+import io
 import json
+import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -166,6 +179,13 @@ R50_CN_STEPS = 5
 CN_STEP_K1 = {"cn_neither": 2, "cnsn_both": 3, "cnsn_style": 3}
 CN_STEP_BN = 7  # BatchNorm2d layers of WRN-10-2
 SPIN_CYCLES = 2_000_000  # ~1 ms of card clock: host head start per launch
+# phase trainer_wrn: cli train's epochs on the synthetic set (512 images:
+# 4 steps at b=128); the timed Trainer's synthetic train set (40 steps) and
+# test set (CIFAR-10's 10,000 test images: 10 eval batches of 1000); the
+# trainer steps in each call of its profile
+TRAINER_EPOCHS, TRAINER_TRAIN, TRAINER_TEST = 2, 5120, 10_000
+TRAINER_PROFILE_STEPS = 4
+EVAL_BATCH = 1000  # the recipes' eval_batch_size
 
 
 def emit(obj):
@@ -255,8 +275,9 @@ def _row(kernel, shape, dtype, sites, err, tol, flush, run, plain,
 
 def phase_k3_vs_plain(dev, flush):
     """K3 at the 4 SelfNorm shapes of ResNet-50 at b=64 and b=1 (serving's
-    batch and its latency case) and at the 4 of WRN-40-2 at b=128 (its
-    eval batch), fp32 and bf16: the kernel selfnorm_path picks (the staged
+    batch and its latency case), at the 4 of WRN-40-2 at b=128 (its
+    eval batch) and at the 3 of cnsn.yaml's pos 'post' at the trainer's
+    eval batch of 1000, fp32 and bf16: the kernel selfnorm_path picks (the staged
     one at every such shape) against the plain version, bit for bit
     against itself run to run, with the v1 kernel checked and timed beside
     it through the forced path (v1_ms, v1_max_abs_err), and the staged
@@ -268,6 +289,8 @@ def phase_k3_vs_plain(dev, flush):
     cases = [("resnet50", batch, shape) for batch in (BATCH, 1)
              for shape in SN_SHAPES]
     cases += [("wrn", 128, shape) for shape in WRN_SN_SHAPES]
+    # the trainer's evaluation of cnsn.yaml (pos 'post') at eval_batch_size
+    cases += [("wrn_eval", EVAL_BATCH, shape) for shape in WRN_POST_SHAPES]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for model, batch, (hw_side, c, sites) in cases:
@@ -1188,13 +1211,14 @@ def phase_train_wrn_cn(dev):
     times them, the launches checked step by step, one cn step of each
     profiled; then one eval step of the cnsn.yaml model through K3.  The
     site masks and boxes are drawn on the host from a CPU generator.
-    Returns each recipe's launches over its 35 steps."""
+    Returns each recipe's launches over its 35 steps and its median ms
+    per step."""
     from cnsn_tpu_torch.config import load_config
     from cnsn_tpu_torch.models import build_model
     from cnsn_tpu_torch.ops.kernels import LAUNCHES
     from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
     from cnsn_tpu_torch.utils.profiling import device_time_breakdown
-    out = {}
+    out, rates = {}, {}
     for recipe in WRN_CN_RECIPES:
         name = os.path.basename(recipe)
         cfg = load_config(recipe, compute_dtype="bf16")
@@ -1281,10 +1305,225 @@ def phase_train_wrn_cn(dev):
             check(ev["logits"].shape == (b, cfg.num_classes)
                   and bool(torch.isfinite(ev["logits"]).all()),
                   f"finite {name} eval logits")
-        out[name] = counts
+        out[name], rates[name] = counts, med
         del state, model, images
         torch.cuda.empty_cache()
-    return out
+    return out, rates
+
+
+def _cli(argv, log):
+    """``cnsn_tpu_torch.cli.main(argv)`` in this process, its printed
+    output appended to ``log`` and returned."""
+    from cnsn_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    with open(log, "a") as f:
+        f.write(f"$ cli {' '.join(argv)}\n{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def phase_trainer_wrn(dev, step_ms, cnsn_counts):
+    """The host side of CIFAR training at full width: cnsn.yaml (WRN-40-2
+    + CNSN 'both', b=128 32² bf16, CNSN_CONV3X3=pallas) on the synthetic
+    set, driven as a user drives it.
+
+    (a) ``cli train`` for TRAINER_EPOCHS epochs (4 steps and one eval of
+    the 512 test images each): the exp dir's files and log.txt's rows;
+    ``cli eval resume=<last>`` prints the last row's Test Error exactly;
+    ``cli export resume=<last>`` serves logits within ARTIFACT_TOL of the
+    checkpoint's eager eval forward.
+    (b) a ``Trainer`` from the same recipe (its 100 epochs, so the LR is at
+    the cosine's start), its loaders replaced by the synthetic set at
+    TRAINER_TRAIN images (40 steps) and TRAINER_TEST (10 batches of 1000,
+    CIFAR-10's test size): one epoch and one evaluation timed, the
+    launches of each checked against ``cnsn_counts`` (train_wrn_cn's
+    cnsn.yaml run) and 18 K3 launches per eval batch, beside the loader's
+    host time per batch alone, the wait for each staged batch, the
+    step-only rate of train_wrn_cn (``step_ms``), the same epoch with the
+    loader inline (prefetch_depth 0) and with one made batch fed to every
+    step, and one profile of a few trainer steps.  The trainer's own
+    printing goes to chiprun_out/trainer_wrn/cli.txt."""
+    from cnsn_tpu_torch import build_classifier
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.data import (CifarLoader, cifar_eval_transform,
+                                     load_cifar)
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.serving import load_artifact
+    from cnsn_tpu_torch.train.trainer import Trainer
+    from cnsn_tpu_torch.utils.checkpoint import load_checkpoint
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    out_dir = os.path.join(ROOT, "chiprun_out", "trainer_wrn")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = os.path.join(out_dir, "cli.txt")
+    recipe = os.path.relpath(WRN_CN_RECIPES[1], ROOT)
+    cfg = load_config(WRN_CN_RECIPES[1], synthetic_data=True,
+                      compute_dtype="bf16",
+                      exp_dir=os.path.join(out_dir, "timed"))
+    common = ["--config", WRN_CN_RECIPES[1], "--device", str(dev),
+              "synthetic_data=true", "compute_dtype=bf16"]
+
+    # (a) the command line, end to end
+    exp_root = os.path.join(out_dir, "exp")
+    t0 = time.perf_counter()
+    with conv3x3_mode("pallas"):
+        _cli(["train", *common, f"epochs={TRAINER_EPOCHS}",
+              f"exp_dir={exp_root}"], log)
+    train_s = time.perf_counter() - t0
+    [exp_dir] = [os.path.join(d, e) for d in glob.glob(exp_root + "/*")
+                 for e in os.listdir(d)]
+    files = sorted(os.listdir(exp_dir))
+    for want in ("log.txt", "WideResNet_last_ckpt", "WideResNet_best_ckpt",
+                 "config.yaml"):
+        check(want in files, f"exp dir {files} lacks {want}")
+    check(any(f.startswith("code-") for f in files)
+          and any(f.startswith("train-") for f in files),
+          f"exp dir {files}: code snapshot, tee log")
+    lines = open(os.path.join(exp_dir, "log.txt")).read().splitlines()
+    header = "epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1"
+    check(header in lines, f"log.txt {lines}")
+    rows = [ln.split("\t") for ln in lines[lines.index(header) + 1:]]
+    check(len(rows) == TRAINER_EPOCHS and all(len(r) == 5 for r in rows),
+          f"log.txt rows {rows}")
+    last = os.path.join(exp_dir, "WideResNet_last_ckpt")
+    with conv3x3_mode("pallas"):
+        printed = _cli(["eval", *common, f"resume={last}"], log)
+    m = re.search(r"Test Error (\S+)", printed)
+    check(m is not None and m.group(1) == rows[-1][3],
+          f"cli eval printed {printed!r}, log.txt's last row {rows[-1]}")
+    artifact = os.path.join(out_dir, "wrn_cnsn_bf16.pt2")
+    _cli(["export", *common, f"resume={last}", "--out", artifact], log)
+    model = build_classifier(cfg.model, cfg.num_classes, device=dev,
+                             pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
+                             cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16)
+    ckpt = load_checkpoint(last)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+    test = load_cifar("", cfg.dataset, False, synthetic=True)
+    x = torch.from_numpy(np.stack([cifar_eval_transform(im)
+                                   for im in test.images[:64]])).to(dev)
+    with torch.no_grad():
+        eager = model(x).float()
+    served = load_artifact(artifact, device=dev)(x).float()
+    export_err = (served - eager).abs().max().item()
+    scale = eager.abs().max().item()
+    emit({"phase": "trainer_wrn_cli", "recipe": recipe,
+          "epochs": TRAINER_EPOCHS, "train_s": train_s, "files": files,
+          "log_rows": rows, "eval_test_error": m.group(1),
+          "ckpt_epoch": ckpt["epoch"], "ckpt_step": ckpt["step"],
+          "export_max_abs_err": export_err, "max_abs_logit": scale})
+    check(ckpt["epoch"] == TRAINER_EPOCHS and ckpt["step"] == 4 * TRAINER_EPOCHS,
+          f"checkpoint epoch {ckpt['epoch']}, step {ckpt['step']}")
+    check(bool(torch.isfinite(served).all())
+          and export_err <= ARTIFACT_TOL * scale,
+          f"export vs eager {export_err} > {ARTIFACT_TOL} * {scale}")
+    del model, served, eager
+
+    # (b) one realistic epoch and evaluation, timed
+    with conv3x3_mode("pallas"):
+        trainer = Trainer(cfg, device=dev)
+    b = cfg.batch_size
+    train = load_cifar("", cfg.dataset, True, synthetic=True,
+                       synthetic_size=TRAINER_TRAIN)
+    test = load_cifar("", cfg.dataset, False, synthetic=True,
+                      synthetic_size=TRAINER_TEST)
+    with contextlib.redirect_stdout(open(log, "a")):
+        trainer.train_epoch()  # warm-up: the 512-image set's 4 steps
+        trainer.evaluate_clean()
+        t0 = time.perf_counter()
+        n_load = sum(1 for _ in CifarLoader(train, b, seed=cfg.seed))
+        loader_ms = (time.perf_counter() - t0) * 1e3 / n_load
+        trainer.train_loader = CifarLoader(train, b, seed=cfg.seed)
+        trainer.test_loader = CifarLoader(test, cfg.eval_batch_size,
+                                          mode="eval")
+        steps = len(trainer.train_loader)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        loss = trainer.train_epoch()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        train_counts = dict(LAUNCHES)
+        wait_ms = trainer.data_wait.avg * 1e3, trainer.data_wait.sum * 1e3
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        test_loss, test_acc = trainer.evaluate_clean()
+        eval_s = time.perf_counter() - t0
+        eval_counts = dict(LAUNCHES)
+        # the same epoch with the loader inline (prefetch_depth 0): what
+        # the staging thread saves or costs beside the main thread; then
+        # one made batch fed 40 times (staging, gate and steps without the
+        # loader's numpy work)
+        trainer.cfg = dataclasses.replace(cfg, prefetch_depth=0)
+        t0 = time.perf_counter()
+        trainer.train_epoch()
+        torch.cuda.synchronize()
+        inline_s = time.perf_counter() - t0
+        trainer.cfg = cfg
+        made = next(iter(trainer.train_loader))
+        trainer.train_loader = [made] * steps
+        t0 = time.perf_counter()
+        trainer.train_epoch()
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        # a profile of TRAINER_PROFILE_STEPS trainer steps a call, loader
+        # and staging included
+        trainer.train_loader = CifarLoader(
+            load_cifar("", cfg.dataset, True, synthetic=True,
+                       synthetic_size=b * TRAINER_PROFILE_STEPS), b,
+            seed=cfg.seed)
+        prof = device_time_breakdown(trainer.train_epoch, iters=2, warmup=0,
+                                     top=8)
+    trainer.close()
+    per_step = {}
+    for k, v in cnsn_counts.items():
+        check(v % TRAIN_STEPS == 0, f"train_wrn_cn cnsn.yaml {k}: {v}")
+        per_step[k] = v // TRAIN_STEPS
+    want_train = {k: v * steps for k, v in per_step.items()}
+    batches = -(-TRAINER_TEST // cfg.eval_batch_size)
+    want_eval = {K3_STAGED: WRN_SN * batches}
+    step_only = b / step_ms * 1e3
+    emit({"phase": "trainer_wrn", "recipe": recipe, "conv3x3": "pallas",
+          "batch": b, "dtype": "bfloat16", "train_images": TRAINER_TRAIN,
+          "steps": steps, "epoch_s": epoch_s,
+          "train_img_per_s": steps * b / epoch_s,
+          "step_only_img_per_s": step_only, "step_only_ms": step_ms,
+          "trainer_ms_per_step": epoch_s * 1e3 / steps,
+          "loader_host_ms_per_batch": loader_ms,
+          "prefetch_wait_ms_per_step": wait_ms[0],
+          "prefetch_wait_ms_total": wait_ms[1], "train_loss": loss,
+          "inline_epoch_s": inline_s,
+          "inline_img_per_s": steps * b / inline_s,
+          "made_batch_epoch_s": made_s,
+          "made_batch_img_per_s": steps * b / made_s,
+          "switch_interval_s": sys.getswitchinterval(),
+          "test_images": TRAINER_TEST, "eval_batch": cfg.eval_batch_size,
+          "eval_s": eval_s, "eval_img_per_s": TRAINER_TEST / eval_s,
+          "test_loss": test_loss, "test_acc": test_acc,
+          "launches_train": train_counts, "expected_train": want_train,
+          "launches_eval": eval_counts, "expected_eval": want_eval,
+          "host_loadavg": os.getloadavg(), "card": nvidia_smi_name_power()})
+    check(train_counts == want_train,
+          f"trainer epoch launches {train_counts}, expected {want_train}")
+    check(eval_counts == want_eval,
+          f"trainer eval launches {eval_counts}, expected {want_eval}")
+    check(math.isfinite(loss) and math.isfinite(test_loss)
+          and 0.0 <= test_acc <= 1.0, f"loss {loss}, test {test_loss} "
+          f"{test_acc}")
+    prof["steps_per_call"] = TRAINER_PROFILE_STEPS
+    prof["ms_per_step"] = prof["wall_ms"] / TRAINER_PROFILE_STEPS
+    prof["kernels_per_step"] = (prof["kernels_per_call"]
+                                / TRAINER_PROFILE_STEPS)
+    emit({"phase": "trainer_wrn_profile", "batch": b, "dtype": "bfloat16",
+          **prof})
+    check(prof["launches_by_family"].get("bn_stats")
+          == WRN_BN * TRAINER_PROFILE_STEPS,
+          f"K2 forward kernels per trainer call "
+          f"{prof['launches_by_family']}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"train": train_counts, "eval": eval_counts, "steps": steps,
+            "eval_batches": batches}
 
 
 def phase_train_resnet_cn_both(dev):
@@ -1402,7 +1641,9 @@ def main():
     wrn_counts = timed("train_wrn", phase_train_wrn, dev)
     with conv3x3_mode("conv"):
         timed("cn_card_vs_cpu", phase_cn_card_vs_cpu, dev)
-    cn_counts = timed("train_wrn_cn", phase_train_wrn_cn, dev)
+    cn_counts, cn_ms = timed("train_wrn_cn", phase_train_wrn_cn, dev)
+    trainer_counts = timed("trainer_wrn", phase_trainer_wrn, dev,
+                           cn_ms["cnsn.yaml"], cn_counts["cnsn.yaml"])
     with conv3x3_mode("conv"):
         cn_counts["resnet50/cn.yaml"] = timed(
             "train_resnet_cn_both", phase_train_resnet_cn_both, dev)
@@ -1429,6 +1670,13 @@ def main():
                  ("kernel_ms", "v1_ms", "plain_ms", "bound_ms")},
           "wrn_eval": {key: per_forward(128, key, "wrn") for key in
                        ("kernel_ms", "v1_ms", "plain_ms", "bound_ms")},
+          "trainer_eval": {
+              **{key: per_forward(EVAL_BATCH, key, "wrn_eval") for key in
+                 ("kernel_ms", "v1_ms", "plain_ms", "bound_ms")},
+              "launches": trainer_counts["eval"].get(K3_STAGED, 0),
+              "batches": trainer_counts["eval_batches"],
+              "per": f"WRN-40-2 cnsn.yaml eval batch of {EVAL_BATCH}, "
+                     "bf16 (phase trainer_wrn)"},
           "per": f"b={BATCH} bf16 serving forward"}
     # The v1 kernel runs on no main path (unaligned views, C not a multiple
     # of the vector): its line holds its time at the same 16 sites through
@@ -1531,6 +1779,12 @@ def main():
         "plain_ms": flagship_k4["plain_ms"],
         "bound_ms": flagship_k4["bound_ms"],
         "library_ms": flagship_k4["library_ms"]}
+    # each kernel's launches in trainer_wrn's timed epoch of cnsn.yaml
+    for k in kernels:
+        k["trainer"] = {"launches": trainer_counts["train"].get(k["name"], 0),
+                        "steps": trainer_counts["steps"],
+                        "per": "WRN-40-2 cnsn.yaml Trainer epoch, b=128 "
+                               "bf16, CNSN_CONV3X3=pallas"}
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
     emit({"kernels": [k3, k3_v1] + kernels})

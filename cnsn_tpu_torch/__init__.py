@@ -1,9 +1,10 @@
 """cnsn_tpu_torch: the PyTorch/CUDA port of cnsn_tpu for NVIDIA Hopper.
 
 It mirrors the JAX package's layout module for module and imports
-nothing of it (nor JAX).  This slice serves the ResNet-50 + SelfNorm eval
-forward; its one kernel is the hand-written fused eval SelfNorm
-(``ops/kernels/selfnorm.py``, ``csrc/selfnorm.cu``).
+nothing of it (nor JAX).  It serves the ResNet-50 + SelfNorm eval forward
+and trains ResNet-50 and WRN-40-2 (the CIFAR recipes end to end through
+``cli train``), on the hand-written Hopper kernels of ``ops/kernels``
+(``csrc/*.cu``).
 """
 from .models import build_classifier, build_model
 

@@ -1,16 +1,17 @@
-"""Experiment configuration: port of ``cnsn_tpu/config.py`` for the fields
-the serving and training slices read.
+"""Experiment configuration: port of ``cnsn_tpu/config.py``.
 
-The same YAML recipes load (``cnsn_tpu/configs/**.yaml``, read as data):
-the fields below are typed, with the JAX package's defaults, and every
-other key is kept in ``extra`` rather than rejected, so each recipe
-loads.  ``infer()`` derives ``num_classes`` and resolves
-``regime: auto`` by the JAX package's rules.
+One dataclass with every field of the JAX package and its defaults; the
+YAML recipes under ``cnsn_tpu/configs/`` load as data, and a key that is
+not a field raises, as in the JAX package (``config.py:138-141``,
+``:152-153``).  ``infer()`` derives ``num_classes`` and resolves
+``regime: auto`` by the JAX package's rules.  Fields whose feature the
+port does not have yet load here and raise where they would be used
+(``train/trainer.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import yaml
@@ -20,20 +21,38 @@ __all__ = ["ExperimentConfig", "load_config", "apply_overrides"]
 
 @dataclass
 class ExperimentConfig:
+    # experiment
     exp_id: str = "cnsn"
+    exp_dir: str = "./exp"
     seed: int = 1
+
+    # data
     dataset: str = "cifar10"          # cifar10 | cifar100 | imagenet
+    data_dir: str = "./data"
+    corrupt_data_dir: Optional[str] = None
+    workers: int = 4
+    augmix_workers: int = 0           # worker processes for host AugMix
+    prefetch_depth: int = 2           # host→device staging depth (0: none)
+    synthetic_data: bool = False
+
+    # model
     model: str = "wideresnet"
     num_classes: int = 10
+
+    # CN/SN knobs (reference names)
     cnsn_type: Optional[str] = None   # sn | cn | cnsn | None
     pos: Optional[str] = None
     crop: Optional[str] = None
     beta: Optional[float] = None
     cn_prob: Optional[float] = None
     active_num: Optional[int] = None  # CrossNorm sites on per cn step
+    consist_wt: Optional[float] = None
+
     # plain | cn | cn_consistency | cn_augmix | cn_image | cn_image_consist
     # | cn_image_augmix, or auto (resolved by infer())
     regime: str = "plain"
+
+    # optimization
     epochs: int = 100
     batch_size: int = 128
     lr: float = 0.1
@@ -41,15 +60,34 @@ class ExperimentConfig:
     weight_decay: float = 5e-4
     nesterov: bool = True
     schedule: str = "cosine"          # cosine | imagenet_step | poly
+
+    # augmix
+    aug_severity: float = 3
+    mixture_width: int = 3
+    mixture_depth: int = -1
+    all_ops: bool = False
+    ondevice_augmix: bool = False
+    no_jsd: bool = False
+
+    # runtime
+    print_freq: int = 10
+    eval_batch_size: int = 1000
+    ckpt_backend: str = "msgpack"     # single files (``utils/checkpoint.py``)
+    snapshot: bool = True             # code + config into the exp dir
+    resume: Optional[str] = None
+    pretrained: Optional[str] = None  # torch .pth partial init
+    evaluate: bool = False
+    num_devices: Optional[int] = None
+    fsdp: bool = False
     compute_dtype: str = "fp32"       # fp32 | bf16 (params stay fp32)
+    remat: bool = False
     image_size: Optional[int] = None  # default: 32 (CIFAR) / 224 (ImageNet)
-    extra: Dict[str, Any] = field(default_factory=dict)
 
     def infer(self) -> "ExperimentConfig":
         """Fill ``num_classes`` from the dataset and resolve
         ``regime: auto`` from the dataset, ``exp_id`` and ``cnsn_type``,
         by the JAX rules (``cnsn_tpu/config.py:97-128``)."""
-        cfg = dataclasses.replace(self, extra=dict(self.extra))
+        cfg = dataclasses.replace(self)
         ds = cfg.dataset.replace("-", "").lower()
         cfg.dataset = ds
         cfg.num_classes = {"cifar10": 10, "cifar100": 100,
@@ -82,13 +120,7 @@ def _auto_regime(dataset: str, exp_id: str, cnsn_type: str) -> str:
     return "cn"
 
 
-_FIELDS = tuple(f.name for f in dataclasses.fields(ExperimentConfig)
-                if f.name != "extra")
-
-
-def _split(data: Dict[str, Any]):
-    known = {k: v for k, v in data.items() if k in _FIELDS}
-    return known, {k: v for k, v in data.items() if k not in _FIELDS}
+_FIELDS = frozenset(f.name for f in dataclasses.fields(ExperimentConfig))
 
 
 def load_config(path: Optional[str] = None,
@@ -98,18 +130,20 @@ def load_config(path: Optional[str] = None,
         with open(path) as f:
             data = yaml.safe_load(f) or {}
     data.update({k: v for k, v in overrides.items() if v is not None})
-    known, extra = _split(data)
-    return ExperimentConfig(**known, extra=extra).infer()
+    unknown = set(data) - _FIELDS
+    if unknown:
+        raise ValueError(f"unknown config keys: {sorted(unknown)}")
+    return ExperimentConfig(**data).infer()
 
 
 def apply_overrides(cfg: ExperimentConfig, pairs) -> ExperimentConfig:
     """CLI ``key=value`` overrides, values parsed as YAML scalars."""
-    data = {}
+    updates = {}
     for pair in pairs:
         key, sep, raw = pair.partition("=")
         if not sep:
             raise ValueError(f"override {pair!r} is not key=value")
-        data[key] = yaml.safe_load(raw)
-    known, extra = _split(data)
-    return dataclasses.replace(cfg, **known,
-                               extra={**cfg.extra, **extra}).infer()
+        if key not in _FIELDS:
+            raise ValueError(f"unknown config key: {key}")
+        updates[key] = yaml.safe_load(raw)
+    return dataclasses.replace(cfg, **updates).infer()

@@ -3,7 +3,8 @@
 ``active_num`` of the model's sites, the CIFAR ``cn`` regime) and
 ``StepFns.cn_image`` (image-space CrossNorm at every crop mode, the
 ImageNet regime), each chosen per batch against ``plain`` by the host
-Bernoulli gate ``np.random.RandomState(seed).rand() < cn_prob``.
+Bernoulli gate ``np.random.RandomState(seed).rand() < cn_prob``; and the
+eval steps ``eval_step`` and ``eval_sum`` (the evaluation loop's).
 
 PyTorch runs eagerly, so where JAX jits a pure function of the state, a
 step here updates the state in place (parameters, momentum buffers,
@@ -171,3 +172,24 @@ class StepFns:
         return {"loss": cross_entropy(logits, labels),
                 "correct": (logits.argmax(dim=-1) == labels).sum(),
                 "logits": logits}
+
+    def eval_sum(self, state: TrainState, images: torch.Tensor,
+                 labels: torch.Tensor):
+        """The evaluation loop's step (``steps.py:299-316``): an eval-mode
+        forward, rows whose label is below 0 are padding and left out.
+        Returns device scalars only, no logits, so the caller adds them
+        up on the device and waits for it once per loader: the mean
+        cross-entropy of the valid rows (of the logits cast to fp32),
+        their top-1 hits and their number."""
+        model = state.model.eval()
+        with torch.no_grad():
+            logits = model(images)
+        valid = labels >= 0
+        logp = torch.log_softmax(
+            logits.to(torch.promote_types(logits.dtype, torch.float32)), -1)
+        ce = -logp.gather(-1, labels.clamp(min=0)[:, None].long())[:, 0]
+        n = valid.sum()
+        return {"loss": torch.where(valid, ce, 0.0).sum() / n.clamp(min=1),
+                "correct": ((logits.argmax(dim=-1) == labels)
+                            & valid).sum(),
+                "n": n}

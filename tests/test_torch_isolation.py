@@ -13,9 +13,9 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cnsn_tpu")
 
 
-def test_port_runs_without_jax_in_a_fresh_process():
+def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
     code = textwrap.dedent("""
-        import os, sys, torch
+        import math, os, sys, torch
         os.environ["CNSN_CONV3X3"] = "pallas"
         import cnsn_tpu_torch
         from cnsn_tpu_torch.ops.crossnorm import cross_norm_2ins
@@ -38,6 +38,23 @@ def test_port_runs_without_jax_in_a_fresh_process():
         state, metrics = StepFns().plain(state, torch.randn(2, 8, 8, 3),
                                          torch.tensor([1, 2]))
         assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+        import cnsn_tpu_torch.train.trainer as trainer_mod
+        from cnsn_tpu_torch import cli, data, evaluation
+        from cnsn_tpu_torch.config import load_config
+        from cnsn_tpu_torch.models.wideresnet import WideResNet
+        from cnsn_tpu_torch.utils import (checkpoint, meters, metrics_io,
+                                          prefetch, provenance)
+        trainer_mod.build_model = lambda name, classes, **kw: WideResNet(
+            depth=10, widen_factor=1, num_classes=classes,
+            **{k: v for k, v in kw.items() if v is not None})
+        cfg = load_config("cnsn_tpu/configs/cifar10/wideresnet/cnsn.yaml",
+                          synthetic_data=True, batch_size=16, snapshot=False,
+                          exp_dir=sys.argv[1], print_freq=100)
+        t = trainer_mod.Trainer(cfg, device="cpu")
+        t.train_loader = data.CifarLoader(
+            data.load_cifar("", synthetic=True, synthetic_size=32), 16)
+        assert math.isfinite(t.train_epoch())
+        assert t.state.step == 2
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "optax", "cnsn_tpu"))
@@ -46,7 +63,8 @@ def test_port_runs_without_jax_in_a_fresh_process():
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _ROOT
-    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=_ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")

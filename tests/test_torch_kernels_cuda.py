@@ -881,6 +881,27 @@ CN_WRN = [(32, 32), (16, 64), (8, 128)]
 
 @pytest.mark.parametrize("hw,c", CN_WRN)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selfnorm_at_the_trainers_eval_batch_matches_plain(hw, c, dtype):
+    """K3 where the Trainer's evaluation of cnsn.yaml runs it: its 18
+    SelfNorm sites at pos 'post' at eval_batch_size 1000, and at the
+    synthetic test set's one short batch of 512; the staged kernel (one
+    launch each), run to run bit for bit."""
+    for n in (1000, 512):
+        x, w, a, b = _inputs((n, hw, hw, c), 150 + c, dtype)
+        assert selfnorm_path(x) == "staged"
+        key = SN_PATHS["staged"][1]
+        before = LAUNCHES[key]
+        got = selfnorm_infer_cuda(x, w, a, b)
+        again = selfnorm_infer_cuda(x, w, a, b)
+        want = selfnorm_infer_reference(x, w, a, b)
+        torch.cuda.synchronize()
+        assert LAUNCHES[key] == before + 2
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("hw,c", CN_WRN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ins_stats_at_crossnorm_sites_matches_plain(hw, c, dtype):
     """K1 forward and backward at CrossNorm's eps 1e-5: the forward to
     1e-5 (fp32 sums in other orders), the backward to 1e-6 of its scale

@@ -57,10 +57,19 @@ def test_load_artifact_defaults_to_cuda(tmp_path):
 
 
 def test_every_recipe_yaml_loads():
+    """Every classification recipe loads; a segmentation recipe is not an
+    ExperimentConfig and raises on its unknown keys, as the JAX loader
+    does (``cnsn_tpu/config.py:138-141``)."""
     paths = glob.glob(os.path.join(_CONFIGS, "**", "*.yaml"), recursive=True)
     assert len(paths) > 40
     for p in paths:
+        if os.sep + "segmentation" + os.sep in p:
+            with pytest.raises(ValueError, match="unknown config keys"):
+                load_config(p)
+            continue
         assert isinstance(load_config(p).num_classes, int)
+    with pytest.raises(ValueError, match="unknown config key: nope"):
+        apply_overrides(load_config(), ["nope=1"])
     cfg = load_config(os.path.join(_CONFIGS, "imagenet", "resnet50",
                                    "sn.yaml"))
     assert (cfg.model, cfg.num_classes, cfg.cnsn_type, cfg.pos) == (
