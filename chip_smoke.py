@@ -13,7 +13,8 @@ give it, with times beside its bound and the library's call (K3 at
 ResNet-50's shapes at b=64 and b=1 and WRN-40-2's at b=128, its staged
 kernel with the first, v1 kernel beside it).  Then it drives the port's
 main paths with the launch counts read around each (and, in the profiled
-training steps, one K2 forward kernel per BatchNorm2d layer):
+training steps, one kernel per K1 and K2 launch each way: K2 once per
+BatchNorm2d layer, K1 once per SelfNorm site and image statistics):
 
   * training, the flagship recipe (``cnsn_tpu/configs/imagenet/resnet50/
     cnsn.yaml``: SelfNorm at pos='post', image CrossNorm gated per batch
@@ -235,6 +236,27 @@ def bound(nbytes, flops, peak=FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The launch counters of K1 and K2 and the profile family of their kernels
+# (utils/profiling.py): one kernel per launch each way
+STATS_FAMILY = {"ins_stats": "ins_stats", "ins_stats_bwd": "ins_stats_bwd",
+                "bn_sums": "bn_stats", "bn_sums_bwd": "bn_stats_bwd"}
+# the kernel each counter launches (csrc/ins_stats.cu, csrc/bn_stats.cu)
+STATS_KERNEL = {"ins_stats": "ins_stats_cluster_kernel",
+                "ins_stats_bwd": "ins_bwd_kernel",
+                "bn_sums": "bn_sums_persistent_kernel",
+                "bn_sums_bwd": "bn_bwd_stream_kernel"}
+
+
+def check_stats_kernels(prof, want, what):
+    """A profiled step ran K1's and K2's kernels once per launch that
+    ``want`` (launches per step by counter) expects, and no other."""
+    got = {k: prof["launches_by_family"].get(f, 0)
+           for k, f in STATS_FAMILY.items()}
+    exp = {k: want.get(k, 0) for k in STATS_FAMILY}
+    check(got == exp, f"{what}: K1/K2 kernels per step {got}, expected "
+          f"{exp}")
+
+
 def phase_build():
     """Every library, one nvcc each, all started together."""
     from cnsn_tpu_torch.ops.kernels import LIBRARIES, build
@@ -338,10 +360,12 @@ def phase_k1_vs_plain(dev, flush):
     (b=128 bf16), at the image CrossNorm statistics (b=128 224² fp32, once
     per cn_image step; its backward is not on the path, no gradient
     reaches images), and at the calls of WRN-40-2's sn.yaml, cnsn.yaml
-    and cn.yaml (b=128 32² bf16, ``WRN_K1_CASES``, each at its eps)."""
+    and cn.yaml (b=128 32² bf16, ``WRN_K1_CASES``, each at its eps); the
+    forward bit for bit run to run, each row with its plan."""
     from cnsn_tpu_torch.ops import (ins_stats_bwd_cuda,
                                     ins_stats_bwd_reference, ins_stats_cuda,
                                     ins_stats_reference)
+    from cnsn_tpu_torch.ops.kernels.ins_stats import ins_stats_plan_of
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     cases = [((n, n, c), torch.bfloat16, sites, 1e-5, {})
@@ -358,11 +382,14 @@ def phase_k1_vs_plain(dev, flush):
              + 0.3).to(dtype)
         elems, itemsize, stats = x.numel(), x.element_size(), 128 * c * 4
         got, want = ins_stats_cuda(x, eps), ins_stats_reference(x, eps)
+        again = ins_stats_cuda(x, eps)
         torch.cuda.synchronize()
         err = max((g - r).abs().max().item() for g, r in zip(got, want))
         # both sum fp32 in other orders: 1e-5 relative
         for g, r in zip(got, want):
             torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"K1 forward {shape} {dtype} run to run")
         rows.append(_row(
             "ins_stats", shape, dtype, sites, err,
             {"rtol": 1e-5, "atol": 1e-5}, flush,
@@ -370,7 +397,7 @@ def phase_k1_vs_plain(dev, flush):
             lambda: ins_stats_reference(x, eps),
             lambda: torch.std_mean(x, dim=(1, 2)), "torch.std_mean",
             elems * itemsize + 2 * stats, 3 * elems,
-            cn_sites=0 if sites else 1, **tags))
+            cn_sites=0 if sites else 1, plan=ins_stats_plan_of(x), **tags))
         mean, std = want
         gm = torch.randn(128, c, generator=gen, device=dev)
         gs = torch.randn(128, c, generator=gen, device=dev)
@@ -400,7 +427,8 @@ def phase_k2_vs_plain(dev, flush):
     with a warm running mean."""
     from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
                                     bn_sums_cuda, bn_sums_reference)
-    from cnsn_tpu_torch.ops.kernels.bn_stats import bn_sums_plan
+    from cnsn_tpu_torch.ops.kernels.bn_stats import (bn_bwd_plan_of,
+                                                     bn_sums_plan)
     from cnsn_tpu_torch.utils.stats_sweep import bn_shapes
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
@@ -453,7 +481,8 @@ def phase_k2_vs_plain(dev, flush):
             lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
             lambda: bn_sums_bwd_reference(x, m0, g1, g2), None,
             "null: no single PyTorch call computes this backward",
-            2 * elems * 2 + 3 * c * 4, 4 * elems, model=model))
+            2 * elems * 2 + 3 * c * 4, 4 * elems, model=model,
+            plan=bn_bwd_plan_of(x), equal_to_plain=torch.equal(got, want)))
         del x, got, want
     torch.cuda.empty_cache()
     return rows
@@ -841,9 +870,13 @@ def phase_train(dev):
         prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
         emit({"phase": "train_profile", "step": kind, "batch": b,
               "dtype": "bfloat16", **prof})
-        # K2's forward is one launch per BatchNorm2d layer
-        check(prof["launches_by_family"].get("bn_stats") == BN_LAYERS,
-              f"K2 forward kernels per step {prof['launches_by_family']}")
+        # K1 and K2 are one kernel per launch: K2 one per BatchNorm2d
+        # layer each way, K1 one per SelfNorm site each way (and one more
+        # forward, the image statistics, on a cn_image step)
+        check_stats_kernels(
+            prof, {"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS,
+                   "ins_stats": SN_SITES + (kind == "cn_image"),
+                   "ins_stats_bwd": SN_SITES}, f"flagship {kind} step")
 
     LAUNCHES.clear()
     out = steps.eval_step(state, images[:BATCH], labels[:BATCH])
@@ -953,6 +986,8 @@ def phase_train_flagship_k4(dev, conv_ms, k4_rows):
     emit({"phase": "train_flagship_k4_profile", "step": "plain",
           "conv3x3": "pallas", "batch": cfg.batch_size, "dtype": "bfloat16",
           **prof})
+    check_stats_kernels(prof, {**want[0], "ins_stats": SN_SITES},
+                        "flagship plain step under pallas")
     del state, images
     torch.cuda.empty_cache()
     return k4
@@ -1125,9 +1160,7 @@ def phase_train_wrn(dev):
         prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
         emit({"phase": "train_wrn_profile", "conv3x3": mode, "batch": b,
               "dtype": "bfloat16", **prof})
-        check(prof["launches_by_family"].get("bn_stats") == WRN_BN,
-              f"K2 forward kernels per WRN step "
-              f"{prof['launches_by_family']}")
+        check_stats_kernels(prof, want, f"WRN sn.yaml step under {mode}")
         if mode == "pallas":
             wrn_counts = counts
             LAUNCHES.clear()
@@ -1290,9 +1323,9 @@ def phase_train_wrn_cn(dev):
         prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / med
         emit({"phase": "train_wrn_cn_profile", "recipe": name, "step": "cn",
               "batch": b, "dtype": "bfloat16", **prof})
-        check(prof["launches_by_family"].get("bn_stats") == WRN_BN,
-              f"K2 forward kernels per {name} cn step "
-              f"{prof['launches_by_family']}")
+        cn_step = {**base, "ins_stats": sn + 2 * (cfg.cnsn_type == "cn"),
+                   "ins_stats_bwd": sn + 2 * (cfg.cnsn_type == "cn")}
+        check_stats_kernels(prof, cn_step, f"{name} cn step")
         if "sn" in cfg.cnsn_type:
             LAUNCHES.clear()
             ev = steps.eval_step(state, images, labels)
@@ -1569,8 +1602,7 @@ def phase_train_resnet_cn_both(dev):
     prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / ms
     emit({"phase": "train_resnet_cn_both_profile", "step": "cn_image",
           "batch": cfg.batch_size, "dtype": "bfloat16", **prof})
-    check(prof["launches_by_family"].get("bn_stats") == BN_LAYERS,
-          f"K2 forward kernels per step {prof['launches_by_family']}")
+    check_stats_kernels(prof, want, "resnet50/cn.yaml cn_image step")
     del state, images
     torch.cuda.empty_cache()
     return counts
@@ -1700,6 +1732,8 @@ def main():
                     "cnsn_tpu/ops/pallas/bn_stats.py:109"),
                    ("bn_sums_bwd", "bn_stats.cu",
                     "cnsn_tpu/ops/pallas/bn_stats.py:146"))]
+    for k in kernels:
+        k["kernel"] = STATS_KERNEL[k["name"]]
     # K1's and K2's launches on the CrossNorm paths of this run (35 steps
     # of each WRN cn recipe, 5 of resnet50/cn.yaml)
     for k in kernels:

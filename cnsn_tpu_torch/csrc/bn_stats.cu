@@ -64,8 +64,25 @@
 // blocks of 256 threads per SM (80 registers) ran faster than four (64,
 // spilling) or five.
 //
-// The backward is one elementwise pass in row_pass.cuh's geometry; every
-// product and sum is rounded on its own, as the plain version computes it.
+// Backward design: a one-wave streaming pass.  The first port's kernel ran
+// on row_pass.cuh's chunks (about 8 blocks per SM, one or two 16-byte loads
+// a thread at WRN's shapes, `#pragma unroll 4` over ~50 row steps at the
+// flagship's), 66% of HBM's rate at the flagship and 30% at WRN.  Here the
+// plan (ops/kernels/bn_stats.py::bn_bwd_plan, a pure function of the shape
+// and the card) sizes the grid to one wave of the kernel's residency: a
+// tile spans up to a whole block of 16-byte lanes (C = 64 bf16: 8 lanes,
+// a block step covers 32 rows; C = 2048: one row), so one tile holds every
+// channel where C <= 256 * V, and the tile's rows go to contiguous chunks
+// of at least one unrolled step per thread.  Each thread loads its
+// channels' m0, g1 and g2 once, keeps kBwdUnroll evict-first 16-byte loads
+// of x in flight, and writes dx with plain stores.  Evict-first stores
+// (st.global.cs, kBwdStreamStores = 1) ran 0-2.5% slower at every model
+// shape (stats_sweep --k2-constants kBwdStreamStores=1 times them).
+// Every product and sum is rounded on its own,
+// as the plain version and the first port's kernel compute them
+// (__fadd_rn(g1, __fmul_rn(__fmul_rn(2, x - m0), g2))): the same bits as
+// the first port's kernel (utils/stats_sweep.py --baseline checks it at
+// every model shape).
 #include <cooperative_groups.h>
 
 #include "row_pass.cuh"
@@ -74,7 +91,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 using row_pass::Geometry;
-using row_pass::Place;
 using row_pass::kThreads;
 
 constexpr int kUnroll = 4;       // 16-byte loads in flight per thread
@@ -84,6 +100,9 @@ constexpr int kMaxTile = 64;     // channels of a forward tile, at most
 constexpr int kCluster = 8;      // blocks of a cluster over row chunks
 constexpr int kClusterMin = 256; // chunks a tile needs before it clusters
 constexpr int kFwdBlocksPerSm = 3;  // residency the registers are held to
+constexpr int kBwdUnroll = 4;    // the backward's 16-byte loads in flight
+constexpr int kBwdBlocksPerSm = 4;  // the backward's residency, at least
+constexpr int kBwdStreamStores = 0;  // 1: dx stored evict-first
 // The type of every sum: fp64, so s1 and s2 come out correctly rounded
 // (see the note above).  utils/stats_sweep.py --k2-constants builds copies
 // with other constants, float sums among them, to time them beside it.
@@ -101,39 +120,6 @@ __host__ __device__ inline Geometry fwd_geometry(int c, int vec) {
   g.ctiles = (c + g.tile - 1) / g.tile;
   return g;
 }
-
-// One load of x, kept raw until it is summed: 16 bytes (V = 8 bf16 or 4
-// fp32) or one element.  x is read once, so the load is evict-first
-// (ld.global.cs): it leaves the L2's other lines in place.
-template <typename T, int V>
-struct XLoad {
-  using Raw = typename std::conditional<V == 1, T, uint4>::type;
-  __device__ static Raw load(const T* p) {
-    if constexpr (V == 1) {
-      return __ldcs(p);
-    } else {
-      return __ldcs(reinterpret_cast<const uint4*>(p));
-    }
-  }
-  __device__ static void unpack(const Raw& r, float (&v)[V]) {
-    if constexpr (V == 1) {
-      v[0] = row_pass::to_f32(r);
-    } else if constexpr (std::is_same<T, float>::value) {
-      v[0] = __uint_as_float(r.x);
-      v[1] = __uint_as_float(r.y);
-      v[2] = __uint_as_float(r.z);
-      v[3] = __uint_as_float(r.w);
-    } else {
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-      }
-    }
-  }
-};
 
 template <int VF>
 __device__ __forceinline__ void load_part(const Sum* p, Sum (&v)[VF]) {
@@ -214,7 +200,7 @@ bn_sums_persistent_kernel(const T* __restrict__ x,
                           unsigned int* __restrict__ tickets,
                           float* __restrict__ s1, float* __restrict__ s2,
                           int rows, int c, int chunk_rows, int finish) {
-  using L = XLoad<T, V>;
+  using L = row_pass::XLoad<T, V>;
   constexpr int kPlane = kThreads * (V > 2 ? V : 2);
   __shared__ Sum red[2 * kPlane];
   __shared__ Sum mine[2 * kMaxTile];  // this block's sums, for its cluster
@@ -445,48 +431,118 @@ struct BnSums {
   }
 };
 
+// dx in x's type, from one fp32 result per element.  The streaming form
+// (st.global.cs, kBwdStreamStores) marks the lines evict-first: this pass
+// never reads dx.
+template <typename T>
+__device__ __forceinline__ void store_raw(T* p, T v) {
+  if constexpr (kBwdStreamStores != 0) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ m0,
-              const float* __restrict__ g1, const float* __restrict__ g2,
-              T* __restrict__ dx, int rows, int c, int chunk_rows) {
-  const Geometry g = row_pass::geometry(c, V);
-  const Place p = row_pass::place(g, rows, c, V, chunk_rows);
-  if (!p.live) return;
+__device__ __forceinline__ void store_dx(T* p, const float (&v)[V]) {
+  if constexpr (V == 1) {
+    if constexpr (std::is_same<T, float>::value) {
+      store_raw(p, v[0]);
+    } else {
+      store_raw(reinterpret_cast<unsigned short*>(p),
+                __bfloat16_as_ushort(__float2bfloat16(v[0])));
+    }
+  } else {
+    uint4 q;
+    if constexpr (std::is_same<T, float>::value) {
+      q = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                     __float_as_uint(v[2]), __float_as_uint(v[3]));
+    } else {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      }
+    }
+    store_raw(reinterpret_cast<uint4*>(p), q);
+  }
+}
+
+// Grid (chunks, ctiles), kThreads threads: block (k, t) writes dx over rows
+// [k * chunk_rows, (k + 1) * chunk_rows) of channel tile t (lanes * V
+// channels; `lanes` threads span the tile's row segment, up to all
+// kThreads, so a block step reads and writes kThreads / lanes whole rows
+// of the tile), kBwdUnroll 16-byte loads in flight per thread.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+bn_bwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ m0,
+                     const float* __restrict__ g1,
+                     const float* __restrict__ g2, T* __restrict__ dx,
+                     int rows, int c, int lanes, int chunk_rows) {
+  using L = row_pass::XLoad<T, V>;
+  const int t = threadIdx.x;
+  const int step = kThreads / lanes;
+  const int rin = t / lanes;
+  const int c0 = blockIdx.y * lanes * V + (t - rin * lanes) * V;
+  if (rin >= step || c0 >= c) return;
   float m[V];
   float a[V];
   float k[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    m[i] = m0[p.c0 + i];
-    a[i] = g1[p.c0 + i];
-    k[i] = g2[p.c0 + i];
+    m[i] = m0[c0 + i];
+    a[i] = g1[c0 + i];
+    k[i] = g2[c0 + i];
   }
-#pragma unroll 4
-  for (int r = p.r_begin + p.rin; r < p.r_end; r += g.rows_per_iter) {
-    const size_t off = static_cast<size_t>(r) * c + p.c0;
-    float v[V];
-    row_pass::load_vec<V>(x + off, v);
+  const int r_begin = blockIdx.x * chunk_rows;
+  const int r_end = r_begin + chunk_rows < rows ? r_begin + chunk_rows : rows;
+  for (int r = r_begin + rin; r < r_end; r += kBwdUnroll * step) {
+    typename L::Raw raw[kBwdUnroll];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      // g1 + (2 d) g2 with each step rounded: no FMA contraction
-      v[i] = __fadd_rn(a[i], __fmul_rn(__fmul_rn(2.f, v[i] - m[i]), k[i]));
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (r + u * step < r_end) {
+        raw[u] = L::load(x + static_cast<size_t>(r + u * step) * c + c0);
+      }
     }
-    row_pass::store_vec<V>(dx + off, v);
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (r + u * step < r_end) {
+        float v[V];
+        L::unpack(raw[u], v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          // g1 + (2 d) g2 with each step rounded: no FMA contraction
+          v[i] = __fadd_rn(a[i],
+                           __fmul_rn(__fmul_rn(2.f, v[i] - m[i]), k[i]));
+        }
+        store_dx<T, V>(dx + static_cast<size_t>(r + u * step) * c + c0, v);
+      }
+    }
   }
 }
 
 template <typename T, int V>
 struct BnBwd {
   static void run(const void* x, const void* m0, const void* g1,
-                  const void* g2, void* dx, int rows, int c, int chunks,
-                  cudaStream_t stream) {
-    const Geometry g = row_pass::geometry(c, V);
-    const dim3 grid(g.ctiles, chunks, 1);
-    bn_bwd_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+                  const void* g2, void* dx, int rows, int c, int lanes,
+                  int chunks, int chunk_rows, cudaStream_t stream) {
+    const int tile = lanes * V;
+    const dim3 grid(chunks, (c + tile - 1) / tile, 1);
+    bn_bwd_stream_kernel<T, V><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(m0),
         static_cast<const float*>(g1), static_cast<const float*>(g2),
-        static_cast<T*>(dx), rows, c, row_pass::chunk_rows(rows, chunks));
+        static_cast<T*>(dx), rows, c, lanes, chunk_rows);
+  }
+};
+
+// The backward kernel's resident blocks per SM for <T, V>.
+template <typename T, int V>
+struct BwdOccupancy {
+  static void run(int* out) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out, bn_bwd_stream_kernel<T, V>, kThreads, 0) != cudaSuccess) {
+      *out = 0;
+    }
   }
 };
 
@@ -536,20 +592,37 @@ extern "C" int cnsn_bn_sums(int dtype, int vec, const void* x, const void* m0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward kernel's resident blocks per SM for (dtype, vec) in *out.
+// Returns 0, or cudaErrorInvalidValue for a (dtype, vec) without a kernel
+// or a failed query.
+extern "C" int cnsn_bn_sums_bwd_occupancy(int dtype, int vec, int* out) {
+  if (!row_pass::dispatch<BwdOccupancy>(dtype, vec, out) || *out < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
 // dx = g1 + 2 (x - m0) g2 per channel, written in x's type.  x and dx are
-// row-major (rows, c) of one dtype; m0, g1, g2 are (c,) fp32.  Returns the
-// cudaError_t of the launch.
+// row-major (rows, c) of one dtype; m0, g1, g2 are (c,) fp32.  The plan
+// (ops/kernels/bn_stats.py::bn_bwd_plan): `lanes` (1..256) threads across a
+// tile of lanes * vec channels, `chunks` blocks per tile of `chunk_rows`
+// rows each (chunks * chunk_rows >= rows).
+// Returns the cudaError_t of the launch, cudaErrorInvalidValue for a plan
+// or arguments it does not take.
 extern "C" int cnsn_bn_sums_bwd(int dtype, int vec, const void* x,
                                 const void* m0, const void* g1,
                                 const void* g2, void* dx, int rows, int c,
+                                int lanes, int chunks, int chunk_rows,
                                 void* stream) {
-  if (!row_pass::valid_pass(dtype, 1, rows, c, vec, x, dx)) {
+  if (!row_pass::valid_pass(dtype, 1, rows, c, vec, x, dx) || lanes < 1 ||
+      lanes > kThreads || chunks < 1 || chunk_rows < 1 ||
+      static_cast<long long>(chunks) * chunk_rows < rows ||
+      (c + lanes * vec - 1) / (lanes * vec) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int chunks = row_pass::plan_chunks(1, rows, c, vec);
-  if (chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (!row_pass::dispatch<BnBwd>(dtype, vec, x, m0, g1, g2, dx, rows, c,
-                                 chunks, static_cast<cudaStream_t>(stream))) {
+                                 lanes, chunks, chunk_rows,
+                                 static_cast<cudaStream_t>(stream))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

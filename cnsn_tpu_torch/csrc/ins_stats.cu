@@ -4,7 +4,7 @@
 // ins_stats_v2 (:140) and the jnp backward of ins_stats_diff (:179-190).
 // Per (sample n, channel c) of an NHWC tensor x with HW = H*W rows:
 //   forward   mean = S1 / HW,  var = (S2 / HW - mean^2) * HW / max(HW - ddof, 1)
-//             std  = sqrt(var + eps)      (one pass in fp32, no clamp, as JAX)
+//             std  = sqrt(var + eps)      (one pass, no clamp, as JAX)
 //   backward  dx   = gm / HW + gs * (x - mean) / (max(HW - ddof, 1) * std)
 //             in x's type, from the fp32 (N, C) mean, std and cotangents.
 //
@@ -12,76 +12,254 @@
 // backward reads x and writes dx.  ResNet-50's 16 SelfNorm sites at b=128
 // bf16 hold 5,519,360 elements per image: 1.41 GB, so >= 0.42 ms forward and
 // >= 0.84 ms backward per step at 3.35 TB/s.  The image CrossNorm statistics
-// (128 x 224 x 224 x 3 fp32) read 77 MB: >= 0.023 ms.
+// (128 x 224 x 224 x 3 fp32) read 77 MB: >= 0.023 ms.  WRN-40-2's 18 sites
+// at b=128 32x32 bf16 read 4-8 MB a call: 1.2-2.5 us, less than a launch.
 //
-// Design.  The TPU kernels hold one sample's (HW, 128) plane in VMEM (v2) or
-// carry running sums along a sequential HW grid (v1).  A Hopper block has
-// neither the room nor the order, so the forward is two launches
-// (row_pass.cuh): blocks over (channel tile, HW chunk, sample) write fp32
-// partial sums S1, S2 to a scratch buffer the caller allocates, then one
-// thread per (n, c) adds its chunks in order and forms mean and std.  The HW
-// chunks keep ~8 blocks per SM busy at every shape: at C=256 bf16 a sample is
-// one channel tile, and 128 samples alone would give each SM one block.
-// Loads are 16 bytes a thread where C allows.  No vector width divides C=3,
-// so image planes load one element a thread, but three lanes span a row and a
-// warp still reads 128 contiguous bytes.  The backward is one elementwise
-// pass in the same geometry; each thread loads its channels' four
-// statistics once.
+// Forward design: one launch, no scratch.  The TPU
+// kernels hold one sample's (HW, 128) plane in VMEM (v2) or carry running
+// sums along a sequential HW grid (v1); Hopper blocks have neither the room
+// nor the order.  The first port took two launches (fp32 partials per
+// (sample, tile, HW chunk) into a scratch buffer, then one thread per
+// (n, c) adding its chunks); at WRN's shapes that cost ~9.4 us a call
+// against a 1.5 us bound.  Here a block owns a (sample, channel tile,
+// chunk of rows): `lanes` threads (a power of two up to the whole block,
+// as few as span C: one tile holds every channel of both models' sites)
+// cover the tile's row segment with 16-byte evict-first loads (one element
+// where C or x's alignment allows no vector: C = 3 images, unaligned
+// views), and each thread keeps kUnroll (vectors) or kUnrollOne (elements)
+// loads in flight over its rows.  A wide tile leaves little to add across
+// threads: at 7x7x2048 each of 256 lanes owns 8 channels over every row,
+// so no sum crosses a thread before the cluster's.  The plan
+// (ops/kernels/ins_stats.py::ins_stats_plan, a pure function of the shape
+// and the card) splits a plane over `split` blocks only where that pays:
+// on the card each doubling of a plane's blocks cost ~1.4 us at WRN's
+// shapes (stats_sweep's ms_by_split; PERF.md), more than the load
+// time it saves, so every WRN-40-2 plane and ResNet-50's 28x28 to 7x7 ones
+// take one block, and only planes whose block would take >= 32 unrolled
+// steps a thread (56x56x256: 49; the 224x224x3 image: 49) split in two,
+// or further while the card holds fewer blocks than SMs (a few images),
+// up to one cluster of 8 blocks.  Deeper unrolls at fewer blocks per SM
+// ran no faster (--k1-constants).  The blocks of a plane are one
+// thread-block cluster and add their sums without a second launch: rank 0
+// adds the ranks' sums in rank order over distributed shared memory and
+// writes mean and std.  No sum takes an atomic, so the bits are the same
+// run to run.
+//
+// Rounding.  Each thread sums its rows' x and x*x (each square rounded on
+// its own: no FMA, as the plain version) in fp32, in row order.  The
+// threads' sums are then added in fp64: a fixed butterfly of shuffles over
+// the row groups of a warp (lanes < 32), the row groups in order through
+// shared memory, then the cluster's ranks in order, and rounded once to
+// fp32 S1 and S2.  The finishing arithmetic is the first port's:
+// mean = S1 / HW, the square of the mean with __fmul_rn (an FMA's exact
+// m^2 would leave the negative rounding error of S2/HW as the variance of
+// a constant plane and sqrt gives NaN at HW = 1), the HW/(HW - ddof)
+// correction, eps inside the sqrt, no clamp.
+//
+// The backward is one elementwise pass on row_pass.cuh's geometry; each
+// thread loads its channels' four statistics once.
+#include <cooperative_groups.h>
 #include <limits.h>
 
 #include "row_pass.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using row_pass::Geometry;
 using row_pass::Place;
 using row_pass::kThreads;
 
+constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;          // blocks of a cluster, at most
+constexpr int kFwdBlocksPerSm = 4;   // residency the registers are held to
+constexpr int kUnroll = 8;           // 16-byte loads in flight per thread
+constexpr int kUnrollOne = 16;       // one-element loads in flight per thread
+// The type of a thread's sums over its rows, and of the sums across
+// threads (see Rounding above).
+using Acc = float;
+using Sum = double;
+
+// Grid (split, ctiles, n) in clusters of (split, 1, 1), kThreads threads:
+// block (k, t, b) sums rows [k * chunk_rows, (k + 1) * chunk_rows) of
+// channel tile t (lanes * V channels, lanes a power of two up to kThreads)
+// of sample b, and rank 0 of the cluster finishes the plane.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-ins_sums_kernel(const T* __restrict__ x, float* __restrict__ part, int hw,
-                int c, int chunk_rows) {
-  row_pass::row_sums<T, V>(x, nullptr, part, hw, c, chunk_rows);
+__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
+ins_stats_cluster_kernel(const T* __restrict__ x, float* __restrict__ mean,
+                         float* __restrict__ std_out, int hw, int c,
+                         int lanes, int chunk_rows, float eps, float corr) {
+  using L = row_pass::XLoad<T, V>;
+  constexpr int kRed = kThreads * V;  // one sum per thread and channel
+  constexpr int kU = V == 1 ? kUnrollOne : kUnroll;
+  // red[s][slot * tile + col]: the row groups' sums, s = 0 of x, 1 of x*x;
+  // after the block's add, red[s][col] holds the block's sums (its
+  // cluster reads them there)
+  __shared__ Sum red[2][kRed];
+  const int t = threadIdx.x;
+  const int lane = t & (lanes - 1);
+  const int step = kThreads / lanes;
+  const int tile = lanes * V;
+  const int cbase = blockIdx.y * tile;
+  const int c0 = cbase + lane * V;
+  const int b = blockIdx.z;
+  const int r_begin = blockIdx.x * chunk_rows;
+  const int r_end = r_begin + chunk_rows < hw ? r_begin + chunk_rows : hw;
+
+  Acc s1[V];
+  Acc s2[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    s1[i] = 0;
+    s2[i] = 0;
+  }
+  if (c0 < c) {
+    const T* xs = x + static_cast<size_t>(b) * hw * c + c0;
+    // kU loads in flight (the tail's predicated off), then their sums in
+    // row order
+    for (int r = r_begin + t / lanes; r < r_end; r += kU * step) {
+      typename L::Raw raw[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (r + u * step < r_end) {
+          raw[u] = L::load(xs + static_cast<size_t>(r + u * step) * c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (r + u * step < r_end) {
+          float v[V];
+          L::unpack(raw[u], v);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            s1[i] += static_cast<Acc>(v[i]);
+            s2[i] += static_cast<Acc>(__fmul_rn(v[i], v[i]));
+          }
+        }
+      }
+    }
+  }
+
+  // Narrow tiles (lanes < 32): a warp holds 32 / lanes row groups, added
+  // by a butterfly over the lane bits above `lanes` into its first `lanes`
+  // threads.  Then each slot of `span` threads (a warp, or the lanes / 32
+  // warps of one row group) holds one row group's sums, added in slot
+  // order.
+  Sum a[V];
+  Sum q[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    a[i] = s1[i];
+    q[i] = s2[i];
+  }
+  for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      a[i] += __shfl_xor_sync(0xffffffffu, a[i], off);
+      q[i] += __shfl_xor_sync(0xffffffffu, q[i], off);
+    }
+  }
+  const int span = lanes < 32 ? 32 : lanes;
+  const int slots = kThreads / span;
+  if (t % span < lanes) {
+    const int o = (t / span) * tile + lane * V;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      red[0][o + i] = a[i];
+      red[1][o + i] = q[i];
+    }
+  }
+  __syncthreads();
+  if (slots > 1) {
+    // each (s, col) by one thread, into slot 0 of its own column
+    for (int i = t; i < 2 * tile; i += kThreads) {
+      const int s = i / tile;
+      const int col = i - s * tile;
+      Sum acc = 0;
+      for (int k = 0; k < slots; ++k) acc += red[s][k * tile + col];
+      red[s][col] = acc;
+    }
+  }
+
+  // the cluster's ranks, in rank order, by rank 0
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  if (ranks > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+  if (cluster.block_rank() == 0) {
+    const int cols = c - cbase < tile ? c - cbase : tile;
+    const float count = static_cast<float>(hw);
+    const size_t out = static_cast<size_t>(b) * c + cbase;
+    for (int col = t; col < cols; col += kThreads) {
+      Sum t1 = 0;
+      Sum t2 = 0;
+      for (int rk = 0; rk < ranks; ++rk) {
+        const Sum* o = ranks > 1 ? cluster.map_shared_rank(&red[0][0], rk)
+                                 : &red[0][0];
+        t1 += o[col];
+        t2 += o[kRed + col];
+      }
+      const float m = static_cast<float>(t1) / count;
+      const float var =
+          (static_cast<float>(t2) / count - __fmul_rn(m, m)) * corr;
+      mean[out + col] = m;
+      std_out[out + col] = sqrtf(var + eps);
+    }
+  }
+  // no block leaves while rank 0 may still read its sums
+  if (ranks > 1) cluster.sync();
+}
+
+cudaLaunchConfig_t cluster_config(dim3 grid, int ranks, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ranks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = ranks > 1 ? 1 : 0;
+  return cfg;
 }
 
 template <typename T, int V>
-struct InsSums {
-  static void run(const void* x, float* part, int n, int hw, int c,
-                  int chunks, cudaStream_t stream) {
-    const Geometry g = row_pass::geometry(c, V);
-    const dim3 grid(g.ctiles, chunks, n);
-    ins_sums_kernel<T, V><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), part, hw, c,
-        row_pass::chunk_rows(hw, chunks));
+struct InsStatsFwd {
+  static void run(const void* x, float* mean, float* std_out, int n, int hw,
+                  int c, int lanes, int split, int chunk_rows, float eps,
+                  float corr, cudaStream_t stream, cudaError_t* err) {
+    const int tile = lanes * V;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(
+        dim3(split, (c + tile - 1) / tile, n), split, stream, &attr);
+    *err = cudaLaunchKernelEx(&cfg, ins_stats_cluster_kernel<T, V>,
+                              static_cast<const T*>(x), mean, std_out, hw, c,
+                              lanes, chunk_rows, eps, corr);
   }
 };
 
-__global__ void ins_finalize_kernel(const float* __restrict__ part,
-                                    float* __restrict__ mean,
-                                    float* __restrict__ std_out, int n,
-                                    int chunks, int c, int hw, float eps,
-                                    float corr) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * c) return;
-  const int b = i / c;
-  const int ch = i - b * c;
-  const size_t plane = static_cast<size_t>(n) * chunks * c;
-  float t1 = 0.f;
-  float t2 = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    const size_t o = (static_cast<size_t>(b) * chunks + k) * c + ch;
-    t1 += part[o];
-    t2 += part[plane + o];
+// What one wave of the forward kernel for <T, V> holds: out[0] resident
+// blocks per SM, out[1] resident clusters of kCluster blocks on the card.
+template <typename T, int V>
+struct InsStatsOccupancy {
+  static void run(int* out) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(dim3(kCluster, 1, 1), kCluster, nullptr, &attr);
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &out[0], ins_stats_cluster_kernel<T, V>, kThreads, 0) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(
+            &out[1], ins_stats_cluster_kernel<T, V>, &cfg) != cudaSuccess) {
+      out[0] = out[1] = 0;
+    }
   }
-  const float count = static_cast<float>(hw);
-  const float m = t1 / count;
-  // __fmul_rn keeps nvcc from contracting this into an FMA, whose exact m²
-  // would leave the negative rounding error of S2/HW as the variance of a
-  // constant plane (HW = 1), and sqrt would give NaN.
-  const float var = (t2 / count - __fmul_rn(m, m)) * corr;
-  mean[i] = m;
-  std_out[i] = sqrtf(var + eps);
-}
+};
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -131,41 +309,52 @@ struct InsBwd {
   }
 };
 
+bool power_of_two(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
 }  // namespace
 
-// Number of HW chunks the forward splits each (sample, channel tile) into:
-// the caller allocates a (2, n, chunks, c) fp32 scratch buffer.  -1 if the
-// device cannot be queried.
-extern "C" int cnsn_ins_stats_chunks(int n, int hw, int c, int vec) {
-  return row_pass::plan_chunks(n, hw, c, vec);
+// The forward kernel's residency for (dtype, vec): out[0] blocks per SM,
+// out[1] clusters of 8 on the card.  Returns 0, or cudaErrorInvalidValue
+// for a (dtype, vec) without a kernel or a failed query.
+extern "C" int cnsn_ins_stats_occupancy(int dtype, int vec, int* out) {
+  if (!row_pass::dispatch<InsStatsOccupancy>(dtype, vec, out) ||
+      out[0] < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16; vec: 1, or 4 (fp32) / 8 (bf16) when c is
-// a multiple of it and x is 16-byte aligned.  x is NHWC-contiguous (n, hw, c);
-// part is the scratch above; mean and std are (n, c) fp32.  Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int cnsn_ins_stats(int dtype, int vec, const void* x, void* part,
-                              void* mean, void* std_out, int n, int hw, int c,
-                              int chunks, float eps, int ddof, void* stream) {
-  if (!row_pass::valid_pass(dtype, n, hw, c, vec, x, nullptr) || chunks < 1 ||
-      chunks > 65535 || static_cast<long long>(n) * c > INT_MAX || ddof < 0) {
+// The forward, one launch.  dtype: 0 = float32, 1 = bfloat16; vec: 1, or
+// 4 (fp32) / 8 (bf16) when c is a multiple of it and x is 16-byte aligned.
+// x is NHWC-contiguous (n, hw, c); mean and std are (n, c) fp32.  The plan
+// (ops/kernels/ins_stats.py::ins_stats_plan): `lanes` (1..256, a power of
+// two) threads across a tile of lanes * vec channels, `split` blocks per
+// (sample, tile) of `chunk_rows` rows each (split * chunk_rows >= hw), one
+// cluster of split (1, 2, 4 or 8) blocks a plane.  Returns the cudaError_t
+// of the launch (0 on success), cudaErrorInvalidValue for a plan or
+// arguments it does not take.
+extern "C" int cnsn_ins_stats(int dtype, int vec, const void* x, void* mean,
+                              void* std_out, int n, int hw, int c, int lanes,
+                              int split, int chunk_rows, float eps, int ddof,
+                              void* stream) {
+  if (!row_pass::valid_pass(dtype, n, hw, c, vec, x, nullptr) || ddof < 0 ||
+      static_cast<long long>(n) * c > INT_MAX || !power_of_two(lanes) ||
+      lanes > kThreads || !power_of_two(split) || split > kCluster ||
+      chunk_rows < 1 || static_cast<long long>(split) * chunk_rows < hw ||
+      (c + lanes * vec - 1) / (lanes * vec) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* partf = static_cast<float*>(part);
-  if (!row_pass::dispatch<InsSums>(dtype, vec, x, partf, n, hw, c, chunks,
-                                   s)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   // HW / max(HW - ddof, 1), as the JAX package corrects the variance
   const float corr = static_cast<float>(
       static_cast<double>(hw) / (hw - ddof > 1 ? hw - ddof : 1));
-  const int total = n * c;
-  ins_finalize_kernel<<<(total + 255) / 256, 256, 0, s>>>(
-      partf, static_cast<float*>(mean), static_cast<float*>(std_out), n,
-      chunks, c, hw, eps, corr);
+  cudaError_t err = cudaSuccess;
+  if (!row_pass::dispatch<InsStatsFwd>(
+          dtype, vec, x, static_cast<float*>(mean),
+          static_cast<float*>(std_out), n, hw, c, lanes, split, chunk_rows,
+          eps, corr, static_cast<cudaStream_t>(stream), &err)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

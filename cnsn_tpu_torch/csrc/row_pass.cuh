@@ -13,9 +13,9 @@
 // The grid is (channel tiles, row chunks, batch); the number of chunks is
 // chosen so that the grid holds about kBlocksPerSm blocks per SM.
 //
-// Determinism.  Every partial sum is taken in a fixed order: a thread's rows
-// in sequence, then the threads of a block in sequence through shared memory,
-// then the chunks in sequence in a second launch.  No atomics, so a result
+// The K1 backward runs on this geometry; the one-launch forward kernels
+// of ins_stats.cu and bn_stats.cu (and K2's backward) set their own tiles
+// and share the loads below.  No pass takes float atomics, so a result
 // does not change from run to run.
 #pragma once
 
@@ -29,9 +29,8 @@
 namespace row_pass {
 
 constexpr int kThreads = 256;     // threads per block of a row pass
-constexpr int kMaxVec = 8;        // widest vector: 8 bf16 = 16 bytes
 constexpr int kBlocksPerSm = 8;   // grid size the chunk count aims at
-constexpr int kMaxChunks = 1024;  // bounds the second stage's work
+constexpr int kMaxChunks = 1024;  // bounds the grid's row chunks
 
 struct Geometry {
   int lanes;          // threads across one row segment of the tile
@@ -167,70 +166,38 @@ __device__ __forceinline__ Place place(const Geometry& g, int rows, int c,
   return p;
 }
 
-// Stage 1 of a sum over rows, the body of a kernel of kThreads threads.
-// x: (batch, rows, c); shift: (c,) or null.  Writes part[k][b][chunk][ch]
-// for k = 0 (sum of x - shift) and k = 1 (sum of its squares), each square
-// rounded on its own (no FMA), as the plain versions compute it.  Grid
-// (ctiles, chunks, batch).  Each source wraps it in a kernel of its own
-// name, so a profile tells K1's launches from K2's.
+// One load of x, kept raw until it is used: 16 bytes (V = 8 bf16 or 4
+// fp32) or one element.  A pass that reads x once loads evict-first
+// (ld.global.cs): it leaves the L2's other lines in place.
 template <typename T, int V>
-__device__ __forceinline__ void row_sums(const T* __restrict__ x,
-                                         const float* __restrict__ shift,
-                                         float* __restrict__ part, int rows,
-                                         int c, int chunk_rows) {
-  __shared__ float red[2][kThreads * kMaxVec];
-  const Geometry g = geometry(c, V);
-  const Place p = place(g, rows, c, V, chunk_rows);
-  const int b = blockIdx.z;
-
-  float s1[V];
-  float s2[V];
-  float m[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    s1[i] = 0.f;
-    s2[i] = 0.f;
-    m[i] = (p.live && shift != nullptr) ? shift[p.c0 + i] : 0.f;
+struct XLoad {
+  using Raw = typename std::conditional<V == 1, T, uint4>::type;
+  __device__ static Raw load(const T* p) {
+    if constexpr (V == 1) {
+      return __ldcs(p);
+    } else {
+      return __ldcs(reinterpret_cast<const uint4*>(p));
+    }
   }
-  if (p.live) {
-    const T* xs = x + static_cast<size_t>(b) * rows * c + p.c0;
-#pragma unroll 4
-    for (int r = p.r_begin + p.rin; r < p.r_end; r += g.rows_per_iter) {
-      float v[V];
-      load_vec<V>(xs + static_cast<size_t>(r) * c, v);
+  __device__ static void unpack(const Raw& r, float (&v)[V]) {
+    if constexpr (V == 1) {
+      v[0] = to_f32(r);
+    } else if constexpr (std::is_same<T, float>::value) {
+      v[0] = __uint_as_float(r.x);
+      v[1] = __uint_as_float(r.y);
+      v[2] = __uint_as_float(r.z);
+      v[3] = __uint_as_float(r.w);
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float d = v[i] - m[i];
-        s1[i] += d;
-        s2[i] += __fmul_rn(d, d);
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
       }
     }
   }
-  if (p.rin < g.rows_per_iter) {
-    const int col = (threadIdx.x % g.lanes) * V;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      red[0][p.rin * g.tile + col + i] = s1[i];
-      red[1][p.rin * g.tile + col + i] = s2[i];
-    }
-  }
-  __syncthreads();
-
-  const size_t plane = static_cast<size_t>(gridDim.z) * gridDim.y * c;
-  for (int col = threadIdx.x; col < g.tile; col += kThreads) {
-    const int ch = blockIdx.x * g.tile + col;
-    if (ch >= c) break;
-    float a = 0.f;
-    float q = 0.f;
-    for (int k = 0; k < g.rows_per_iter; ++k) {
-      a += red[0][k * g.tile + col];
-      q += red[1][k * g.tile + col];
-    }
-    const size_t o = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) * c + ch;
-    part[o] = a;
-    part[plane + o] = q;
-  }
-}
+};
 
 // Dispatch on (dtype, vec): dtype 0 = float32, 1 = bfloat16.  `Launch` is a
 // class template on <T, V> with a static run(args...).  Returns false on a

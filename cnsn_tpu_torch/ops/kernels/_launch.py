@@ -4,13 +4,14 @@ functions of a library, and raise on a refused launch."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ._build import load
 
 __all__ = ["DTYPE_CODE", "bind", "check_activation", "check_f32",
-           "check_launch", "stream", "vector_width"]
+           "check_launch", "device_limits", "stream", "vector_width"]
 
 # dtype codes of the kernels' C interfaces
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +61,18 @@ def vector_width(x: torch.Tensor) -> int:
     channel count and x's address allow it, else 1."""
     v = 16 // x.element_size()
     return v if x.shape[-1] % v == 0 and x.data_ptr() % 16 == 0 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(index: int) -> tuple:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_multiprocessor
+
+
+def device_limits(device: torch.device) -> tuple:
+    """(SMs, shared memory bytes per SM) of a CUDA device: what the
+    kernels' plans are sized from."""
+    return _limits(torch.device(device).index or 0)
 
 
 def stream(x: torch.Tensor) -> int:

@@ -12,6 +12,10 @@ it runs the plain versions, on a CUDA tensor it launches the kernels (or
 raises), on any other device it raises.  The shift m0 is BatchNorm's
 running mean, which JAX stop-gradients (``nn/norm.py:144``): ``BnSums``
 gives it no gradient, so the TPU backward's dm0 term is not ported.
+
+The backward is one streaming pass whose plan, ``bn_bwd_plan``, is a pure
+function of the shape and the card, so the CPU tests check it at every
+model shape.
 """
 from __future__ import annotations
 
@@ -22,10 +26,12 @@ import torch
 
 from ._build import LAUNCHES
 from ._launch import (DTYPE_CODE, INT, PTR, bind, check_activation,
-                      check_f32, check_launch, stream, vector_width)
+                      check_f32, check_launch, device_limits, stream,
+                      vector_width)
 
-__all__ = ["BnSums", "bn_sums_bwd_cuda", "bn_sums_bwd_reference",
-           "bn_sums_cuda", "bn_sums_plan", "bn_sums_reference"]
+__all__ = ["BnSums", "bn_bwd_plan", "bn_sums_bwd_cuda",
+           "bn_sums_bwd_reference", "bn_sums_cuda", "bn_sums_plan",
+           "bn_sums_reference"]
 
 
 def _float(x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +61,9 @@ def _kernels():
             bind("bn_stats", "cnsn_bn_sums", INT, INT, PTR, PTR, PTR, PTR,
                  INT, PTR, PTR, INT, INT, INT, INT, INT, PTR),
             bind("bn_stats", "cnsn_bn_sums_bwd", INT, INT, PTR, PTR, PTR,
-                 PTR, PTR, INT, INT, PTR))
+                 PTR, PTR, INT, INT, INT, INT, INT, PTR),
+            bind("bn_stats", "cnsn_bn_sums_bwd_occupancy", INT, INT,
+                 ctypes.POINTER(ctypes.c_int)))
 
 
 _PLAN_KEYS = ("chunks", "ctiles", "blocks_per_sm", "tile", "cluster")
@@ -136,22 +144,83 @@ def _launch(x: torch.Tensor, m0: torch.Tensor, chunks: int = 0,
     return (s1, s2) if finish else part
 
 
+# The backward kernel's constants (csrc/bn_stats.cu)
+BWD_THREADS = 256
+BWD_BLOCKS_PER_SM = 4  # kBwdBlocksPerSm, the residency its registers allow
+BWD_UNROLL = 4         # kBwdUnroll: 16-byte loads in flight a thread
+
+
+def bn_bwd_plan(rows: int, c: int, dtype: torch.dtype, vec: int, sms: int,
+                chunks: int = 0) -> dict:
+    """The backward's launch for x of (rows, c) in ``dtype`` loaded ``vec``
+    elements a thread on a card of ``sms`` SMs: a pure function.
+
+    ``lanes`` threads (up to a whole block) span a tile of ``lanes · vec``
+    channels, ``BWD_THREADS // lanes`` rows a step; each tile's rows go to
+    ``chunks`` blocks of ``chunk_rows`` contiguous rows, as many as fill
+    one wave of resident blocks with at least one unrolled step
+    (``BWD_UNROLL`` row steps) a thread, and no block empty.
+    ``chunks`` > 0 forces the blocks per tile (sweeps)."""
+    if vec not in (1, 16 // dtype.itemsize):
+        raise ValueError(f"no {dtype} kernel loads {vec} elements")
+    lanes = min(-(-c // vec), BWD_THREADS)
+    tile = lanes * vec
+    ctiles = -(-c // tile)
+    step = BWD_THREADS // lanes
+    steps = -(-rows // step)
+    wave = sms * BWD_BLOCKS_PER_SM
+    if chunks < 1:
+        chunks = max(1, min(wave // ctiles, -(-steps // BWD_UNROLL)))
+    chunk_steps = -(-steps // min(chunks, steps))
+    chunks = -(-steps // chunk_steps)
+    return {"lanes": lanes, "tile": tile, "ctiles": ctiles, "step": step,
+            "chunks": chunks, "chunk_rows": chunk_steps * step,
+            "blocks": chunks * ctiles, "wave": wave}
+
+
+def bn_bwd_plan_of(x: torch.Tensor, chunks: int = 0) -> dict:
+    """``bn_bwd_plan`` for x (C last) on its card."""
+    c = x.shape[-1]
+    return bn_bwd_plan(x.numel() // c, c, x.dtype, vector_width(x),
+                       device_limits(x.device)[0], chunks)
+
+
+def bn_bwd_occupancy(x: torch.Tensor) -> int:
+    """The backward kernel's resident blocks per SM for x's type and
+    vector width on its card."""
+    out = ctypes.c_int()
+    with torch.cuda.device(x.device):
+        err = _kernels()[3](DTYPE_CODE[x.dtype], vector_width(x),
+                            ctypes.byref(out))
+    check_launch(err, "bn_sums_bwd occupancy")
+    return out.value
+
+
 def bn_sums_bwd_cuda(x, m0, g1, g2):
     """Launch the backward kernel on the current stream; raise on a
     refused launch.  Arguments and result as for
     ``bn_sums_bwd_reference``; m0, g1 and g2 are contiguous (C,) fp32."""
+    dx = _launch_bwd(x, m0, g1, g2)
+    LAUNCHES["bn_sums_bwd"] += 1
+    return dx
+
+
+def _launch_bwd(x, m0, g1, g2, chunks: int = 0):
+    """One launch of the backward kernel, not counted (sweeps force a
+    plan through it)."""
     check_activation(x)
     c = x.shape[-1]
     for name, t in (("m0", m0), ("g1", g1), ("g2", g2)):
         check_f32(x, name, t, (c,))
-    vec = vector_width(x)
+    plan = bn_bwd_plan_of(x, chunks)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     with torch.cuda.device(x.device):
-        err = _kernels()[2](DTYPE_CODE[x.dtype], vec, x.data_ptr(),
-                            m0.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-                            dx.data_ptr(), x.numel() // c, c, stream(x))
+        err = _kernels()[2](DTYPE_CODE[x.dtype], vector_width(x),
+                            x.data_ptr(), m0.data_ptr(), g1.data_ptr(),
+                            g2.data_ptr(), dx.data_ptr(), x.numel() // c, c,
+                            plan["lanes"], plan["chunks"],
+                            plan["chunk_rows"], stream(x))
     check_launch(err, "bn_sums_bwd")
-    LAUNCHES["bn_sums_bwd"] += 1
     return dx
 
 

@@ -11,19 +11,25 @@ their plain PyTorch versions.
 tensor it runs the plain versions, on a CUDA tensor it launches the
 kernels (or raises), on any other device it raises.  x is NHWC; a model
 activation passes its NHWC-contiguous ``permute(0, 2, 3, 1)`` view.
+
+The forward is one launch whose plan, ``ins_stats_plan``, is a pure
+function of the shape and the card, so the CPU tests check it at every
+model shape.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from ._build import LAUNCHES
 from ._launch import (DTYPE_CODE, FLOAT, INT, PTR, bind, check_activation,
-                      check_f32, check_launch, stream, vector_width)
+                      check_f32, check_launch, device_limits, stream,
+                      vector_width)
 
 __all__ = ["InsStats", "ins_stats_bwd_cuda", "ins_stats_bwd_reference",
-           "ins_stats_cuda", "ins_stats_reference"]
+           "ins_stats_cuda", "ins_stats_plan", "ins_stats_reference"]
 
 
 def ins_stats_reference(x: torch.Tensor, eps: float = 1e-5, ddof: int = 1):
@@ -58,11 +64,89 @@ def ins_stats_bwd_reference(x, mean, std, gm, gs, ddof: int = 1):
 
 @functools.cache
 def _kernels():
-    return (bind("ins_stats", "cnsn_ins_stats_chunks", INT, INT, INT, INT),
-            bind("ins_stats", "cnsn_ins_stats", INT, INT, PTR, PTR, PTR, PTR,
-                 INT, INT, INT, INT, FLOAT, INT, PTR),
+    return (bind("ins_stats", "cnsn_ins_stats_occupancy", INT, INT,
+                 ctypes.POINTER(ctypes.c_int)),
+            bind("ins_stats", "cnsn_ins_stats", INT, INT, PTR, PTR, PTR, INT,
+                 INT, INT, INT, INT, INT, FLOAT, INT, PTR),
             bind("ins_stats", "cnsn_ins_stats_bwd", INT, INT, PTR, PTR, PTR,
                  PTR, PTR, PTR, INT, INT, INT, INT, PTR))
+
+
+# The forward kernel's constants (csrc/ins_stats.cu)
+THREADS = 256
+BLOCKS_PER_SM = 4   # kFwdBlocksPerSm, the residency its registers allow
+UNROLL = {1: 16, 4: 8, 8: 8}  # kUnrollOne / kUnroll: loads in flight
+MAX_CLUSTER = 8     # kCluster, the portable cluster size
+# A plane's blocks double while each keeps this many unrolled load steps
+# a thread (or while the card holds fewer blocks than SMs): a doubling
+# cost ~1.4 us on the card at WRN-40-2's shapes (PERF.md).
+MIN_BATCHES = 16
+_SMEM_RESERVED = 1024  # shared memory the card holds back per block
+
+
+def ins_stats_plan(n: int, hw: int, c: int, dtype: torch.dtype, vec: int,
+                   sms: int, smem_per_sm: int, split: int = 0,
+                   lanes: int = 0) -> dict:
+    """The forward's launch for x of (n, hw, c) in ``dtype`` loaded ``vec``
+    elements a thread, on a card of ``sms`` SMs with ``smem_per_sm`` bytes
+    of shared memory each: a pure function.
+
+    ``lanes`` threads (a power of two up to ``THREADS``, as few as span C)
+    cover a tile of ``lanes · vec`` channels, ``THREADS / lanes`` rows a
+    step; each (sample, tile) plane goes to one cluster of ``split``
+    blocks of ``chunk_rows`` rows, which add over distributed shared
+    memory.  ``split`` doubles, up to ``MAX_CLUSTER`` and within one wave
+    of resident blocks (``blocks_per_sm`` · ``sms``), while the grid holds
+    fewer blocks than SMs or each block keeps ``MIN_BATCHES`` unrolled
+    load steps a thread.  ``split`` > 0 forces the blocks per plane
+    (rounded down to a power of two up to ``MAX_CLUSTER``) and ``lanes`` >
+    0 (a power of two up to ``THREADS``) the lanes (sweeps, tests)."""
+    if vec not in (1, 16 // dtype.itemsize):
+        raise ValueError(f"no {dtype} kernel loads {vec} elements")
+    if lanes < 1:
+        lanes = min(THREADS, 1 << (-(-c // vec) - 1).bit_length())
+    elif lanes > THREADS or lanes & (lanes - 1):
+        raise ValueError(f"lanes must be a power of two up to {THREADS}")
+    tile = lanes * vec
+    ctiles = -(-c // tile)
+    step = THREADS // lanes
+    steps = -(-hw // step)
+    planes = n * ctiles
+    batches = -(-steps // UNROLL[vec])
+    smem = 2 * THREADS * vec * 8  # red, in fp64
+    blocks_per_sm = min(BLOCKS_PER_SM, smem_per_sm // (smem + _SMEM_RESERVED))
+    wave = sms * blocks_per_sm
+    if split < 1:
+        split = 1
+        while (2 * split <= MAX_CLUSTER and 2 * split * planes <= wave
+               and (2 * split * planes <= sms
+                    or batches >= 2 * split * MIN_BATCHES)):
+            split *= 2
+    split = 1 << (min(split, MAX_CLUSTER).bit_length() - 1)
+    return {"lanes": lanes, "tile": tile, "ctiles": ctiles, "step": step,
+            "split": split, "batches": batches,
+            "chunk_rows": -(-steps // split) * step,
+            "blocks": planes * split, "blocks_per_sm": blocks_per_sm,
+            "wave": wave}
+
+
+def ins_stats_plan_of(x: torch.Tensor, split: int = 0,
+                      lanes: int = 0) -> dict:
+    """``ins_stats_plan`` for x (NHWC) on its card."""
+    n, h, w, c = x.shape
+    sms, smem_per_sm = device_limits(x.device)
+    return ins_stats_plan(n, h * w, c, x.dtype, vector_width(x), sms,
+                          smem_per_sm, split=split, lanes=lanes)
+
+
+def ins_stats_occupancy(x: torch.Tensor) -> dict:
+    """The forward kernel's residency for x's type and vector width on its
+    card: blocks per SM, and clusters of 8 on the card."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(x.device):
+        err = _kernels()[0](DTYPE_CODE[x.dtype], vector_width(x), out)
+    check_launch(err, "ins_stats occupancy")
+    return {"blocks_per_sm": out[0], "clusters": out[1]}
 
 
 def _check_x(x):
@@ -74,25 +158,29 @@ def _check_x(x):
 def ins_stats_cuda(x: torch.Tensor, eps: float = 1e-5, ddof: int = 1):
     """Launch the forward kernel on the current stream; raise on a refused
     launch.  Arguments and results as for ``ins_stats_reference``."""
+    mean, std = _launch(x, eps, ddof)
+    LAUNCHES["ins_stats"] += 1
+    return mean, std
+
+
+def _launch(x: torch.Tensor, eps: float = 1e-5, ddof: int = 1,
+            split: int = 0, lanes: int = 0):
+    """One launch of the forward kernel, not counted (sweeps and the card
+    tests force a plan through it): ``split`` > 0 forces the blocks per
+    plane, ``lanes`` > 0 the lanes."""
     _check_x(x)
     if ddof < 0:
         raise ValueError(f"ddof must be >= 0, got {ddof}")
     n, h, w, c = x.shape
-    vec = vector_width(x)
-    chunks_of, fwd, _ = _kernels()
+    plan = ins_stats_plan_of(x, split, lanes)
     mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
     std = torch.empty_like(mean)
     with torch.cuda.device(x.device):
-        chunks = chunks_of(n, h * w, c, vec)
-        if chunks < 1:
-            raise RuntimeError("ins_stats: cannot query the device")
-        part = torch.empty((2, n, chunks, c), dtype=torch.float32,
-                           device=x.device)
-        err = fwd(DTYPE_CODE[x.dtype], vec, x.data_ptr(), part.data_ptr(),
-                  mean.data_ptr(), std.data_ptr(), n, h * w, c, chunks, eps,
-                  ddof, stream(x))
+        err = _kernels()[1](
+            DTYPE_CODE[x.dtype], vector_width(x), x.data_ptr(),
+            mean.data_ptr(), std.data_ptr(), n, h * w, c, plan["lanes"],
+            plan["split"], plan["chunk_rows"], eps, ddof, stream(x))
     check_launch(err, "ins_stats")
-    LAUNCHES["ins_stats"] += 1
     return mean, std
 
 

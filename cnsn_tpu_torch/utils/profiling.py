@@ -24,8 +24,8 @@ __all__ = ["device_time_breakdown", "kernel_family"]
 _FAMILIES = (
     ("selfnorm", ("selfnorm",)),         # K3: staged and v1 kernels
     ("ins_stats_bwd", ("ins_bwd_kernel",)),          # K1 backward
-    ("ins_stats", ("ins_sums_kernel", "ins_finalize_kernel")),  # K1
-    ("bn_stats_bwd", ("bn_bwd_kernel",)),            # K2 backward
+    ("ins_stats", ("ins_stats_cluster_kernel",)),    # K1 forward
+    ("bn_stats_bwd", ("bn_bwd_stream_kernel",)),     # K2 backward
     # K2 forward (bn_sums_persistent_kernel; the two-launch design's
     # bn_sums_kernel and bn_finalize_kernel), before batch_norm's "bn_fw"
     ("bn_stats", ("bn_sums_", "bn_finalize_kernel")),

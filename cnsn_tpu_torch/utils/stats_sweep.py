@@ -1,26 +1,56 @@
-"""K2's one-launch forward and K3's staged kernel at the shapes of the
-main paths: each one's plan and its time around the plan, beside the
-kernel it replaced, in the same process.
+"""The statistics kernels at the shapes of the main paths: each one's
+plan and its time around the plan, beside the kernel it replaced, in the
+same process.
 
-    python -m cnsn_tpu_torch.utils.stats_sweep [--iters 20] [--only k2|k3]
-        [--baseline DIR] [--k2-constants NAME=VALUE,... ...]
+    python -m cnsn_tpu_torch.utils.stats_sweep [--iters 20]
+        [--only k1|k2|k2bwd|k3] [--baseline DIR]
+        [--k1-constants NAME=VALUE,... ...]
+        [--k2-constants NAME=VALUE,... ...]
 
-K2 (``bn_sums``): one JSON line for each of ResNet-50's 12 BatchNorm2d
-input shapes at b=128 224² bf16: ``plan`` (``bn_sums_plan``),
-``planned_ms``, ``main_ms`` (the same launch stopped at its partials, no
-ticket and no final add; ``final_add_ms`` is the difference),
-``ms_by_chunks`` over chunk counts around the planned one (one less than
-the plan: the same rows per block without clusters), ``clean_ms`` (timed
-after an L2 flush that leaves clean lines, ``_time_clean_ms``) and the
-bound.
+K1 forward (``ins_stats``, one launch): one JSON line for each K1 call
+shape of ResNet-50 (its 4 SelfNorm shapes at b=128 224² bf16 and the
+image CrossNorm statistics, b=128 224²×3 fp32) and of WRN-40-2 (its 4
+SelfNorm shapes at b=128 32² bf16): ``plan`` (``ins_stats_plan_of``),
+``planned_ms``, ``ms_by_split`` over forced blocks per plane around the
+plan, ``ms_by_lanes`` over forced lanes (8 to 256 that C fills, each
+with its own split), ``variants_ms`` (each ``--k1-constants`` spec, say
+``kUnroll=16,kFwdBlocksPerSm=2`` or ``Acc=double``: a copy of
+``csrc/ins_stats.cu`` with those constants, timed at 1, 2 and 4 blocks
+a plane), ``clean_ms`` (after an L2 flush that leaves clean lines,
+``_time_clean_ms``), the bound, the error against the plain version and
+the same bits run to run.
+
+K2 backward (``bn_sums_bwd``, one streaming pass): one line for each of
+ResNet-50's 12 BatchNorm2d input shapes and WRN-40-2's 4, b=128 bf16:
+``plan`` (``bn_bwd_plan_of``), ``planned_ms``, ``ms_by_chunks`` over
+forced chunk counts, ``clean_ms``, the bound and the error
+(``--k2-constants kBwdStreamStores=1`` times dx stored evict-first).
+
 With ``--baseline DIR`` (a directory holding an earlier
-``cnsn_tpu_torch/csrc/bn_stats.cu`` and ``row_pass.cuh`` whose forward is
-the two-launch design, ``cnsn_bn_sums_chunks`` and ``cnsn_bn_sums``, as in
-a ``git archive`` of that commit), that source is built beside the
-package's and timed as ``baseline_ms`` and ``baseline_clean_ms``.  Each
-``--k2-constants`` (say ``Sum=float,kFwdBlocksPerSm=5``) builds a copy of
-the package's ``csrc/bn_stats.cu`` with those ``constexpr int`` values and
-sum type, timed per shape in ``variants_ms``.
+``cnsn_tpu_torch/csrc``, as in a ``git archive`` of that commit), DIR's
+``ins_stats.cu`` and ``bn_stats.cu`` are built beside the package's and
+their kernels timed at the same shapes as ``baseline_ms`` and
+``baseline_clean_ms``: the first port's two-launch K1 forward
+(``cnsn_ins_stats_chunks`` and ``cnsn_ins_stats``; its error against the
+plain version as ``baseline_max_abs_err``), the first port's K2 backward
+(``cnsn_bn_sums_bwd`` of rows and c; ``baseline_equal``: the same bits
+as the new kernel, which the sweep requires), and DIR's K2 forward (the
+two-launch ``cnsn_bn_sums_chunks`` or the one-launch
+``cnsn_bn_sums_plan``, whichever DIR has).
+A ``summary`` line per kernel sums each time by its launches
+per step: the flagship's (16 SelfNorm sites, and the image statistics on
+19 of its 35 gated steps) and WRN-40-2 sn.yaml's.
+
+K2 forward (``bn_sums``): one line for each of ResNet-50's 12 BatchNorm2d
+input shapes: ``plan`` (``bn_sums_plan``), ``planned_ms``, ``main_ms``
+(the same launch stopped at its partials, no ticket and no final add;
+``final_add_ms`` is the difference), ``ms_by_chunks`` over chunk counts
+around the planned one (one less than the plan: the same rows per block
+without clusters), ``clean_ms`` and the bound.  Each ``--k2-constants``
+(say ``Sum=float,kFwdBlocksPerSm=5`` or ``kBwdUnroll=8``) builds a copy
+of the package's ``csrc/bn_stats.cu`` with those ``constexpr int`` values
+and sum type, its forward and backward timed per shape in
+``variants_ms`` (the backward on the package's plan).
 
 K3 (``selfnorm``): one line per SelfNorm shape of ResNet-50 at b=64 and
 b=1 and of WRN-40-2 at b=128, in float32 and bfloat16: ``plan``
@@ -30,9 +60,12 @@ kernel) and the bound.
 
 Times: CUDA events around each launch, the 50 MB L2 overwritten and a
 ~1 ms spin on the card before each, as ``chip_smoke.py`` times them;
-every timed configuration is first held to the plain version (K2: 1e-5
-of Σ|x−m0| and of s2; K3: chip_smoke's ``TOL``).  The last line names
-the card.  It needs a GPU and exits non-zero without one.
+every timed configuration is first held to the plain version (K1: 1e-5
+relative, chip_smoke's ``k1_vs_plain``; K2 forward: 1e-5 of Σ|x−m0| and
+of s2; K2 backward: bit for bit; K3: chip_smoke's ``TOL``).  A first
+line gives the method's floor: one launch of a one-element fill, timed
+alike.  The last line names the card.  It needs a GPU and exits
+non-zero without one.
 """
 from __future__ import annotations
 
@@ -49,10 +82,15 @@ import torch
 
 from ..models.resnet import block_plan
 from ..ops.kernels._build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
-from ..ops.kernels._launch import DTYPE_CODE, INT, PTR, vector_width
+from ..ops.kernels._launch import DTYPE_CODE, FLOAT, INT, PTR, vector_width
 from ..ops.kernels.bn_stats import _launch as _bn_launch
-from ..ops.kernels.bn_stats import (bn_sums_cuda, bn_sums_plan,
-                                   bn_sums_reference)
+from ..ops.kernels.bn_stats import _launch_bwd as _bwd_launch
+from ..ops.kernels.bn_stats import (bn_bwd_plan_of, bn_sums_bwd_cuda,
+                                   bn_sums_bwd_reference, bn_sums_cuda,
+                                   bn_sums_plan, bn_sums_reference)
+from ..ops.kernels.ins_stats import _launch as _k1_launch
+from ..ops.kernels.ins_stats import (MAX_CLUSTER, ins_stats_cuda,
+                                    ins_stats_plan_of, ins_stats_reference)
 from ..ops.kernels.selfnorm import (PATHS, _launch, selfnorm_infer_reference,
                                     selfnorm_plan)
 from .k4_sweep import SPIN_CYCLES, _time_ms
@@ -62,6 +100,15 @@ HBM_BYTES_PER_S = 3.35e12
 # b=1), WRN-40-2 at 32² (eval: b=128)
 SN_R50 = ((56, 256), (28, 512), (14, 1024), (7, 2048))
 SN_WRN = ((32, 16), (32, 32), (16, 64), (8, 128))
+# K1's launches per main-path step at each (H = W, C): the flagship's 16
+# SelfNorm sites, WRN-40-2 sn.yaml's 18 (pos 'pre'); its BatchNorm2d
+# inputs per step (K2)
+K1_R50_SITES = {(56, 256): 3, (28, 512): 4, (14, 1024): 6, (7, 2048): 3}
+K1_WRN_SITES = {(32, 16): 1, (32, 32): 6, (16, 64): 6, (8, 128): 5}
+K2_WRN_SITES = {(32, 16): 1, (32, 32): 12, (16, 64): 12, (8, 128): 12}
+# the image statistics run on a cn_image step: 19 of the flagship's 35
+# gated steps (RandomState(7).rand(35) < 0.5)
+IMAGE_PER_STEP = 19 / 35
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
 
@@ -79,86 +126,198 @@ def bn_shapes(image: int = 224) -> collections.Counter:
     return shapes
 
 
-def _baseline(src: Path):
-    """The two-launch forward, built from ``src`` beside the package's
-    libraries: a callable (x, m0) -> (s1, s2)."""
-    out = BUILD_DIR / "baseline" / "libbn_stats_baseline.so"
+def _build_from(src: Path, name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` of the checkout at ``src``, built beside the
+    package's libraries."""
+    out = BUILD_DIR / "baseline" / f"lib{name}_baseline.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out),
-                    str(src / "cnsn_tpu_torch" / "csrc" / "bn_stats.cu")],
+                    str(src / "cnsn_tpu_torch" / "csrc" / f"{name}.cu")],
                    check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    chunks_of = lib.cnsn_bn_sums_chunks
-    chunks_of.argtypes, chunks_of.restype = [INT, INT, INT], ctypes.c_int
-    fwd = lib.cnsn_bn_sums
-    fwd.argtypes = [INT, INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, PTR]
-    fwd.restype = ctypes.c_int
-
-    def run(x, m0):
-        c = x.shape[-1]
-        rows, vec = x.numel() // c, vector_width(x)
-        chunks = chunks_of(rows, c, vec)
-        part = torch.empty((2, chunks, c), device=x.device)
-        s1 = torch.empty(c, device=x.device)
-        s2 = torch.empty(c, device=x.device)
-        err = fwd(DTYPE_CODE[x.dtype], vec, x.data_ptr(), m0.data_ptr(),
-                  part.data_ptr(), s1.data_ptr(), s2.data_ptr(), rows, c,
-                  chunks, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"baseline bn_sums: cudaError {err}")
-        return s1, s2
-    return run
+    return ctypes.CDLL(str(out))
 
 
-def _variant(spec: str):
-    """K2's forward built from the package's ``csrc/bn_stats.cu`` with the
-    constants of ``spec`` ("NAME=VALUE,...": its ``constexpr int``s, and
-    ``Sum`` = double or float), beside the package's libraries: a callable
-    (x, m0) -> (s1, s2)."""
-    text = (CSRC_DIR / "bn_stats.cu").read_text()
-    sums = torch.float64
-    for item in spec.split(","):
-        name, value = item.split("=")
-        if name == "Sum":
-            sums = {"double": torch.float64, "float": torch.float32}[value]
-            text, n = re.subn(r"using Sum = \w+;", f"using Sum = {value};",
-                              text)
-        else:
-            text, n = re.subn(rf"constexpr int {name} = \d+;",
-                              f"constexpr int {name} = {int(value)};", text)
-        if n != 1:
-            raise ValueError(f"--k2-constants: no {name} in bn_stats.cu")
-    out = BUILD_DIR / "variants" / re.sub(r"\W", "_", spec)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "bn_stats.cu").write_text(text)
-    (out / "row_pass.cuh").write_bytes((CSRC_DIR / "row_pass.cuh")
-                                       .read_bytes())
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out / "lib.so"),
-                    str(out / "bn_stats.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(out / "lib.so"))
-    plan_of, fwd = lib.cnsn_bn_sums_plan, lib.cnsn_bn_sums
-    plan_of.argtypes = [INT] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    fwd.argtypes = [INT, INT, PTR, PTR, PTR, PTR, INT, PTR, PTR, INT, INT,
-                    INT, INT, INT, PTR]
+def _bind(lib, name, *argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: cudaError {err}")
+
+
+def _baseline_bn_sums(lib):
+    """DIR's K2 forward: a callable (x, m0) -> (s1, s2), through the
+    two-launch interface (``cnsn_bn_sums_chunks``) or the one-launch plan
+    (``cnsn_bn_sums_plan``)."""
+    if hasattr(lib, "cnsn_bn_sums_chunks"):
+        chunks_of = _bind(lib, "cnsn_bn_sums_chunks", INT, INT, INT)
+        fwd = _bind(lib, "cnsn_bn_sums", INT, INT, PTR, PTR, PTR, PTR, PTR,
+                    INT, INT, INT, PTR)
+
+        def run(x, m0):
+            c = x.shape[-1]
+            rows, vec = x.numel() // c, vector_width(x)
+            chunks = chunks_of(rows, c, vec)
+            part = torch.empty((2, chunks, c), device=x.device)
+            s1 = torch.empty(c, device=x.device)
+            s2 = torch.empty(c, device=x.device)
+            _check(fwd(DTYPE_CODE[x.dtype], vec, x.data_ptr(),
+                       m0.data_ptr(), part.data_ptr(), s1.data_ptr(),
+                       s2.data_ptr(), rows, c, chunks, _stream()),
+                   "baseline bn_sums")
+            return s1, s2
+        return run
+    return _bn_plan_runner(lib, torch.float64, "baseline bn_sums")
+
+
+def _baseline(src: Path):
+    """The K2 forward of the checkout at ``src``, built beside the
+    package's: a callable (x, m0) -> (s1, s2) (``train/rounding.py
+    --baseline`` trains with it)."""
+    return _baseline_bn_sums(_build_from(src, "bn_stats"))
+
+
+def _bn_plan_runner(lib, sums, what: str):
+    """A callable (x, m0) -> (s1, s2) through a library's one-launch K2
+    forward (``cnsn_bn_sums_plan``, ``cnsn_bn_sums``)."""
+    plan_of = _bind(lib, "cnsn_bn_sums_plan", *[INT] * 5,
+                    ctypes.POINTER(ctypes.c_int))
+    fwd = _bind(lib, "cnsn_bn_sums", INT, INT, PTR, PTR, PTR, PTR, INT, PTR,
+                PTR, INT, INT, INT, INT, INT, PTR)
     tickets = torch.zeros(4096, dtype=torch.int32, device="cuda")
 
     def run(x, m0):
         c = x.shape[-1]
         rows, vec, plan = x.numel() // c, vector_width(x), (ctypes.c_int * 5)()
-        if plan_of(DTYPE_CODE[x.dtype], vec, rows, c, 0, plan) != 0:
-            raise RuntimeError(f"{spec}: no plan")
+        _check(plan_of(DTYPE_CODE[x.dtype], vec, rows, c, 0, plan),
+               f"{what}: no plan")
         part = torch.empty((2, plan[0] // plan[4], c), dtype=sums,
                            device=x.device)
         s1 = torch.empty(c, device=x.device)
         s2 = torch.empty(c, device=x.device)
-        err = fwd(DTYPE_CODE[x.dtype], vec, x.data_ptr(), m0.data_ptr(),
-                  part.data_ptr(), tickets.data_ptr(), tickets.numel(),
-                  s1.data_ptr(), s2.data_ptr(), rows, c, plan[0], plan[4], 1,
-                  torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{spec} bn_sums: cudaError {err}")
+        _check(fwd(DTYPE_CODE[x.dtype], vec, x.data_ptr(), m0.data_ptr(),
+                   part.data_ptr(), tickets.data_ptr(), tickets.numel(),
+                   s1.data_ptr(), s2.data_ptr(), rows, c, plan[0], plan[4], 1,
+                   _stream()), what)
         return s1, s2
+    return run
+
+
+def _baseline_ins_stats(lib):
+    """The first port's two-launch K1 forward: a callable (x, eps) ->
+    (mean, std)."""
+    chunks_of = _bind(lib, "cnsn_ins_stats_chunks", INT, INT, INT, INT)
+    fwd = _bind(lib, "cnsn_ins_stats", INT, INT, PTR, PTR, PTR, PTR, INT, INT,
+                INT, INT, FLOAT, INT, PTR)
+
+    def run(x, eps):
+        n, h, w, c = x.shape
+        vec = vector_width(x)
+        chunks = chunks_of(n, h * w, c, vec)
+        part = torch.empty((2, n, chunks, c), device=x.device)
+        mean = torch.empty((n, c), device=x.device)
+        std = torch.empty_like(mean)
+        _check(fwd(DTYPE_CODE[x.dtype], vec, x.data_ptr(), part.data_ptr(),
+                   mean.data_ptr(), std.data_ptr(), n, h * w, c, chunks, eps,
+                   1, _stream()), "baseline ins_stats")
+        return mean, std
+    return run
+
+
+def _baseline_bn_bwd(lib):
+    """The first port's K2 backward: a callable (x, m0, g1, g2) -> dx."""
+    bwd = _bind(lib, "cnsn_bn_sums_bwd", INT, INT, PTR, PTR, PTR, PTR, PTR,
+                INT, INT, PTR)
+
+    def run(x, m0, g1, g2):
+        c = x.shape[-1]
+        dx = torch.empty_like(x)
+        _check(bwd(DTYPE_CODE[x.dtype], vector_width(x), x.data_ptr(),
+                   m0.data_ptr(), g1.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+                   x.numel() // c, c, _stream()), "baseline bn_sums_bwd")
+        return dx
+    return run
+
+
+def _variant(spec: str, name: str = "bn_stats"):
+    """``csrc/<name>.cu`` built with the constants of ``spec``
+    ("NAME=VALUE,...": its ``constexpr int``s, and the sum types ``Sum``
+    and, in ins_stats.cu, ``Acc`` = double or float) beside the package's
+    libraries.  For bn_stats: callables (x,
+    m0) -> (s1, s2) and (x, m0, g1, g2) -> dx; for ins_stats: a callable
+    (x, split) -> (mean, std) on the package's plan for that split."""
+    text = (CSRC_DIR / f"{name}.cu").read_text()
+    sums = torch.float64
+    for item in spec.split(","):
+        key, value = item.split("=")
+        if key in ("Sum", "Acc"):
+            if key == "Sum":
+                sums = {"double": torch.float64,
+                        "float": torch.float32}[value]
+            text, n = re.subn(rf"using {key} = \w+;",
+                              f"using {key} = {value};", text)
+        else:
+            text, n = re.subn(rf"constexpr int {key} = \d+;",
+                              f"constexpr int {key} = {int(value)};", text)
+        if n != 1:
+            raise ValueError(f"constants: no {key} in {name}.cu")
+    out = BUILD_DIR / "variants" / name / re.sub(r"\W", "_", spec)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{name}.cu").write_text(text)
+    (out / "row_pass.cuh").write_bytes((CSRC_DIR / "row_pass.cuh")
+                                       .read_bytes())
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out / "lib.so"),
+                    str(out / f"{name}.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    if name == "ins_stats":
+        return _k1_runner(lib, spec)
+    return _bn_plan_runner(lib, sums, spec), _bn_bwd_runner(lib, spec)
+
+
+def _k1_runner(lib, what: str):
+    """A callable (x, split) -> (mean, std) through a library's one-launch
+    K1 forward (``cnsn_ins_stats``), on the package's plan for ``split``
+    blocks a plane."""
+    fwd = _bind(lib, "cnsn_ins_stats", INT, INT, PTR, PTR, PTR, INT, INT,
+                INT, INT, INT, INT, FLOAT, INT, PTR)
+
+    def run(x, split):
+        n, h, w, c = x.shape
+        plan = ins_stats_plan_of(x, split)
+        mean = torch.empty((n, c), device=x.device)
+        std = torch.empty_like(mean)
+        _check(fwd(DTYPE_CODE[x.dtype], vector_width(x), x.data_ptr(),
+                   mean.data_ptr(), std.data_ptr(), n, h * w, c,
+                   plan["lanes"], plan["split"], plan["chunk_rows"], 1e-5, 1,
+                   _stream()), what)
+        return mean, std
+    return run
+
+
+def _bn_bwd_runner(lib, what: str):
+    """A callable (x, m0, g1, g2) -> dx through a library's streaming K2
+    backward (``cnsn_bn_sums_bwd`` of a plan), on the package's plan."""
+    bwd = _bind(lib, "cnsn_bn_sums_bwd", INT, INT, PTR, PTR, PTR, PTR, PTR,
+                INT, INT, INT, INT, INT, PTR)
+
+    def run(x, m0, g1, g2):
+        c = x.shape[-1]
+        plan = bn_bwd_plan_of(x)
+        dx = torch.empty_like(x)
+        _check(bwd(DTYPE_CODE[x.dtype], vector_width(x), x.data_ptr(),
+                   m0.data_ptr(), g1.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+                   x.numel() // c, c, plan["lanes"], plan["chunks"],
+                   plan["chunk_rows"], _stream()),
+               what)
+        return dx
     return run
 
 
@@ -208,11 +367,136 @@ def sweep_k2(hw: int, c: int, layers: int, iters: int, flush, baseline,
     row["clean_ms"] = _time_clean_ms(lambda: bn_sums_cuda(x, m0), iters,
                                      flush)
     row["variants_ms"] = {}
-    for spec, fn in variants.items():
+    for spec, (fn, _) in variants.items():
         _bn_check(fn(x, m0), want, x, m0, spec)
         row["variants_ms"][spec] = _time_ms(lambda fn=fn: fn(x, m0), iters,
                                             flush)
     return row
+
+
+def sweep_k1(hw: int, c: int, dtype, sites: dict, iters: int, flush,
+             baseline, variants: dict):
+    """K1's forward at (128, hw, hw, c): one line (module docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(hw * 10_000 + c + 1)
+    x = (torch.randn(128, hw, hw, c, generator=gen, device="cuda") * 1.5
+         + 0.3).to(dtype)
+    want = ins_stats_reference(x)
+
+    def held(got, what):
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m: f"{what}: {m}")
+        return max((g - r).abs().max().item() for g, r in zip(got, want))
+
+    plan = ins_stats_plan_of(x)
+    got = ins_stats_cuda(x)
+    again = ins_stats_cuda(x)
+    err = held(got, "ins_stats")
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise RuntimeError(f"ins_stats {x.shape}: other bits run to run")
+    row = {"kernel": "ins_stats", "shape": list(x.shape),
+           "dtype": str(dtype).split(".")[1], "sites": sites, "plan": plan,
+           "max_abs_err": err,
+           "planned_ms": _time_ms(lambda: ins_stats_cuda(x), iters, flush),
+           "clean_ms": _time_clean_ms(lambda: ins_stats_cuda(x), iters,
+                                      flush),
+           "bound_ms": (x.numel() * x.element_size() + 2 * 128 * c * 4)
+           / HBM_BYTES_PER_S * 1e3}
+    ms = {}
+    for k in sorted({1, 2, 4, MAX_CLUSTER} - {plan["split"]}):
+        held(_k1_launch(x, split=k), f"ins_stats split {k}")
+        ms[k] = _time_ms(lambda k=k: _k1_launch(x, split=k), iters, flush)
+    row["ms_by_split"] = ms
+    ms = {}
+    for lanes in (8, 16, 32, 64, 128, 256):
+        if lanes != plan["lanes"] and lanes < 2 * -(-c // vector_width(x)):
+            held(_k1_launch(x, lanes=lanes), f"ins_stats lanes {lanes}")
+            ms[lanes] = _time_ms(lambda k=lanes: _k1_launch(x, lanes=k),
+                                 iters, flush)
+    row["ms_by_lanes"] = ms
+    row["variants_ms"] = {}
+    for spec, fn in variants.items():
+        row["variants_ms"][spec] = {}
+        for k in (1, 2, 4):
+            held(fn(x, k), f"{spec} split {k}")
+            row["variants_ms"][spec][k] = _time_ms(lambda k=k: fn(x, k),
+                                                   iters, flush)
+    if baseline is not None:
+        row["baseline_max_abs_err"] = held(baseline(x, 1e-5),
+                                           "baseline ins_stats")
+        row["baseline_ms"] = _time_ms(lambda: baseline(x, 1e-5), iters,
+                                      flush)
+        row["baseline_clean_ms"] = _time_clean_ms(lambda: baseline(x, 1e-5),
+                                                  iters, flush)
+    return row
+
+
+def sweep_k2bwd(hw: int, c: int, sites: dict, iters: int, flush, baseline,
+                variants: dict):
+    """K2's backward at (128, hw, hw, c) bf16: one line (module
+    docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(hw * 10_000 + c + 2)
+    x = (torch.randn(128, hw, hw, c, generator=gen, device="cuda") * 1.5
+         + 0.5).bfloat16()
+    m0 = torch.randn(c, generator=gen, device="cuda") * 0.3
+    g1 = torch.randn(c, generator=gen, device="cuda")
+    g2 = torch.randn(c, generator=gen, device="cuda") * 1e-3
+    want = bn_sums_bwd_reference(x, m0, g1, g2)
+
+    def held(got, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{what} {x.shape}: other bits than plain")
+
+    plan = bn_bwd_plan_of(x)
+    held(bn_sums_bwd_cuda(x, m0, g1, g2), "bn_sums_bwd")
+    row = {"kernel": "bn_sums_bwd", "shape": list(x.shape),
+           "dtype": "bfloat16", "sites": sites, "plan": plan,
+           "max_abs_err": 0.0,
+           "planned_ms": _time_ms(lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
+                                  iters, flush),
+           "clean_ms": _time_clean_ms(
+               lambda: bn_sums_bwd_cuda(x, m0, g1, g2), iters, flush),
+           "bound_ms": (2 * x.numel() * 2 + 3 * c * 4) / HBM_BYTES_PER_S
+           * 1e3}
+    pick = plan["chunks"]
+    ms = {}
+    for k in sorted({max(1, pick // 4), max(1, pick // 2), 2 * pick,
+                     4 * pick} - {pick}):
+        held(_bwd_launch(x, m0, g1, g2, chunks=k), f"bn_sums_bwd {k} chunks")
+        ms[k] = _time_ms(lambda k=k: _bwd_launch(x, m0, g1, g2, chunks=k),
+                         iters, flush)
+    row["ms_by_chunks"] = ms
+    row["variants_ms"] = {}
+    for spec, (_, fn) in variants.items():
+        held(fn(x, m0, g1, g2), spec)
+        row["variants_ms"][spec] = _time_ms(lambda fn=fn: fn(x, m0, g1, g2),
+                                            iters, flush)
+    if baseline is not None:
+        row["baseline_equal"] = torch.equal(baseline(x, m0, g1, g2), want)
+        if not row["baseline_equal"]:
+            raise RuntimeError(f"baseline bn_sums_bwd {x.shape}: other bits")
+        row["baseline_ms"] = _time_ms(lambda: baseline(x, m0, g1, g2), iters,
+                                      flush)
+        row["baseline_clean_ms"] = _time_clean_ms(
+            lambda: baseline(x, m0, g1, g2), iters, flush)
+    return row
+
+
+def _summary(rows, kernel: str) -> dict:
+    """Each time key of ``rows`` summed by the rows' launches per step of
+    each path."""
+    out = {"summary": kernel}
+    paths = sorted({path for r in rows for path in r["sites"]})
+    for path in paths:
+        part = [r for r in rows if path in r["sites"]]
+        keys = [k for k in ("planned_ms", "clean_ms", "bound_ms",
+                            "baseline_ms", "baseline_clean_ms")
+                if all(k in r for r in part)]
+        out[path] = {k: sum(r[k] * r["sites"][path] for r in part)
+                     for k in keys}
+    return out
 
 
 def _time_clean_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -271,22 +555,66 @@ def sweep_k3(n: int, side: int, c: int, dtype, iters: int, flush):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("k2", "k3"))
+    ap.add_argument("--only", choices=("k1", "k2", "k2bwd", "k3"))
     ap.add_argument("--baseline", type=Path)
+    ap.add_argument("--k1-constants", action="append", default=[])
     ap.add_argument("--k2-constants", action="append", default=[])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("stats_sweep: needs a GPU", file=sys.stderr)
         return 1
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-    if args.only != "k3":
-        base = _baseline(args.baseline) if args.baseline else None
-        variants = {spec: _variant(spec) for spec in args.k2_constants}
+
+    def wanted(name):
+        return args.only in (None, name)
+
+    def base(build, name):
+        return build(_build_from(args.baseline, name)) if args.baseline \
+            else None
+
+    # the measurement's floor: one launch of a one-element fill, timed
+    # as every kernel here is timed
+    one = torch.empty(1, device="cuda")
+    print(json.dumps({"floor_ms": _time_ms(lambda: one.fill_(0), args.iters,
+                                           flush),
+                      "floor_clean_ms": _time_clean_ms(
+                          lambda: one.fill_(0), args.iters, flush),
+                      "what": "one-element torch fill_, one launch"}),
+          flush=True)
+    variants = {spec: _variant(spec) for spec in args.k2_constants}
+    k1_variants = {spec: _variant(spec, "ins_stats")
+                   for spec in args.k1_constants}
+    if wanted("k1"):
+        baseline = base(_baseline_ins_stats, "ins_stats")
+        cases = [(s, c, torch.bfloat16, {"flagship": k})
+                 for (s, c), k in K1_R50_SITES.items()]
+        cases.append((224, 3, torch.float32, {"flagship": IMAGE_PER_STEP}))
+        cases += [(s, c, torch.bfloat16, {"wrn_sn": k})
+                  for (s, c), k in K1_WRN_SITES.items()]
+        rows = []
+        for hw, c, dtype, sites in cases:
+            rows.append(sweep_k1(hw, c, dtype, sites, args.iters, flush,
+                                 baseline, k1_variants))
+            print(json.dumps(rows[-1]), flush=True)
+        print(json.dumps(_summary(rows, "ins_stats")), flush=True)
+    if wanted("k2bwd"):
+        baseline = base(_baseline_bn_bwd, "bn_stats")
+        cases = [(s, c, {"flagship": k}) for (s, c), k in
+                 sorted(bn_shapes().items(), key=lambda kv: -kv[0][0])]
+        cases += [(s, c, {"wrn_sn": k}) for (s, c), k in K2_WRN_SITES.items()]
+        rows = []
+        for hw, c, sites in cases:
+            rows.append(sweep_k2bwd(hw, c, sites, args.iters, flush,
+                                    baseline, variants))
+            print(json.dumps(rows[-1]), flush=True)
+        print(json.dumps(_summary(rows, "bn_sums_bwd")), flush=True)
+    if wanted("k2"):
+        baseline = _baseline(args.baseline) if args.baseline else None
         for (hw, c), layers in sorted(bn_shapes().items(),
                                       key=lambda kv: (-kv[0][0], kv[0][1])):
             print(json.dumps(sweep_k2(hw, c, layers, args.iters, flush,
-                                      base, variants)), flush=True)
-    if args.only != "k2":
+                                      baseline, variants)), flush=True)
+    if wanted("k3"):
         cases = [(n, s, c) for n in (64, 1) for s, c in SN_R50]
         cases += [(128, s, c) for s, c in SN_WRN]
         for dtype in (torch.bfloat16, torch.float32):

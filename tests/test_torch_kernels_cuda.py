@@ -21,7 +21,7 @@ from cnsn_tpu_torch.ops import (BnSums, InsStats, bn_sums_bwd_cuda,
                                 wgrad3x3_reference)
 from cnsn_tpu_torch.ops.convdot import Conv2dCustomBwd
 from cnsn_tpu_torch.ops.kernels import LAUNCHES
-from cnsn_tpu_torch.ops.kernels import bn_stats
+from cnsn_tpu_torch.ops.kernels import bn_stats, ins_stats
 from cnsn_tpu_torch.ops.kernels.bn_stats import bn_sums_plan
 from cnsn_tpu_torch.ops.kernels.conv_wgrad import PATHS, _kernels
 from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS as SN_PATHS
@@ -988,3 +988,282 @@ def test_device_time_breakdown_raises_without_its_window_marker(
     with pytest.raises(RuntimeError, match="window marker"):
         profiling.device_time_breakdown(lambda: bn_sums_cuda(x, m0),
                                         iters=2, warmup=0)
+
+
+# K1's one-launch forward: C = 3 fp32 at 224² (b=2: a cluster of 8 a
+# plane), WRN-40-2's C = 16 at 32², C = 8 and 24 (one and three 16-byte
+# lanes, rounded up to four), H·W = 1, a 7x7x2048 plane (8 tiles of 256),
+# and ResNet-50's 56x56x256 at b=4 (a cluster of 8 a plane).
+K1_EDGES = [(2, 224, 224, 3), (8, 32, 32, 16), (2, 5, 5, 8), (2, 9, 9, 24),
+            (3, 1, 1, 64), (2, 7, 7, 2048), (4, 56, 56, 256)]
+
+
+def _k1_close(got, x, eps=1e-5):
+    want = ins_stats_reference(x, eps)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", K1_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_one_launch_edges(shape, dtype):
+    """Against the plain version to 1e-5, one count per call, the same
+    bits run to run."""
+    x = _x(shape, 160, dtype)
+    before = LAUNCHES["ins_stats"]
+    got = ins_stats_cuda(x)
+    again = ins_stats_cuda(x)
+    assert LAUNCHES["ins_stats"] == before + 2
+    _k1_close(got, x)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+
+
+def test_ins_stats_takes_a_full_cluster_where_planes_are_few():
+    """Two 224² images: each plane over one cluster of 8 blocks."""
+    x = _x((2, 224, 224, 3), 161)
+    plan = ins_stats.ins_stats_plan_of(x)
+    assert plan["split"] == ins_stats.MAX_CLUSTER
+    _k1_close(ins_stats_cuda(x), x)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16, 40, 200])
+@pytest.mark.parametrize("c,dtype", [(16, torch.bfloat16),
+                                     (64, torch.float32),
+                                     (3, torch.float32)])
+def test_ins_stats_forced_splits(split, c, dtype):
+    """Every plan the kernel takes agrees with the plain version and with
+    itself run to run: one block a plane, clusters of 2 to 8 (16, 40 and
+    200 round to 8)."""
+    x = _x((3, 40, 40, c), 162, dtype)
+    got = ins_stats._launch(x, split=split)
+    _k1_close(got, x)
+    for u, v in zip(got, ins_stats._launch(x, split=split)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("lanes", [8, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_forced_lanes(lanes, dtype):
+    """Tiles of 8 to 256 lanes (several tiles a sample, one slot of
+    several warps a row group, one row a step) agree with the plain
+    version and with themselves run to run."""
+    x = _x((3, 9, 9, 1024), 170, dtype)
+    got = ins_stats._launch(x, lanes=lanes)
+    _k1_close(got, x)
+    for u, v in zip(got, ins_stats._launch(x, lanes=lanes)):
+        assert torch.equal(u, v)
+
+
+def test_ins_stats_takes_unaligned_views():
+    """An x off a 16-byte boundary takes one-element loads and agrees with
+    the 16-byte-load kernel on a copy."""
+    base = _x((4 * 32 * 32 * 32 + 1,), 163, torch.bfloat16)
+    unaligned = base[1:].view(4, 32, 32, 32)
+    assert unaligned.data_ptr() % 16 != 0
+    got = ins_stats_cuda(unaligned)
+    _k1_close(got, unaligned)
+    for u, v in zip(got, ins_stats_cuda(unaligned.clone())):
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1, 40), (1, 300, 300, 8)])
+def test_ins_stats_constant_plane_through_every_path(shape):
+    """A constant plane, one block (H·W = 1) or a cluster of 8: exact
+    sums, mean exact, std exactly sqrt(eps) at eps 1e-12."""
+    x = torch.full(shape, 1.25, device="cuda")
+    x[0, ..., 1:] = -3.5
+    mean, std = ins_stats_cuda(x, eps=1e-12)
+    torch.testing.assert_close(mean, x[:, 0, 0, :], rtol=0, atol=0)
+    torch.testing.assert_close(std, torch.full_like(std, 1e-6), rtol=0,
+                               atol=0)
+
+
+def test_ins_stats_back_to_back_and_on_two_streams():
+    """Clustered calls queued back to back on one stream, at shapes with
+    other plane counts, each give their own statistics; calls on two
+    streams at once both give theirs, the same bits each time."""
+    shapes = [(2, 224, 224, 3), (1, 300, 300, 8), (3, 150, 150, 16),
+              (2, 224, 224, 3)]
+    xs = [_x(s, 164 + i) for i, s in enumerate(shapes)]
+    assert all(ins_stats.ins_stats_plan_of(x)["split"] > 1 for x in xs)
+    for x, got in zip(xs, [ins_stats_cuda(x) for x in xs]):
+        _k1_close(got, x)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(3):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(ins_stats_cuda(xs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            _k1_close(got, xs[i])
+            for u, v in zip(got, outs[i][0]):
+                assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("shape,dtype", [((128, 56, 56, 256), torch.bfloat16),
+                                         ((128, 32, 32, 32), torch.bfloat16),
+                                         ((128, 224, 224, 3), torch.float32)])
+def test_ins_stats_is_one_launch_per_call(shape, dtype):
+    """The profile's window sees one K1 forward kernel per call, clusters
+    and all."""
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    x = _x(shape, 168, dtype)
+    prof = device_time_breakdown(lambda: ins_stats_cuda(x), iters=3,
+                                 warmup=1)
+    assert prof["launches_by_family"] == {"ins_stats": 1}, prof
+    assert all("ins_stats_cluster_kernel" in k["name"]
+               for k in prof["top_kernels_ms"]), prof
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 2048),
+                                     (torch.float32, 512),
+                                     (torch.float32, 3)])
+def test_ins_stats_plan_residency_holds_on_the_card(dtype, c):
+    """The plan's blocks per SM and cluster limit are what the card
+    holds for the kernel, and its SM count is the card's."""
+    x = torch.empty((128, 7, 7, c), device="cuda", dtype=dtype)
+    plan = ins_stats.ins_stats_plan_of(x)
+    occ = ins_stats.ins_stats_occupancy(x)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert occ["blocks_per_sm"] >= plan["blocks_per_sm"] >= 1
+    assert occ["clusters"] >= 1
+    assert plan["wave"] == sms * plan["blocks_per_sm"]
+
+
+def test_ins_stats_refuses_a_plan_it_does_not_take():
+    """lanes not a power of two, a cluster that is not a power of two or
+    larger than 8, rows not covered: refused before any launch
+    (cudaErrorInvalidValue)."""
+    fwd = ins_stats._kernels()[1]
+    x = _x((2, 8, 8, 16), 169, torch.bfloat16)
+    mean = torch.empty((2, 16), device="cuda")
+    std = torch.empty_like(mean)
+    s = torch.cuda.current_stream().cuda_stream
+    good = dict(lanes=2, split=4, chunk_rows=16)
+    for bad in (dict(lanes=3), dict(split=6), dict(split=16, chunk_rows=4),
+                dict(chunk_rows=8)):
+        p = {**good, **bad}
+        err = fwd(1, 8, x.data_ptr(), mean.data_ptr(), std.data_ptr(), 2, 64,
+                  16, p["lanes"], p["split"], p["chunk_rows"], 1e-5, 1, s)
+        assert err == 1, bad
+    assert fwd(1, 8, x.data_ptr(), mean.data_ptr(), std.data_ptr(), 2, 64,
+               16, good["lanes"], good["split"], good["chunk_rows"], 1e-5, 1,
+               s) == 0
+    _k1_close((mean, std), x)
+
+
+# K2's backward at every BatchNorm2d input shape of ResNet-50 (224²) and
+# WRN-40-2 (32²), at b=2 (b=128 runs in chip_smoke.py and stats_sweep)
+BN_R50_HWC = [(112, 64), (56, 64), (56, 128), (56, 256), (28, 128),
+              (28, 256), (28, 512), (14, 256), (14, 512), (14, 1024),
+              (7, 512), (7, 2048)]
+BN_WRN_HWC = [(32, 16), (32, 32), (16, 64), (8, 128)]
+
+
+@pytest.mark.parametrize("hw,c", BN_R50_HWC + BN_WRN_HWC)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_bwd_matches_plain_at_every_model_shape(hw, c, dtype):
+    """Bit for bit: the kernel and the plain version round every product
+    and sum alike; one count per call."""
+    x = _x((2, hw, hw, c), 170, dtype, offset=1.0)
+    m0, g1, g2 = _vec((c,), 171, 0.5), _vec((c,), 172), _vec((c,), 173)
+    before = LAUNCHES["bn_sums_bwd"]
+    got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    assert LAUNCHES["bn_sums_bwd"] == before + 1
+    want = bn_sums_bwd_reference(x, m0, g1, g2)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 5, 64), (1, 1, 1, 2048),
+                                   (1, 7, 7, 3), (2, 5, 7, 96),
+                                   (1, 9, 9, 33), (1, 2, 3, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_bwd_edges(shape, dtype):
+    """Fewer rows than a block step (15 rows, 32 a step), one row of 2048
+    (a step is a row), one-element lanes (C = 3, 33), 24 lanes of a
+    block's 256 (C = 96 fp32), two tiles (C = 4096)."""
+    c = shape[-1]
+    x = _x(shape, 174, dtype)
+    m0, g1, g2 = _vec((c,), 175, 0.5), _vec((c,), 176), _vec((c,), 177)
+    got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bn_sums_bwd_reference(x, m0, g1, g2))
+
+
+def test_bn_sums_bwd_takes_unaligned_views():
+    base = _x((4 * 14 * 14 * 64 + 1,), 178, torch.bfloat16)
+    x = base[1:].view(4, 14, 14, 64)
+    assert x.data_ptr() % 16 != 0
+    m0, g1, g2 = _vec((64,), 179, 0.5), _vec((64,), 180), _vec((64,), 181)
+    got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bn_sums_bwd_reference(x, m0, g1, g2))
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 100, 5000])
+def test_bn_sums_bwd_forced_plans_give_the_same_bits(chunks):
+    x = _x((8, 28, 28, 128), 182, torch.bfloat16)
+    m0, g1, g2 = _vec((128,), 183, 0.5), _vec((128,), 184), _vec((128,), 185)
+    got = bn_stats._launch_bwd(x, m0, g1, g2, chunks=chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bn_sums_bwd_cuda(x, m0, g1, g2))
+
+
+def test_bn_sums_bwd_plan_residency_holds_on_the_card():
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.empty((128, 7, 7, 512), device="cuda", dtype=dtype)
+        assert (bn_stats.bn_bwd_occupancy(x)
+                >= bn_stats.BWD_BLOCKS_PER_SM)
+
+
+def test_bn_sums_bwd_is_one_launch_per_call():
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    x = _x((128, 56, 56, 64), 186, torch.bfloat16)
+    m0, g1, g2 = _vec((64,), 187), _vec((64,), 188), _vec((64,), 189)
+    prof = device_time_breakdown(lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
+                                 iters=3, warmup=1)
+    assert prof["launches_by_family"] == {"bn_stats_bwd": 1}, prof
+    assert all("bn_bwd_stream_kernel" in k["name"]
+               for k in prof["top_kernels_ms"]), prof
+
+
+@pytest.mark.parametrize("hw,c", [(32, 16), (32, 32), (8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_function_at_wrn_shapes_matches_autograd_of_plain(
+        hw, c, dtype):
+    """InsStats at WRN-40-2's shapes (b=16; 32x32 splits over a cluster):
+    the gradient into x against autograd of the plain version."""
+    x = _x((16, hw, hw, c), 190, dtype).requires_grad_()
+    c1, c2 = _vec((16, c), 191), _vec((16, c), 192)
+    mean, std = InsStats.apply(x, 1e-5, 1)
+    (mean * c1 + std * c2).sum().backward()
+    got = x.grad
+    x.grad = None
+    rm, rs = ins_stats_reference(x)
+    (rm * c1 + rs * c2).sum().backward()
+    _close_to_scale(got, x.grad, 1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("hw,c", [(32, 16), (32, 32), (8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_function_at_wrn_shapes_matches_autograd_of_plain(
+        hw, c, dtype):
+    """BnSums at WRN-40-2's shapes (b=16), through the streaming
+    backward, against autograd of the plain version."""
+    x = _x((16, hw, hw, c), 193, dtype).requires_grad_()
+    m0, c1, c2 = _vec((c,), 194, 0.5), _vec((c,), 195), _vec((c,), 196)
+    s1, s2 = BnSums.apply(x, m0)
+    (s1 * c1 + 1e-2 * s2 * c2).sum().backward()
+    got = x.grad
+    x.grad = None
+    r1, r2 = bn_sums_reference(x, m0)
+    (r1 * c1 + 1e-2 * r2 * c2).sum().backward()
+    _close_to_scale(got, x.grad, 1e-6 if dtype == torch.float32 else 2 ** -7)

@@ -19,15 +19,28 @@ from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
     ("void at::native::reduce_kernel<512, 1, ...>", "reduce"),
     ("nvjet_tst_256x128_64x4_1x2_h_ssched_bz_coopA_TNT", "conv_gemm"),
     ("Memset (Device)", "memcpy_memset"),
-    ("void (anonymous namespace)::ins_sums_kernel<__nv_bfloat16, 8>(...)",
-     "ins_stats"),
-    ("(anonymous namespace)::ins_finalize_kernel(...)", "ins_stats"),
     ("void (anonymous namespace)::ins_bwd_kernel<float, 4>(...)",
      "ins_stats_bwd"),
     ("void (anonymous namespace)::bn_sums_kernel<__nv_bfloat16, 8>(...)",
      "bn_stats"),
     ("(anonymous namespace)::bn_finalize_kernel(...)", "bn_stats"),
-    ("void (anonymous namespace)::bn_bwd_kernel<__nv_bfloat16, 8>(...)",
+    ("void (anonymous namespace)::ins_stats_cluster_kernel<__nv_bfloat16, 8>"
+     "(__nv_bfloat16 const*, float*, float*, int, int, int, int, float, "
+     "float)", "ins_stats"),
+    ("void (anonymous namespace)::ins_stats_cluster_kernel<__nv_bfloat16, 1>"
+     "(...)", "ins_stats"),
+    ("void (anonymous namespace)::ins_stats_cluster_kernel<float, 4>(...)",
+     "ins_stats"),
+    ("void (anonymous namespace)::ins_stats_cluster_kernel<float, 1>(...)",
+     "ins_stats"),
+    ("void (anonymous namespace)::bn_bwd_stream_kernel<__nv_bfloat16, 8>("
+     "__nv_bfloat16 const*, float const*, float const*, float const*, "
+     "__nv_bfloat16*, int, int, int, int)", "bn_stats_bwd"),
+    ("void (anonymous namespace)::bn_bwd_stream_kernel<__nv_bfloat16, 1>"
+     "(...)", "bn_stats_bwd"),
+    ("void (anonymous namespace)::bn_bwd_stream_kernel<float, 4>(...)",
+     "bn_stats_bwd"),
+    ("void (anonymous namespace)::bn_bwd_stream_kernel<float, 1>(...)",
      "bn_stats_bwd"),
     ("void (anonymous namespace)::bn_sums_persistent_kernel<__nv_bfloat16, "
      "8>(__nv_bfloat16 const*, float const*, double*, unsigned int*, float*,"
