@@ -166,6 +166,10 @@ ARTIFACT_TOL = 1e-3
 # keeps a loss that the CPU rounds luckily from setting the bound.
 CARD_VS_CPU_ROUNDING = 8
 ROUNDING_FLOOR = 1e-6
+# train_card_vs_cpu_seeds: input seeds of the same three steps (~3 s
+# each on an H100), 2 and 3 among them: there torch's own CUDA BatchNorm
+# sums lie farther than 8x the CPU's error from their twin (PERF.md)
+SPREAD_SEEDS = tuple(range(8))
 SERVE_REQUESTS = 100  # timed requests per (batch, path): p90 has 10 beyond
 WRN_CN_RECIPES = tuple(os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
                                     "wideresnet", name)
@@ -242,7 +246,7 @@ STATS_FAMILY = {"ins_stats": "ins_stats", "ins_stats_bwd": "ins_stats_bwd",
                 "bn_sums": "bn_stats", "bn_sums_bwd": "bn_stats_bwd"}
 # the kernel each counter launches (csrc/ins_stats.cu, csrc/bn_stats.cu)
 STATS_KERNEL = {"ins_stats": "ins_stats_cluster_kernel",
-                "ins_stats_bwd": "ins_bwd_kernel",
+                "ins_stats_bwd": "ins_bwd_stream_kernel",
                 "bn_sums": "bn_sums_persistent_kernel",
                 "bn_sums_bwd": "bn_bwd_stream_kernel"}
 
@@ -361,11 +365,14 @@ def phase_k1_vs_plain(dev, flush):
     per cn_image step; its backward is not on the path, no gradient
     reaches images), and at the calls of WRN-40-2's sn.yaml, cnsn.yaml
     and cn.yaml (b=128 32² bf16, ``WRN_K1_CASES``, each at its eps); the
-    forward bit for bit run to run, each row with its plan."""
+    forward bit for bit run to run, each row with its plan (the
+    backward's with ``equal_to_plain``: the same bits as the plain
+    version)."""
     from cnsn_tpu_torch.ops import (ins_stats_bwd_cuda,
                                     ins_stats_bwd_reference, ins_stats_cuda,
                                     ins_stats_reference)
-    from cnsn_tpu_torch.ops.kernels.ins_stats import ins_stats_plan_of
+    from cnsn_tpu_torch.ops.kernels.ins_stats import (ins_bwd_plan_of,
+                                                      ins_stats_plan_of)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     cases = [((n, n, c), torch.bfloat16, sites, 1e-5, {})
@@ -415,7 +422,9 @@ def phase_k1_vs_plain(dev, flush):
             lambda: ins_stats_bwd_cuda(x, mean, std, gm, gs),
             lambda: ins_stats_bwd_reference(x, mean, std, gm, gs), None,
             "null: no single PyTorch call computes this backward",
-            2 * elems * itemsize + 4 * stats, 4 * elems, **tags))
+            2 * elems * itemsize + 4 * stats, 4 * elems,
+            plan=ins_bwd_plan_of(x), equal_to_plain=torch.equal(got, want),
+            **tags))
         del x, got, want, mean, std
     torch.cuda.empty_cache()
     return rows
@@ -722,6 +731,37 @@ def phase_train_card_vs_cpu(dev):
         for got, ref in pairs:
             check(got <= CARD_VS_CPU_ROUNDING * max(ref, ROUNDING_FLOOR),
                   f"card vs float64 {key}: {got} against the CPU's {ref}")
+
+
+def phase_train_card_vs_cpu_seeds(dev):
+    """``train_card_vs_cpu``'s three steps at each of ``SPREAD_SEEDS``
+    (``cnsn_tpu_torch.train.rounding.seed_spread``): per seed, four
+    float32 runs against their mask-replaying float64 twins, the card's
+    (K1, K2) and three witnesses (the CPU's, and the card's with torch's
+    and with exact BatchNorm sums).  The card's run may lie no farther
+    from its twin than ``CARD_VS_CPU_ROUNDING`` times the largest
+    witness's error (``seed_bounds``), in each loss and after steps 1 and
+    3 in the worst tensor of the state and of the momentum.  The
+    witnesses round the same steps in other orders, so the bound follows
+    what rounding alone does at each seed, where ``train_card_vs_cpu``'s
+    rests on the CPU's error at one seed."""
+    from cnsn_tpu_torch.train.rounding import seed_bounds, seed_spread
+    t0 = time.perf_counter()
+    rows = seed_spread(SPREAD_SEEDS)
+    seconds = time.perf_counter() - t0
+    worst, over = {}, []
+    for row in rows:
+        bounds = seed_bounds(row, CARD_VS_CPU_ROUNDING, ROUNDING_FLOOR)
+        worst[row["seed"]] = max(bounds, key=lambda q: q[1] / q[2])
+        over += [(row["seed"], *q) for q in bounds if not q[1] <= q[2]]
+    emit({"phase": "train_card_vs_cpu_seeds", "seeds": list(SPREAD_SEEDS),
+          "bound": f"card <= {CARD_VS_CPU_ROUNDING} x max(cpu, "
+                   f"card_torch_sums, card_exact_bn_sums, {ROUNDING_FLOOR})",
+          "worst_by_seed": {seed: {"quantity": q, "card": g, "bound": b,
+                                   "share": g / b}
+                            for seed, (q, g, b) in worst.items()},
+          "seconds": seconds})
+    check(not over, f"card vs float64 over several seeds: {over}")
 
 
 def train_flops_per_step(model, batch, image=IMAGE):
@@ -1666,6 +1706,7 @@ def main():
     torch.cuda.empty_cache()
     with conv3x3_mode("conv"):
         timed("train_card_vs_cpu", phase_train_card_vs_cpu, dev)
+        timed("train_card_vs_cpu_seeds", phase_train_card_vs_cpu_seeds, dev)
         train_counts, n_cn, flagship_ms = timed("train", phase_train, dev)
     flagship_k4 = timed("train_flagship_k4", phase_train_flagship_k4, dev,
                         flagship_ms, k4_rows)

@@ -65,9 +65,10 @@
 // spilling) or five.
 //
 // Backward design: a one-wave streaming pass.  The first port's kernel ran
-// on row_pass.cuh's chunks (about 8 blocks per SM, one or two 16-byte loads
-// a thread at WRN's shapes, `#pragma unroll 4` over ~50 row steps at the
-// flagship's), 66% of HBM's rate at the flagship and 30% at WRN.  Here the
+// on a grid of row chunks sized to about 8 blocks per SM (one or two
+// 16-byte loads a thread at WRN's shapes, `#pragma unroll 4` over ~50 row
+// steps at the flagship's), 66% of HBM's rate at the flagship and 30% at
+// WRN.  Here the
 // plan (ops/kernels/bn_stats.py::bn_bwd_plan, a pure function of the shape
 // and the card) sizes the grid to one wave of the kernel's residency: a
 // tile spans up to a whole block of 16-byte lanes (C = 64 bf16: 8 lanes,
@@ -90,7 +91,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using row_pass::Geometry;
 using row_pass::kThreads;
 
 constexpr int kUnroll = 4;       // 16-byte loads in flight per thread
@@ -107,6 +107,13 @@ constexpr int kBwdStreamStores = 0;  // 1: dx stored evict-first
 // (see the note above).  utils/stats_sweep.py --k2-constants builds copies
 // with other constants, float sums among them, to time them beside it.
 using Sum = double;
+
+struct Geometry {
+  int lanes;          // threads across one row segment of the tile
+  int rows_per_iter;  // rows a block advances per step: kThreads / lanes
+  int tile;           // channels per block: lanes * vec
+  int ctiles;         // channel tiles: ceil(c / tile)
+};
 
 // The forward's tiles: 8 lanes of 16 bytes, or up to 32 one-element lanes
 // where x takes no 16-byte loads.
@@ -431,43 +438,6 @@ struct BnSums {
   }
 };
 
-// dx in x's type, from one fp32 result per element.  The streaming form
-// (st.global.cs, kBwdStreamStores) marks the lines evict-first: this pass
-// never reads dx.
-template <typename T>
-__device__ __forceinline__ void store_raw(T* p, T v) {
-  if constexpr (kBwdStreamStores != 0) {
-    __stcs(p, v);
-  } else {
-    *p = v;
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_dx(T* p, const float (&v)[V]) {
-  if constexpr (V == 1) {
-    if constexpr (std::is_same<T, float>::value) {
-      store_raw(p, v[0]);
-    } else {
-      store_raw(reinterpret_cast<unsigned short*>(p),
-                __bfloat16_as_ushort(__float2bfloat16(v[0])));
-    }
-  } else {
-    uint4 q;
-    if constexpr (std::is_same<T, float>::value) {
-      q = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                     __float_as_uint(v[2]), __float_as_uint(v[3]));
-    } else {
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      }
-    }
-    store_raw(reinterpret_cast<uint4*>(p), q);
-  }
-}
-
 // Grid (chunks, ctiles), kThreads threads: block (k, t) writes dx over rows
 // [k * chunk_rows, (k + 1) * chunk_rows) of channel tile t (lanes * V
 // channels; `lanes` threads span the tile's row segment, up to all
@@ -515,7 +485,8 @@ bn_bwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ m0,
           v[i] = __fadd_rn(a[i],
                            __fmul_rn(__fmul_rn(2.f, v[i] - m[i]), k[i]));
         }
-        store_dx<T, V>(dx + static_cast<size_t>(r + u * step) * c + c0, v);
+        row_pass::store_x<kBwdStreamStores != 0, T, V>(
+            dx + static_cast<size_t>(r + u * step) * c + c0, v);
       }
     }
   }

@@ -13,7 +13,8 @@
 // bf16 hold 5,519,360 elements per image: 1.41 GB, so >= 0.42 ms forward and
 // >= 0.84 ms backward per step at 3.35 TB/s.  The image CrossNorm statistics
 // (128 x 224 x 224 x 3 fp32) read 77 MB: >= 0.023 ms.  WRN-40-2's 18 sites
-// at b=128 32x32 bf16 read 4-8 MB a call: 1.2-2.5 us, less than a launch.
+// at b=128 32x32 bf16 read 2-8 MB a call: 0.6-2.5 us forward and 1.3-5 us
+// backward, about what one launch costs (~5 us, PERF.md).
 //
 // Forward design: one launch, no scratch.  The TPU
 // kernels hold one sample's (HW, 128) plane in VMEM (v2) or carry running
@@ -56,8 +57,37 @@
 // a constant plane and sqrt gives NaN at HW = 1), the HW/(HW - ddof)
 // correction, eps inside the sqrt, no clamp.
 //
-// The backward is one elementwise pass on row_pass.cuh's geometry; each
-// thread loads its channels' four statistics once.
+// Backward design: a one-wave streaming pass, the form of bn_stats.cu's
+// backward with per-(sample, channel) statistics.  The first port's kernel
+// ran on a grid of row chunks sized to about 8 blocks per SM: one or two
+// 16-byte loads a thread at WRN's shapes, `#pragma unroll 4` over ~50 row
+// steps at the flagship's; 61% of its bound at the flagship, 24% at WRN.
+// Here the plan (ops/kernels/ins_stats.py::ins_bwd_plan, a pure function of
+// the shape and the card) gives `lanes` threads (a power of two up to the
+// whole block, as few as span C) a tile of lanes * V channels, so one tile
+// holds every channel where C <= 256 * V (C = 16 bf16: 2 lanes, 128 rows a
+// block step; C = 2048: 256 lanes, one row), and cuts each (sample, tile)
+// plane's rows into contiguous chunks: as many as fill one wave of the
+// kernel's residency, each at least one unrolled step a thread, none empty.
+// Each thread loads its V channels' mean, std, gm and gs once, forms
+// a = gm / HW and den = max(HW - ddof, 1) * std once, keeps kBwdUnroll
+// evict-first 16-byte loads of x in flight and writes dx with plain stores
+// (evict-first stores ran 0-2.5% slower for K2's backward: PERF.md).  Its
+// first step's loads of x go out before the statistics are waited on, so
+// the two reads' latencies overlap (0.3-0.6 us a call at WRN's shapes on
+// the H100).  The statistics take 4 V registers a thread, 32 at V = 8: with
+// 4 loads in flight the bf16 kernel spilled at 4 blocks an SM (64
+// registers) and ran ~40% slower at 56x56x256 on the H100; 2 loads at 4
+// blocks an SM, 4 at 3 and 8 at 2 ran alike (stats_sweep --k1-constants).
+//
+// Rounding: per element a + (gs * (x - mean)) / den, each operation rounded
+// on its own (IEEE divisions, no reciprocal, no FMA contraction), then one
+// round-to-nearest-even cast to x's type: the plain version's operations in
+// its order, and the same bits as the first port's kernel
+// (utils/stats_sweep.py --only k1bwd --baseline checks it at every model
+// shape).  On the card torch divides gm by the number HW with a rounded
+// reciprocal, so the plain version gives the same bits where HW is a power
+// of two (WRN-40-2's sites) and may differ by a last bit elsewhere.
 #include <cooperative_groups.h>
 #include <limits.h>
 
@@ -66,8 +96,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using row_pass::Geometry;
-using row_pass::Place;
 using row_pass::kThreads;
 
 constexpr int kWarps = kThreads / 32;
@@ -75,6 +103,8 @@ constexpr int kCluster = 8;          // blocks of a cluster, at most
 constexpr int kFwdBlocksPerSm = 4;   // residency the registers are held to
 constexpr int kUnroll = 8;           // 16-byte loads in flight per thread
 constexpr int kUnrollOne = 16;       // one-element loads in flight per thread
+constexpr int kBwdUnroll = 2;        // the backward's loads in flight
+constexpr int kBwdBlocksPerSm = 4;   // the backward's residency, at least
 // The type of a thread's sums over its rows, and of the sums across
 // threads (see Rounding above).
 using Acc = float;
@@ -261,16 +291,41 @@ struct InsStatsOccupancy {
   }
 };
 
+// Grid (chunks, ctiles, n), kThreads threads: block (k, t, b) writes dx
+// over rows [k * chunk_rows, (k + 1) * chunk_rows) of channel tile t (lanes
+// * V channels; `lanes`, a power of two up to kThreads, span the tile's row
+// segment, so a block step reads and writes kThreads / lanes whole rows of
+// the tile) of sample b, kBwdUnroll loads in flight per thread.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-ins_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-               const float* __restrict__ std_in, const float* __restrict__ gm,
-               const float* __restrict__ gs, T* __restrict__ dx, int hw, int c,
-               int chunk_rows, float denom) {
-  const Geometry g = row_pass::geometry(c, V);
-  const Place p = row_pass::place(g, hw, c, V, chunk_rows);
-  if (!p.live) return;
-  const size_t stat = static_cast<size_t>(blockIdx.z) * c + p.c0;
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+ins_bwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                      const float* __restrict__ std_in,
+                      const float* __restrict__ gm,
+                      const float* __restrict__ gs, T* __restrict__ dx,
+                      int hw, int c, int lanes, int chunk_rows, float denom) {
+  using L = row_pass::XLoad<T, V>;
+  const int t = threadIdx.x;
+  const int step = kThreads / lanes;
+  const int rin = t / lanes;
+  const int c0 = blockIdx.y * lanes * V + (t - rin * lanes) * V;
+  if (c0 >= c) return;
+  const size_t plane = static_cast<size_t>(blockIdx.z) * hw * c + c0;
+  const T* xs = x + plane;
+  T* ds = dx + plane;
+  const int r_begin = blockIdx.x * chunk_rows;
+  const int r_end = r_begin + chunk_rows < hw ? r_begin + chunk_rows : hw;
+  int r = r_begin + rin;
+  typename L::Raw raw[kBwdUnroll];
+  auto load_step = [&]() {
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (r + u * step < r_end) {
+        raw[u] = L::load(xs + static_cast<size_t>(r + u * step) * c);
+      }
+    }
+  };
+  load_step();  // before the statistics are waited on
+  const size_t stat = static_cast<size_t>(blockIdx.z) * c + c0;
   float m[V];
   float a[V];
   float k[V];
@@ -278,19 +333,29 @@ ins_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     m[i] = mean[stat + i];
-    a[i] = gm[stat + i] / static_cast<float>(hw);
+    a[i] = __fdiv_rn(gm[stat + i], static_cast<float>(hw));
     k[i] = gs[stat + i];
-    den[i] = denom * std_in[stat + i];
+    den[i] = __fmul_rn(denom, std_in[stat + i]);
   }
-  const size_t base = static_cast<size_t>(blockIdx.z) * hw * c + p.c0;
-#pragma unroll 4
-  for (int r = p.r_begin + p.rin; r < p.r_end; r += g.rows_per_iter) {
-    const size_t off = base + static_cast<size_t>(r) * c;
-    float v[V];
-    row_pass::load_vec<V>(x + off, v);
+  while (r < r_end) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = a[i] + k[i] * (v[i] - m[i]) / den[i];
-    row_pass::store_vec<V>(dx + off, v);
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (r + u * step < r_end) {
+        float v[V];
+        L::unpack(raw[u], v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          // a + (k (x - m)) / den with each step rounded: no FMA
+          // contraction, no reciprocal
+          v[i] = __fadd_rn(
+              a[i], __fdiv_rn(__fmul_rn(k[i], __fsub_rn(v[i], m[i])), den[i]));
+        }
+        row_pass::store_x<false, T, V>(
+            ds + static_cast<size_t>(r + u * step) * c, v);
+      }
+    }
+    r += kBwdUnroll * step;
+    load_step();
   }
 }
 
@@ -298,14 +363,26 @@ template <typename T, int V>
 struct InsBwd {
   static void run(const void* x, const void* mean, const void* std_in,
                   const void* gm, const void* gs, void* dx, int n, int hw,
-                  int c, int chunks, float denom, cudaStream_t stream) {
-    const Geometry g = row_pass::geometry(c, V);
-    const dim3 grid(g.ctiles, chunks, n);
-    ins_bwd_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+                  int c, int lanes, int chunks, int chunk_rows, float denom,
+                  cudaStream_t stream) {
+    const int tile = lanes * V;
+    const dim3 grid(chunks, (c + tile - 1) / tile, n);
+    ins_bwd_stream_kernel<T, V><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(mean),
         static_cast<const float*>(std_in), static_cast<const float*>(gm),
-        static_cast<const float*>(gs), static_cast<T*>(dx), hw, c,
-        row_pass::chunk_rows(hw, chunks), denom);
+        static_cast<const float*>(gs), static_cast<T*>(dx), hw, c, lanes,
+        chunk_rows, denom);
+  }
+};
+
+// The backward kernel's resident blocks per SM for <T, V>.
+template <typename T, int V>
+struct InsBwdOccupancy {
+  static void run(int* out) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out, ins_bwd_stream_kernel<T, V>, kThreads, 0) != cudaSuccess) {
+      *out = 0;
+    }
   }
 };
 
@@ -358,22 +435,38 @@ extern "C" int cnsn_ins_stats(int dtype, int vec, const void* x, void* mean,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward kernel's resident blocks per SM for (dtype, vec) in *out.
+// Returns 0, or cudaErrorInvalidValue for a (dtype, vec) without a kernel
+// or a failed query.
+extern "C" int cnsn_ins_stats_bwd_occupancy(int dtype, int vec, int* out) {
+  if (!row_pass::dispatch<InsBwdOccupancy>(dtype, vec, out) || *out < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
 // dx = gm / hw + gs * (x - mean) / (max(hw - ddof, 1) * std), written in x's
 // type.  x and dx are NHWC-contiguous (n, hw, c) of one dtype; mean, std, gm
-// and gs are (n, c) fp32.  Returns the cudaError_t of the launch.
+// and gs are (n, c) fp32.  The plan (ops/kernels/ins_stats.py::
+// ins_bwd_plan): `lanes` (1..256, a power of two) threads across a tile of
+// lanes * vec channels, `chunks` blocks per (sample, tile) of `chunk_rows`
+// rows each (chunks * chunk_rows >= hw).  Returns the cudaError_t of the
+// launch, cudaErrorInvalidValue for a plan or arguments it does not take.
 extern "C" int cnsn_ins_stats_bwd(int dtype, int vec, const void* x,
                                   const void* mean, const void* std_in,
                                   const void* gm, const void* gs, void* dx,
-                                  int n, int hw, int c, int ddof,
-                                  void* stream) {
-  if (!row_pass::valid_pass(dtype, n, hw, c, vec, x, dx) || ddof < 0) {
+                                  int n, int hw, int c, int ddof, int lanes,
+                                  int chunks, int chunk_rows, void* stream) {
+  if (!row_pass::valid_pass(dtype, n, hw, c, vec, x, dx) || ddof < 0 ||
+      static_cast<long long>(n) * c > INT_MAX || !power_of_two(lanes) ||
+      lanes > kThreads || chunks < 1 || chunk_rows < 1 ||
+      static_cast<long long>(chunks) * chunk_rows < hw ||
+      (c + lanes * vec - 1) / (lanes * vec) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int chunks = row_pass::plan_chunks(n, hw, c, vec);
-  if (chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float denom = static_cast<float>(hw - ddof > 1 ? hw - ddof : 1);
   if (!row_pass::dispatch<InsBwd>(dtype, vec, x, mean, std_in, gm, gs, dx, n,
-                                  hw, c, chunks, denom,
+                                  hw, c, lanes, chunks, chunk_rows, denom,
                                   static_cast<cudaStream_t>(stream))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

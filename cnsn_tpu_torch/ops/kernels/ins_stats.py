@@ -12,9 +12,9 @@ tensor it runs the plain versions, on a CUDA tensor it launches the
 kernels (or raises), on any other device it raises.  x is NHWC; a model
 activation passes its NHWC-contiguous ``permute(0, 2, 3, 1)`` view.
 
-The forward is one launch whose plan, ``ins_stats_plan``, is a pure
-function of the shape and the card, so the CPU tests check it at every
-model shape.
+The forward is one launch and the backward one streaming pass; their
+plans, ``ins_stats_plan`` and ``ins_bwd_plan``, are pure functions of the
+shape and the card, so the CPU tests check them at every model shape.
 """
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ from ._launch import (DTYPE_CODE, FLOAT, INT, PTR, bind, check_activation,
                       check_f32, check_launch, device_limits, stream,
                       vector_width)
 
-__all__ = ["InsStats", "ins_stats_bwd_cuda", "ins_stats_bwd_reference",
-           "ins_stats_cuda", "ins_stats_plan", "ins_stats_reference"]
+__all__ = ["InsStats", "ins_bwd_plan", "ins_stats_bwd_cuda",
+           "ins_stats_bwd_reference", "ins_stats_cuda", "ins_stats_plan",
+           "ins_stats_reference"]
 
 
 def ins_stats_reference(x: torch.Tensor, eps: float = 1e-5, ddof: int = 1):
@@ -69,7 +70,9 @@ def _kernels():
             bind("ins_stats", "cnsn_ins_stats", INT, INT, PTR, PTR, PTR, INT,
                  INT, INT, INT, INT, INT, FLOAT, INT, PTR),
             bind("ins_stats", "cnsn_ins_stats_bwd", INT, INT, PTR, PTR, PTR,
-                 PTR, PTR, PTR, INT, INT, INT, INT, PTR))
+                 PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, PTR),
+            bind("ins_stats", "cnsn_ins_stats_bwd_occupancy", INT, INT,
+                 ctypes.POINTER(ctypes.c_int)))
 
 
 # The forward kernel's constants (csrc/ins_stats.cu)
@@ -184,25 +187,87 @@ def _launch(x: torch.Tensor, eps: float = 1e-5, ddof: int = 1,
     return mean, std
 
 
+# The backward kernel's constants (csrc/ins_stats.cu)
+BWD_BLOCKS_PER_SM = 4  # kBwdBlocksPerSm, the residency its registers allow
+BWD_UNROLL = 2         # kBwdUnroll: loads in flight a thread
+
+
+def ins_bwd_plan(n: int, hw: int, c: int, dtype: torch.dtype, vec: int,
+                 sms: int, chunks: int = 0) -> dict:
+    """The backward's launch for x of (n, hw, c) in ``dtype`` loaded
+    ``vec`` elements a thread on a card of ``sms`` SMs: a pure function.
+
+    ``lanes`` threads (a power of two up to ``THREADS``, as few as span C)
+    cover a tile of ``lanes · vec`` channels, ``THREADS // lanes`` rows a
+    step; each (sample, tile) plane's rows go to ``chunks`` blocks of
+    ``chunk_rows`` contiguous rows, as many as fill one wave of resident
+    blocks with at least one unrolled step (``BWD_UNROLL`` row steps) a
+    thread, and no block empty.  ``chunks`` > 0 forces the blocks per
+    plane (sweeps, tests)."""
+    if vec not in (1, 16 // dtype.itemsize):
+        raise ValueError(f"no {dtype} kernel loads {vec} elements")
+    lanes = min(THREADS, 1 << (-(-c // vec) - 1).bit_length())
+    tile = lanes * vec
+    ctiles = -(-c // tile)
+    step = THREADS // lanes
+    steps = -(-hw // step)
+    planes = n * ctiles
+    wave = sms * BWD_BLOCKS_PER_SM
+    if chunks < 1:
+        chunks = max(1, min(wave // planes, -(-steps // BWD_UNROLL)))
+    chunk_steps = -(-steps // min(chunks, steps))
+    chunks = -(-steps // chunk_steps)
+    return {"lanes": lanes, "tile": tile, "ctiles": ctiles, "step": step,
+            "chunks": chunks, "chunk_rows": chunk_steps * step,
+            "blocks": chunks * planes, "wave": wave}
+
+
+def ins_bwd_plan_of(x: torch.Tensor, chunks: int = 0) -> dict:
+    """``ins_bwd_plan`` for x (NHWC) on its card."""
+    n, h, w, c = x.shape
+    return ins_bwd_plan(n, h * w, c, x.dtype, vector_width(x),
+                        device_limits(x.device)[0], chunks)
+
+
+def ins_bwd_occupancy(x: torch.Tensor) -> int:
+    """The backward kernel's resident blocks per SM for x's type and
+    vector width on its card."""
+    out = ctypes.c_int()
+    with torch.cuda.device(x.device):
+        err = _kernels()[3](DTYPE_CODE[x.dtype], vector_width(x),
+                            ctypes.byref(out))
+    check_launch(err, "ins_stats_bwd occupancy")
+    return out.value
+
+
 def ins_stats_bwd_cuda(x, mean, std, gm, gs, ddof: int = 1):
     """Launch the backward kernel on the current stream; raise on a refused
     launch.  Arguments and result as for ``ins_stats_bwd_reference``;
     mean, std, gm and gs are contiguous (N, C) fp32."""
+    dx = _launch_bwd(x, mean, std, gm, gs, ddof)
+    LAUNCHES["ins_stats_bwd"] += 1
+    return dx
+
+
+def _launch_bwd(x, mean, std, gm, gs, ddof: int = 1, chunks: int = 0):
+    """One launch of the backward kernel, not counted (sweeps and the
+    card tests force a plan through it): ``chunks`` > 0 forces the blocks
+    per plane."""
     _check_x(x)
     if ddof < 0:
         raise ValueError(f"ddof must be >= 0, got {ddof}")
     n, h, w, c = x.shape
     for name, t in (("mean", mean), ("std", std), ("gm", gm), ("gs", gs)):
         check_f32(x, name, t, (n, c))
-    vec = vector_width(x)
+    plan = ins_bwd_plan_of(x, chunks)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     with torch.cuda.device(x.device):
-        err = _kernels()[2](DTYPE_CODE[x.dtype], vec, x.data_ptr(),
-                            mean.data_ptr(), std.data_ptr(), gm.data_ptr(),
-                            gs.data_ptr(), dx.data_ptr(), n, h * w, c, ddof,
-                            stream(x))
+        err = _kernels()[2](DTYPE_CODE[x.dtype], vector_width(x),
+                            x.data_ptr(), mean.data_ptr(), std.data_ptr(),
+                            gm.data_ptr(), gs.data_ptr(), dx.data_ptr(), n,
+                            h * w, c, ddof, plan["lanes"], plan["chunks"],
+                            plan["chunk_rows"], stream(x))
     check_launch(err, "ins_stats_bwd")
-    LAUNCHES["ins_stats_bwd"] += 1
     return dx
 
 

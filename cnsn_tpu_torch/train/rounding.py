@@ -23,7 +23,9 @@ BatchNorm sums differ only in the order of their fp32 additions can lie
 10x apart from their twins at step 3.  ``--seeds`` reads that spread: for
 each input seed, the card's run with K2 and with two other BatchNorm sums
 (torch's own, and ``exact_bn_sums``), and the CPU's run, each against its
-replaying twin.
+replaying twin; ``seed_bounds`` holds the card's run to a multiple of the
+largest of the other three (``chip_smoke.py``'s
+``train_card_vs_cpu_seeds``).
 
     python -m cnsn_tpu_torch.train.rounding [--device cuda|cpu]
     python -m cnsn_tpu_torch.train.rounding --seeds 3,0,1 [--baseline DIR]
@@ -67,9 +69,9 @@ from ..utils.device import resolve_device
 from .schedules import cosine_lr
 from .steps import StepFns, create_train_state
 
-__all__ = ["CN_KNOBS", "CN_MASK", "KINDS", "Run", "cn_draws", "compare_runs",
-           "compare_traces", "exact_bn_sums", "run_cn_step", "run_steps",
-           "seed_spread"]
+__all__ = ["CN_KNOBS", "CN_MASK", "KINDS", "Run", "WITNESSES", "cn_draws",
+           "compare_runs", "compare_traces", "exact_bn_sums", "run_cn_step",
+           "run_steps", "seed_bounds", "seed_spread"]
 
 KINDS = ("plain", "cn_image", "plain")
 BATCH, SIZE, CLASSES = 4, 64, 10  # 64² leaves layer4 at 2x2
@@ -336,6 +338,30 @@ def seed_spread(seeds, baseline=None) -> list:
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows
+
+
+# The float32 runs of a seed_spread row that a card run is held against:
+# the CPU's, and the card's with torch's and with exact BatchNorm sums
+WITNESSES = ("cpu", "card_torch_sums", "card_exact_bn_sums")
+
+
+def seed_bounds(row: dict, factor: float, floor: float) -> list:
+    """Each quantity of the card's run in one ``seed_spread`` row (the loss of
+    each step; after steps 1 and 3 the worst state and momentum tensor)
+    beside its bound: ``factor`` times the largest error of the
+    ``WITNESSES`` at that quantity, at least ``factor · floor``.  Returns
+    [(quantity, error, bound)]; the run is within bound where every error
+    is at most its bound."""
+    out = []
+    for key, got in row["card"].items():
+        if key == "loss_rel_err":
+            items = [(f"{key}[{i}]", g, [row[w][key][i] for w in WITNESSES])
+                     for i, g in enumerate(got)]
+        else:
+            items = [(key, got[0], [row[w][key][0] for w in WITNESSES])]
+        out += [(name, g, factor * max(max(refs), floor))
+                for name, g, refs in items]
+    return out
 
 
 def main(argv=None) -> dict:

@@ -23,7 +23,8 @@ __all__ = ["device_time_breakdown", "kernel_family"]
 # (family, substrings of the kernel name), first match wins
 _FAMILIES = (
     ("selfnorm", ("selfnorm",)),         # K3: staged and v1 kernels
-    ("ins_stats_bwd", ("ins_bwd_kernel",)),          # K1 backward
+    # K1 backward (ins_bwd_stream_kernel; the first port's ins_bwd_kernel)
+    ("ins_stats_bwd", ("ins_bwd_",)),
     ("ins_stats", ("ins_stats_cluster_kernel",)),    # K1 forward
     ("bn_stats_bwd", ("bn_bwd_stream_kernel",)),     # K2 backward
     # K2 forward (bn_sums_persistent_kernel; the two-launch design's

@@ -3,7 +3,7 @@ plan and its time around the plan, beside the kernel it replaced, in the
 same process.
 
     python -m cnsn_tpu_torch.utils.stats_sweep [--iters 20]
-        [--only k1|k2|k2bwd|k3] [--baseline DIR]
+        [--only k1|k1bwd|k2|k2bwd|k3] [--baseline DIR]
         [--k1-constants NAME=VALUE,... ...]
         [--k2-constants NAME=VALUE,... ...]
 
@@ -20,6 +20,18 @@ a plane), ``clean_ms`` (after an L2 flush that leaves clean lines,
 ``_time_clean_ms``), the bound, the error against the plain version and
 the same bits run to run.
 
+K1 backward (``ins_stats_bwd``, one streaming pass): one line for each
+K1-backward shape of the main paths, b=128 bf16: ResNet-50's 4 SelfNorm
+shapes and WRN-40-2's 4 (sn.yaml's pos 'pre'; cnsn.yaml's pos 'post' are
+3 of them): ``plan`` (``ins_bwd_plan_of``), ``planned_ms``,
+``ms_by_chunks`` over forced blocks per plane around the plan,
+``clean_ms``, the bound, the error against the plain version and
+``equal_to_plain`` (the same bits as it); ``variants_ms`` times the
+backward of each ``--k1-constants`` copy (say ``kBwdUnroll=8`` or
+``kBwdBlocksPerSm=3``) on the package's plan for a wave of the copy's
+own residency.  A copy's compiler report (registers, spills) is kept
+beside its library as ``lib.so.log``.
+
 K2 backward (``bn_sums_bwd``, one streaming pass): one line for each of
 ResNet-50's 12 BatchNorm2d input shapes and WRN-40-2's 4, b=128 bf16:
 ``plan`` (``bn_bwd_plan_of``), ``planned_ms``, ``ms_by_chunks`` over
@@ -32,14 +44,18 @@ With ``--baseline DIR`` (a directory holding an earlier
 their kernels timed at the same shapes as ``baseline_ms`` and
 ``baseline_clean_ms``: the first port's two-launch K1 forward
 (``cnsn_ins_stats_chunks`` and ``cnsn_ins_stats``; its error against the
-plain version as ``baseline_max_abs_err``), the first port's K2 backward
+plain version as ``baseline_max_abs_err``), the first port's K1 backward
+(``cnsn_ins_stats_bwd`` of n, hw and c; ``baseline_equal``: the same
+bits as the new kernel, which the sweep requires), the first port's K2
+backward
 (``cnsn_bn_sums_bwd`` of rows and c; ``baseline_equal``: the same bits
 as the new kernel, which the sweep requires), and DIR's K2 forward (the
 two-launch ``cnsn_bn_sums_chunks`` or the one-launch
 ``cnsn_bn_sums_plan``, whichever DIR has).
 A ``summary`` line per kernel sums each time by its launches
 per step: the flagship's (16 SelfNorm sites, and the image statistics on
-19 of its 35 gated steps) and WRN-40-2 sn.yaml's.
+19 of its 35 gated steps) and WRN-40-2 sn.yaml's (K1 backward: cnsn.yaml's
+too).
 
 K2 forward (``bn_sums``): one line for each of ResNet-50's 12 BatchNorm2d
 input shapes: ``plan`` (``bn_sums_plan``), ``planned_ms``, ``main_ms``
@@ -61,8 +77,9 @@ kernel) and the bound.
 Times: CUDA events around each launch, the 50 MB L2 overwritten and a
 ~1 ms spin on the card before each, as ``chip_smoke.py`` times them;
 every timed configuration is first held to the plain version (K1: 1e-5
-relative, chip_smoke's ``k1_vs_plain``; K2 forward: 1e-5 of Σ|x−m0| and
-of s2; K2 backward: bit for bit; K3: chip_smoke's ``TOL``).  A first
+relative, chip_smoke's ``k1_vs_plain``; K1 backward: one bf16 ulp of
+the largest |dx|, as chip_smoke; K2 forward: 1e-5 of Σ|x−m0| and of s2;
+K2 backward: bit for bit; K3: chip_smoke's ``TOL``).  A first
 line gives the method's floor: one launch of a one-element fill, timed
 alike.  The last line names the card.  It needs a GPU and exits
 non-zero without one.
@@ -82,14 +99,19 @@ import torch
 
 from ..models.resnet import block_plan
 from ..ops.kernels._build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
-from ..ops.kernels._launch import DTYPE_CODE, FLOAT, INT, PTR, vector_width
+from ..ops.kernels._launch import (DTYPE_CODE, FLOAT, INT, PTR,
+                                  device_limits, vector_width)
 from ..ops.kernels.bn_stats import _launch as _bn_launch
 from ..ops.kernels.bn_stats import _launch_bwd as _bwd_launch
 from ..ops.kernels.bn_stats import (bn_bwd_plan_of, bn_sums_bwd_cuda,
                                    bn_sums_bwd_reference, bn_sums_cuda,
                                    bn_sums_plan, bn_sums_reference)
 from ..ops.kernels.ins_stats import _launch as _k1_launch
-from ..ops.kernels.ins_stats import (MAX_CLUSTER, ins_stats_cuda,
+from ..ops.kernels.ins_stats import _launch_bwd as _k1_bwd_launch
+from ..ops.kernels.ins_stats import (BWD_BLOCKS_PER_SM, MAX_CLUSTER,
+                                    ins_bwd_plan, ins_bwd_plan_of,
+                                    ins_stats_bwd_cuda,
+                                    ins_stats_bwd_reference, ins_stats_cuda,
                                     ins_stats_plan_of, ins_stats_reference)
 from ..ops.kernels.selfnorm import (PATHS, _launch, selfnorm_infer_reference,
                                     selfnorm_plan)
@@ -105,6 +127,8 @@ SN_WRN = ((32, 16), (32, 32), (16, 64), (8, 128))
 # inputs per step (K2)
 K1_R50_SITES = {(56, 256): 3, (28, 512): 4, (14, 1024): 6, (7, 2048): 3}
 K1_WRN_SITES = {(32, 16): 1, (32, 32): 6, (16, 64): 6, (8, 128): 5}
+# and cnsn.yaml's 18 (pos 'post'), on every step
+K1_WRN_POST_SITES = {(32, 32): 6, (16, 64): 6, (8, 128): 6}
 K2_WRN_SITES = {(32, 16): 1, (32, 32): 12, (16, 64): 12, (8, 128): 12}
 # the image statistics run on a cn_image step: 19 of the flagship's 35
 # gated steps (RandomState(7).rand(35) < 0.5)
@@ -231,6 +255,23 @@ def _baseline_ins_stats(lib):
     return run
 
 
+def _baseline_ins_bwd(lib):
+    """The first port's K1 backward: a callable (x, mean, std, gm, gs) ->
+    dx (ddof 1)."""
+    bwd = _bind(lib, "cnsn_ins_stats_bwd", INT, INT, PTR, PTR, PTR, PTR, PTR,
+                PTR, INT, INT, INT, INT, PTR)
+
+    def run(x, mean, std, gm, gs):
+        n, h, w, c = x.shape
+        dx = torch.empty_like(x)
+        _check(bwd(DTYPE_CODE[x.dtype], vector_width(x), x.data_ptr(),
+                   mean.data_ptr(), std.data_ptr(), gm.data_ptr(),
+                   gs.data_ptr(), dx.data_ptr(), n, h * w, c, 1, _stream()),
+               "baseline ins_stats_bwd")
+        return dx
+    return run
+
+
 def _baseline_bn_bwd(lib):
     """The first port's K2 backward: a callable (x, m0, g1, g2) -> dx."""
     bwd = _bind(lib, "cnsn_bn_sums_bwd", INT, INT, PTR, PTR, PTR, PTR, PTR,
@@ -251,8 +292,9 @@ def _variant(spec: str, name: str = "bn_stats"):
     ("NAME=VALUE,...": its ``constexpr int``s, and the sum types ``Sum``
     and, in ins_stats.cu, ``Acc`` = double or float) beside the package's
     libraries.  For bn_stats: callables (x,
-    m0) -> (s1, s2) and (x, m0, g1, g2) -> dx; for ins_stats: a callable
-    (x, split) -> (mean, std) on the package's plan for that split."""
+    m0) -> (s1, s2) and (x, m0, g1, g2) -> dx; for ins_stats: callables
+    (x, split) -> (mean, std) on the package's plan for that split and
+    (x, mean, std, gm, gs) -> dx on the package's backward plan."""
     text = (CSRC_DIR / f"{name}.cu").read_text()
     sums = torch.float64
     for item in spec.split(","):
@@ -273,12 +315,13 @@ def _variant(spec: str, name: str = "bn_stats"):
     (out / f"{name}.cu").write_text(text)
     (out / "row_pass.cuh").write_bytes((CSRC_DIR / "row_pass.cuh")
                                        .read_bytes())
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out / "lib.so"),
-                    str(out / f"{name}.cu")], check=True,
-                   capture_output=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out / "lib.so"),
+                           str(out / f"{name}.cu")], check=True,
+                          capture_output=True, text=True)
+    (out / "lib.so.log").write_text(proc.stdout + proc.stderr)
     lib = ctypes.CDLL(str(out / "lib.so"))
     if name == "ins_stats":
-        return _k1_runner(lib, spec)
+        return _k1_runner(lib, spec), _k1_bwd_runner(lib, spec)
     return _bn_plan_runner(lib, sums, spec), _bn_bwd_runner(lib, spec)
 
 
@@ -299,6 +342,34 @@ def _k1_runner(lib, what: str):
                    plan["lanes"], plan["split"], plan["chunk_rows"], 1e-5, 1,
                    _stream()), what)
         return mean, std
+    return run
+
+
+def _k1_bwd_runner(lib, what: str):
+    """A callable (x, mean, std, gm, gs) -> dx through a library's
+    streaming K1 backward (``cnsn_ins_stats_bwd`` of a plan), on the
+    package's plan for a wave of the library's own residency (ddof 1)."""
+    bwd = _bind(lib, "cnsn_ins_stats_bwd", INT, INT, PTR, PTR, PTR, PTR, PTR,
+                PTR, INT, INT, INT, INT, INT, INT, INT, PTR)
+    occupancy = _bind(lib, "cnsn_ins_stats_bwd_occupancy", INT, INT,
+                      ctypes.POINTER(ctypes.c_int))
+
+    def run(x, mean, std, gm, gs):
+        n, h, w, c = x.shape
+        vec, occ = vector_width(x), ctypes.c_int()
+        _check(occupancy(DTYPE_CODE[x.dtype], vec, ctypes.byref(occ)),
+               f"{what}: occupancy")
+        # the SM count whose wave at the package's residency is the
+        # library's wave on this card
+        sms = device_limits(x.device)[0] * occ.value // BWD_BLOCKS_PER_SM
+        plan = ins_bwd_plan(n, h * w, c, x.dtype, vec, sms)
+        dx = torch.empty_like(x)
+        _check(bwd(DTYPE_CODE[x.dtype], vector_width(x), x.data_ptr(),
+                   mean.data_ptr(), std.data_ptr(), gm.data_ptr(),
+                   gs.data_ptr(), dx.data_ptr(), n, h * w, c, 1,
+                   plan["lanes"], plan["chunks"], plan["chunk_rows"],
+                   _stream()), what)
+        return dx
     return run
 
 
@@ -416,7 +487,7 @@ def sweep_k1(hw: int, c: int, dtype, sites: dict, iters: int, flush,
                                  iters, flush)
     row["ms_by_lanes"] = ms
     row["variants_ms"] = {}
-    for spec, fn in variants.items():
+    for spec, (fn, _) in variants.items():
         row["variants_ms"][spec] = {}
         for k in (1, 2, 4):
             held(fn(x, k), f"{spec} split {k}")
@@ -428,6 +499,67 @@ def sweep_k1(hw: int, c: int, dtype, sites: dict, iters: int, flush,
         row["baseline_ms"] = _time_ms(lambda: baseline(x, 1e-5), iters,
                                       flush)
         row["baseline_clean_ms"] = _time_clean_ms(lambda: baseline(x, 1e-5),
+                                                  iters, flush)
+    return row
+
+
+def sweep_k1bwd(hw: int, c: int, sites: dict, iters: int, flush, baseline,
+                variants: dict):
+    """K1's backward at (128, hw, hw, c) bf16: one line (module
+    docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(hw * 10_000 + c + 3)
+    x = (torch.randn(128, hw, hw, c, generator=gen, device="cuda") * 1.5
+         + 0.3).bfloat16()
+    mean, std = ins_stats_reference(x)
+    gm = torch.randn(128, c, generator=gen, device="cuda")
+    gs = torch.randn(128, c, generator=gen, device="cuda")
+    want = ins_stats_bwd_reference(x, mean, std, gm, gs)
+    scale = want.float().abs().max().item()
+    args = (x, mean, std, gm, gs)
+
+    def held(got, what):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= 2 ** -7 * scale:
+            raise RuntimeError(f"{what} {x.shape}: {err} from plain")
+        return got, err
+
+    plan = ins_bwd_plan_of(x)
+    got, err = held(ins_stats_bwd_cuda(*args), "ins_stats_bwd")
+    row = {"kernel": "ins_stats_bwd", "shape": list(x.shape),
+           "dtype": "bfloat16", "sites": sites, "plan": plan,
+           "max_abs_err": err, "equal_to_plain": torch.equal(got, want),
+           "planned_ms": _time_ms(lambda: ins_stats_bwd_cuda(*args), iters,
+                                  flush),
+           "clean_ms": _time_clean_ms(lambda: ins_stats_bwd_cuda(*args),
+                                      iters, flush),
+           "bound_ms": (2 * x.numel() * 2 + 4 * 128 * c * 4)
+           / HBM_BYTES_PER_S * 1e3}
+    pick = plan["chunks"]
+    ms = {}
+    for k in (max(1, pick // 4), max(1, pick // 2), 2 * pick, 4 * pick,
+              8 * pick):
+        k = ins_bwd_plan_of(x, k)["chunks"]
+        if k != pick and k not in ms:
+            if not torch.equal(held(_k1_bwd_launch(*args, chunks=k),
+                                    f"ins_stats_bwd {k} chunks")[0], got):
+                raise RuntimeError(f"ins_stats_bwd {x.shape}: other bits "
+                                   f"at {k} chunks")
+            ms[k] = _time_ms(lambda k=k: _k1_bwd_launch(*args, chunks=k),
+                             iters, flush)
+    row["ms_by_chunks"] = ms
+    row["variants_ms"] = {}
+    for spec, (_, fn) in variants.items():
+        held(fn(*args), spec)
+        row["variants_ms"][spec] = _time_ms(lambda fn=fn: fn(*args), iters,
+                                            flush)
+    if baseline is not None:
+        row["baseline_equal"] = torch.equal(baseline(*args), got)
+        if not row["baseline_equal"]:
+            raise RuntimeError(f"baseline ins_stats_bwd {x.shape}: other "
+                               "bits")
+        row["baseline_ms"] = _time_ms(lambda: baseline(*args), iters, flush)
+        row["baseline_clean_ms"] = _time_clean_ms(lambda: baseline(*args),
                                                   iters, flush)
     return row
 
@@ -555,7 +687,7 @@ def sweep_k3(n: int, side: int, c: int, dtype, iters: int, flush):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("k1", "k2", "k2bwd", "k3"))
+    ap.add_argument("--only", choices=("k1", "k1bwd", "k2", "k2bwd", "k3"))
     ap.add_argument("--baseline", type=Path)
     ap.add_argument("--k1-constants", action="append", default=[])
     ap.add_argument("--k2-constants", action="append", default=[])
@@ -597,6 +729,19 @@ def main(argv=None) -> int:
                                  baseline, k1_variants))
             print(json.dumps(rows[-1]), flush=True)
         print(json.dumps(_summary(rows, "ins_stats")), flush=True)
+    if wanted("k1bwd"):
+        baseline = base(_baseline_ins_bwd, "ins_stats")
+        cases = [(s, c, {"flagship": k}) for (s, c), k in K1_R50_SITES.items()]
+        cases += [(s, c, {"wrn_sn": k, **({"wrn_cnsn": K1_WRN_POST_SITES[s, c]}
+                                          if (s, c) in K1_WRN_POST_SITES
+                                          else {})})
+                  for (s, c), k in K1_WRN_SITES.items()]
+        rows = []
+        for hw, c, sites in cases:
+            rows.append(sweep_k1bwd(hw, c, sites, args.iters, flush,
+                                    baseline, k1_variants))
+            print(json.dumps(rows[-1]), flush=True)
+        print(json.dumps(_summary(rows, "ins_stats_bwd")), flush=True)
     if wanted("k2bwd"):
         baseline = base(_baseline_bn_bwd, "bn_stats")
         cases = [(s, c, {"flagship": k}) for (s, c), k in

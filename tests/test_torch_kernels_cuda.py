@@ -1267,3 +1267,146 @@ def test_bn_sums_function_at_wrn_shapes_matches_autograd_of_plain(
     r1, r2 = bn_sums_reference(x, m0)
     (r1 * c1 + 1e-2 * r2 * c2).sum().backward()
     _close_to_scale(got, x.grad, 1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+# K1's backward (the one-wave streaming kernel) at every K1-backward shape
+# of ResNet-50 (224²) and WRN-40-2 (32²; pos 'post' takes 3 of its 4), at
+# b=2 (b=128 runs in chip_smoke.py and stats_sweep)
+K1_BWD_HWC = [(56, 256), (28, 512), (14, 1024), (7, 2048), (32, 16),
+              (32, 32), (16, 64), (8, 128)]
+
+
+def _ins_bwd_rounded(x, mean, std, gm, gs, ddof=1):
+    """The kernel's arithmetic in PyTorch, each operation rounded once in
+    fp32, then one cast to x's type: ``ins_stats_bwd_reference``'s
+    operations in its order, but gm / HW a true division (the card divides
+    a tensor by a Python number by multiplying with its rounded
+    reciprocal, which is exact only where HW is a power of two)."""
+    n, h, w, c = x.shape
+    shape = (n, 1, 1, c)
+    a = gm / torch.full_like(gm, h * w)
+    den = std * max(h * w - ddof, 1)
+    q = gs.reshape(shape) * (x.float() - mean.reshape(shape))
+    return (a.reshape(shape) + q / den.reshape(shape)).to(x.dtype)
+
+
+def _k1_bwd_held(got, x, mean, std, gm, gs):
+    """The same bits as the kernel's arithmetic at every shape; the same
+    bits as the plain version where HW is a power of two, else within the
+    first port's tolerance of it (1e-6 of the gradient's scale in fp32,
+    one bf16 ulp)."""
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert got.is_contiguous()
+    assert torch.equal(got, _ins_bwd_rounded(x, mean, std, gm, gs))
+    want = ins_stats_bwd_reference(x, mean, std, gm, gs)
+    hw = x.shape[1] * x.shape[2]
+    if hw & (hw - 1) == 0:
+        assert torch.equal(got, want)
+    else:
+        _close_to_scale(got, want,
+                        1e-6 if x.dtype == torch.float32 else 2 ** -7)
+
+
+def _k1_bwd_inputs(shape, seed, dtype):
+    n, c = shape[0], shape[-1]
+    x = _x(shape, seed, dtype)
+    mean, std = ins_stats_reference(x)
+    return x, mean, std, _vec((n, c), seed + 1), _vec((n, c), seed + 2)
+
+
+@pytest.mark.parametrize("hw,c", K1_BWD_HWC)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_bwd_stream_matches_plain_at_every_model_shape(hw, c, dtype):
+    """Bit for bit, one count per call."""
+    args = _k1_bwd_inputs((2, hw, hw, c), 200, dtype)
+    before = LAUNCHES["ins_stats_bwd"]
+    got = ins_stats_bwd_cuda(*args)
+    assert LAUNCHES["ins_stats_bwd"] == before + 1
+    torch.cuda.synchronize()
+    _k1_bwd_held(got, *args)
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 7, 12), (2, 5, 7, 3),
+                                   (1, 1, 1, 2048), (3, 1, 1, 40),
+                                   (1, 9, 9, 33), (2, 3, 5, 4096),
+                                   (1, 56, 56, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_bwd_stream_edges(shape, dtype):
+    """One-element loads (C = 12 bf16, C = 3, 33), H·W = 1, N = 1, two
+    channel tiles (C = 4096), a row of one 16-byte lane (C = 8 bf16)."""
+    args = _k1_bwd_inputs(shape, 203, dtype)
+    got = ins_stats_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    _k1_bwd_held(got, *args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_bwd_stream_takes_unaligned_views(dtype):
+    """x off a 16-byte boundary takes the one-element path: the same bits
+    as the 16-byte path on an aligned copy."""
+    base = _x((4 * 14 * 14 * 64 + 1,), 206, dtype)
+    x = base[1:].view(4, 14, 14, 64)
+    assert x.data_ptr() % 16 != 0
+    mean, std = ins_stats_reference(x)
+    gm, gs = _vec((4, 64), 207), _vec((4, 64), 208)
+    got = ins_stats_bwd_cuda(x, mean, std, gm, gs)
+    aligned = ins_stats_bwd_cuda(x.clone(), mean, std, gm, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    _k1_bwd_held(got, x, mean, std, gm, gs)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7, 100, 5000])
+@pytest.mark.parametrize("c,dtype", [(128, torch.bfloat16),
+                                     (3, torch.float32)])
+def test_ins_bwd_stream_forced_chunks_give_the_same_bits(chunks, c, dtype):
+    args = _k1_bwd_inputs((8, 28, 28, c), 209, dtype)
+    got = ins_stats._launch_bwd(*args, chunks=chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ins_stats_bwd_cuda(*args))
+    _k1_bwd_held(got, *args)
+
+
+def test_ins_bwd_plan_residency_holds_on_the_card():
+    """The plan's wave is what the card holds for the kernel."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, c in ((torch.bfloat16, 2048), (torch.bfloat16, 12),
+                     (torch.float32, 512), (torch.float32, 3)):
+        x = torch.empty((128, 7, 7, c), device="cuda", dtype=dtype)
+        assert (ins_stats.ins_bwd_occupancy(x)
+                >= ins_stats.BWD_BLOCKS_PER_SM)
+        assert ins_stats.ins_bwd_plan_of(x)["wave"] == (
+            sms * ins_stats.BWD_BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("shape", [(128, 56, 56, 256), (128, 8, 8, 128)])
+def test_ins_stats_bwd_is_one_launch_per_call(shape):
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    args = _k1_bwd_inputs(shape, 212, torch.bfloat16)
+    prof = device_time_breakdown(lambda: ins_stats_bwd_cuda(*args), iters=3,
+                                 warmup=1)
+    assert prof["launches_by_family"] == {"ins_stats_bwd": 1}, prof
+    assert all("ins_bwd_stream_kernel" in k["name"]
+               for k in prof["top_kernels_ms"]), prof
+
+
+def test_ins_stats_bwd_refuses_a_plan_it_does_not_take():
+    """lanes not a power of two or above a block, no chunk, rows not
+    covered: refused before any launch (cudaErrorInvalidValue)."""
+    bwd = ins_stats._kernels()[2]
+    x, mean, std, gm, gs = _k1_bwd_inputs((2, 8, 8, 16), 215, torch.bfloat16)
+    dx = torch.empty_like(x)
+    s = torch.cuda.current_stream().cuda_stream
+    good = dict(lanes=2, chunks=4, chunk_rows=16)
+
+    def launch(p):
+        return bwd(1, 8, x.data_ptr(), mean.data_ptr(), std.data_ptr(),
+                   gm.data_ptr(), gs.data_ptr(), dx.data_ptr(), 2, 64, 16, 1,
+                   p["lanes"], p["chunks"], p["chunk_rows"], s)
+
+    for bad in (dict(lanes=3), dict(lanes=512), dict(chunks=0),
+                dict(chunk_rows=0), dict(chunk_rows=15)):
+        assert launch({**good, **bad}) == 1, bad
+    assert launch(good) == 0
+    torch.cuda.synchronize()
+    _k1_bwd_held(dx, x, mean, std, gm, gs)

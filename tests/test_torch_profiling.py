@@ -21,6 +21,12 @@ from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
     ("Memset (Device)", "memcpy_memset"),
     ("void (anonymous namespace)::ins_bwd_kernel<float, 4>(...)",
      "ins_stats_bwd"),
+    ("void (anonymous namespace)::ins_bwd_stream_kernel<__nv_bfloat16, 8>("
+     "__nv_bfloat16 const*, float const*, float const*, float const*, "
+     "float const*, __nv_bfloat16*, int, int, int, int, float)",
+     "ins_stats_bwd"),
+    ("void (anonymous namespace)::ins_bwd_stream_kernel<float, 1>(...)",
+     "ins_stats_bwd"),
     ("void (anonymous namespace)::bn_sums_kernel<__nv_bfloat16, 8>(...)",
      "bn_stats"),
     ("(anonymous namespace)::bn_finalize_kernel(...)", "bn_stats"),

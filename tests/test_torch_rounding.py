@@ -6,8 +6,9 @@ import copy
 import pytest
 import torch
 
-from cnsn_tpu_torch.train.rounding import (compare_runs, compare_traces,
-                                           run_steps)
+from cnsn_tpu_torch.train.rounding import (WITNESSES, compare_runs,
+                                           compare_traces, run_steps,
+                                           seed_bounds)
 
 
 @pytest.fixture(scope="module")
@@ -104,3 +105,54 @@ def test_run_with_other_sums_and_seed_puts_the_plain_version_back():
     assert other.losses != run.losses
     assert run_steps("cpu", torch.float32, seed=3).losses[0] == \
         run_steps("cpu", torch.float32).losses[0]
+
+
+def _spread_row(card, cpu, torch_sums, exact):
+    """A made-up ``seed_spread`` row: per run, three losses and one
+    (error, tensor name) per step and part, as ``compare_runs`` gives
+    them after a JSON round trip."""
+    def run(loss, state):
+        return {"loss_rel_err": loss,
+                **{f"step{k}_{part}": [state * k, f"layer1.{part}"]
+                   for k in (1, 3) for part in ("state", "momentum")}}
+    return {"seed": 2, "card": run(*card), "cpu": run(*cpu),
+            "card_torch_sums": run(*torch_sums),
+            "card_exact_bn_sums": run(*exact)}
+
+
+def test_seed_bounds_take_the_largest_witness_at_each_quantity():
+    """Each quantity's bound is 8x its largest witness (the CPU's loss of
+    step 1, torch's sums' loss of step 2, the exact sums' loss of step 3
+    and their state errors), floored at 8 x 1e-6."""
+    row = _spread_row(card=([1e-7, 3e-5, 5e-5], 2e-3),
+                      cpu=([2e-7, 1e-6, 1e-6], 1e-4),
+                      torch_sums=([1e-8, 5e-6, 1e-6], 2e-4),
+                      exact=([1e-8, 1e-6, 7e-6], 3e-4))
+    assert set(WITNESSES) <= set(row)
+    got = {q: (e, b) for q, e, b in seed_bounds(row, 8, 1e-6)}
+    assert set(got) == {"loss_rel_err[0]", "loss_rel_err[1]",
+                        "loss_rel_err[2]", "step1_state", "step1_momentum",
+                        "step3_state", "step3_momentum"}
+    want = {"loss_rel_err[0]": (1e-7, 8 * 1e-6),
+            "loss_rel_err[1]": (3e-5, 8 * 5e-6),
+            "loss_rel_err[2]": (5e-5, 8 * 7e-6),
+            "step1_state": (2e-3, 8 * 3e-4),
+            "step3_momentum": (6e-3, 8 * 9e-4)}
+    for q, (e, b) in want.items():
+        assert got[q] == pytest.approx((e, b), rel=1e-12), q
+    assert all(e <= b for e, b in got.values())
+
+
+@pytest.mark.parametrize("card,over", [
+    (([1e-7, 3e-5, 6e-5], 2e-3), {"loss_rel_err[2]"}),
+    (([1e-7, 3e-5, 5e-5], 3e-3), {"step1_state", "step1_momentum",
+                                  "step3_state", "step3_momentum"}),
+    (([float("nan"), 3e-5, 5e-5], 2e-3), {"loss_rel_err[0]"}),
+])
+def test_seed_bounds_name_what_lies_beyond(card, over):
+    """A card error above its bound, or NaN, is beyond it."""
+    row = _spread_row(card=card, cpu=([2e-7, 1e-6, 1e-6], 1e-4),
+                      torch_sums=([1e-8, 5e-6, 1e-6], 2e-4),
+                      exact=([1e-8, 1e-6, 7e-6], 3e-4))
+    assert {q for q, e, b in seed_bounds(row, 8, 1e-6)
+            if not e <= b} == over

@@ -1,12 +1,14 @@
-"""The plans of K1's one-launch forward and K2's streaming backward
-(``ins_stats_plan``, ``bn_bwd_plan``): pure functions of the shape and
-the card, checked here on the CPU at every model shape and at edge
-shapes.  A thread-level numpy emulation of each kernel's indexing (the
-lanes, row steps, chunks, the warp butterfly and the cluster's add of
-``csrc/ins_stats.cu``; the tiles and chunks of
-``csrc/bn_stats.cu``'s backward) holds that every element is read once
-and every sum reaches its (sample, channel).  The kernels themselves run
-only on the card (``tests/test_torch_kernels_cuda.py``)."""
+"""The plans of K1's one-launch forward, K1's and K2's streaming
+backwards (``ins_stats_plan``, ``ins_bwd_plan``, ``bn_bwd_plan``): pure
+functions of the shape and the card, checked here on the CPU at every
+model shape and at edge shapes.  A thread-level numpy emulation of each
+kernel's indexing (the lanes, row steps, chunks, the warp butterfly and
+the cluster's add of ``csrc/ins_stats.cu``'s forward; the tiles, chunks
+and per-(sample, channel) statistics of its backward; the tiles and
+chunks of ``csrc/bn_stats.cu``'s backward) holds that every element is
+read or written once and every sum reaches, and every statistic comes
+from, its (sample, channel).  The kernels themselves run only on the
+card (``tests/test_torch_kernels_cuda.py``)."""
 import numpy as np
 import pytest
 import torch
@@ -15,8 +17,10 @@ from hypothesis import strategies as st
 
 from cnsn_tpu_torch.ops.kernels.bn_stats import (BWD_THREADS, BWD_UNROLL,
                                                 bn_bwd_plan)
-from cnsn_tpu_torch.ops.kernels.ins_stats import (MAX_CLUSTER, MIN_BATCHES,
-                                                 THREADS, ins_stats_plan)
+from cnsn_tpu_torch.ops.kernels.ins_stats import (BWD_UNROLL as K1_UNROLL,
+                                                 MAX_CLUSTER, MIN_BATCHES,
+                                                 THREADS, ins_bwd_plan,
+                                                 ins_stats_plan)
 from cnsn_tpu_torch.utils.stats_sweep import SN_R50, SN_WRN, bn_shapes
 
 H100 = dict(sms=132, smem_per_sm=233472)
@@ -25,6 +29,9 @@ BF16, F32 = torch.bfloat16, torch.float32
 # image CrossNorm statistics, WRN-40-2's SelfNorm and CrossNorm sites
 K1_MAIN = ([(128, s * s, c, BF16, 8) for s, c in SN_R50 + SN_WRN]
            + [(128, 224 * 224, 3, F32, 1)])
+# K1's backward calls: ResNet-50's SelfNorm sites and WRN-40-2's at pos
+# 'pre' (sn.yaml) and pos 'post' (cnsn.yaml: 3 of the same 4 shapes), b=128
+K1_BWD_MAIN = [(128, s * s, c, BF16, 8) for s, c in SN_R50 + SN_WRN]
 # K2's calls: ResNet-50's and WRN-40-2's BatchNorm2d inputs, b=128 bf16
 K2_MAIN = ([(128 * s * s, c) for s, c in bn_shapes()]
            + [(128 * s * s, c) for s, c in SN_WRN])
@@ -298,3 +305,155 @@ def test_k2_bwd_emulated_kernel_writes_each_element_once(rows, c, vec,
                 for r in range(r0 + rin, r1, step):
                     writes[r, c0:c0 + vec] += 1
     assert (writes == 1).all()
+
+
+def _k1_bwd_invariants(p, n, hw, c, vec, auto=True):
+    per_row = -(-c // vec)
+    # as few lanes, a power of two, as span the row, up to a whole block
+    assert p["lanes"] in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+    assert p["lanes"] >= min(per_row, THREADS)
+    assert p["lanes"] < 2 * per_row or p["lanes"] == 1
+    assert p["tile"] == p["lanes"] * vec and p["step"] * p["lanes"] == THREADS
+    assert (p["ctiles"] - 1) * p["tile"] < c <= p["ctiles"] * p["tile"]
+    cr = p["chunk_rows"]
+    assert cr % p["step"] == 0
+    # the chunks cover a plane's [0, hw) once, none of them empty
+    assert (p["chunks"] - 1) * cr < hw <= p["chunks"] * cr
+    planes = n * p["ctiles"]
+    assert p["blocks"] == p["chunks"] * planes
+    if auto:
+        # one wave (unless the planes alone exceed it), and at least one
+        # unrolled step a thread: no more chunks than that allows
+        steps = -(-hw // p["step"])
+        assert p["blocks"] <= max(p["wave"], planes)
+        assert p["chunks"] <= -(-steps // K1_UNROLL)
+        # and chunks no longer than covering a plane in as many as those
+        # two allow needs
+        most = max(1, min(p["wave"] // planes, -(-steps // K1_UNROLL)))
+        assert (cr // p["step"] - 1) * most < steps
+
+
+@pytest.mark.parametrize("n,hw,c,dtype,vec", K1_BWD_MAIN)
+def test_k1_bwd_plan_at_the_main_paths(n, hw, c, dtype, vec):
+    """Every K1-backward call of both models: one tile a sample, one wave,
+    rows in whole steps, each block an unrolled step a thread or more."""
+    p = ins_bwd_plan(n, hw, c, dtype, vec, H100["sms"])
+    _k1_bwd_invariants(p, n, hw, c, vec)
+    assert p["ctiles"] == 1 and p["blocks"] <= p["wave"]
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((128, 56 * 56, 256), (32, 4, 784)),
+    ((128, 28 * 28, 512), (64, 4, 196)),
+    ((128, 14 * 14, 1024), (128, 4, 50)),
+    ((128, 7 * 7, 2048), (256, 4, 13)),
+    ((128, 32 * 32, 16), (2, 4, 256)),
+    ((128, 32 * 32, 32), (4, 4, 256)),
+    ((128, 16 * 16, 64), (8, 4, 64)),
+    ((128, 8 * 8, 128), (16, 2, 32)),
+])
+def test_k1_bwd_plan_of_each_bf16_site(shape, want):
+    """(lanes, chunks a plane, rows a chunk): the 128 planes of each
+    site take 4 chunks (a wave of 528 blocks holds 512) but 8x8x128's,
+    whose 4 row steps (16 lanes, 16 rows a step) make 2 chunks of one
+    unrolled step each; C = 16 takes 2 lanes, 128 rows a step."""
+    p = ins_bwd_plan(*shape, BF16, 8, H100["sms"])
+    assert (p["lanes"], p["chunks"], p["chunk_rows"]) == want
+
+
+@pytest.mark.parametrize("n,hw,c,dtype,vec,want", [
+    (128, 224 * 224, 3, F32, 1, (4, 4)),  # C = 3: 4 lanes, one idle
+    (128, 56 * 56, 12, BF16, 1, (16, 4)),  # C = 12 bf16: no 16-byte loads
+    (128, 7 * 7, 12, BF16, 1, (16, 2)),   # 4 row steps: 2 chunks
+    (128, 1, 64, BF16, 8, (8, 1)),        # H·W = 1: one row, one chunk
+    (1, 56 * 56, 256, BF16, 8, (32, 196)),  # N = 1: the rows fill the card
+    (1, 1, 3, F32, 1, (4, 1)),            # one element a channel
+    (2, 9, 4096, BF16, 8, (256, 5)),      # two tiles a sample
+])
+def test_k1_bwd_plan_edges(n, hw, c, dtype, vec, want):
+    p = ins_bwd_plan(n, hw, c, dtype, vec, H100["sms"])
+    _k1_bwd_invariants(p, n, hw, c, vec)
+    assert (p["lanes"], p["chunks"]) == want
+
+
+def test_k1_bwd_plan_refuses_a_vector_the_type_has_no_kernel_for():
+    with pytest.raises(ValueError, match="loads 8"):
+        ins_bwd_plan(2, 9, 16, F32, 8, 132)
+
+
+@settings(max_examples=150, deadline=None, database=None)
+@given(n=st.integers(1, 300), hw=st.integers(1, 70_000),
+       c=st.integers(1, 4096), wide=st.booleans(),
+       dtype=st.sampled_from([F32, BF16]), sms=st.integers(1, 200),
+       chunks=st.integers(0, 3000))
+def test_k1_bwd_plan_invariants(n, hw, c, wide, dtype, sms, chunks):
+    vec = 16 // dtype.itemsize if wide else 1
+    c = -(-c // vec) * vec
+    p = ins_bwd_plan(n, hw, c, dtype, vec, sms, chunks=chunks)
+    _k1_bwd_invariants(p, n, hw, c, vec, auto=chunks == 0)
+
+
+def _emulate_k1_bwd(x, mean, std, gm, gs, p, vec, ddof=1):
+    """csrc/ins_stats.cu's backward, thread by thread in float64: block
+    (k, t, b), thread th at rin = th / lanes, c0 = t·tile + (th −
+    rin·lanes)·vec, its statistics at b·c + c0, its rows r_begin + rin +
+    u·step in unrolled steps of K1_UNROLL; live threads only.  Returns dx
+    and the times each element was written."""
+    n, hw, c = x.shape
+    flat = [a.reshape(-1) for a in (mean, std, gm, gs)]
+    dx = np.full(x.shape, np.nan)
+    writes = np.zeros(x.shape, dtype=np.int64)
+    lanes, step = p["lanes"], p["step"]
+    denom = max(hw - ddof, 1)
+    for b in range(n):
+        for ct in range(p["ctiles"]):
+            for k in range(p["chunks"]):
+                r0 = k * p["chunk_rows"]
+                r1 = min(r0 + p["chunk_rows"], hw)
+                for th in range(THREADS):
+                    rin = th // lanes
+                    c0 = ct * p["tile"] + (th - rin * lanes) * vec
+                    if c0 >= c:
+                        continue
+                    at = b * c + c0
+                    m, sd, g1, g2 = (f[at:at + vec] for f in flat)
+                    a, den = g1 / hw, denom * sd
+                    for r in range(r0 + rin, r1, K1_UNROLL * step):
+                        for u in range(K1_UNROLL):
+                            row = r + u * step
+                            if row < r1:
+                                v = x[b, row, c0:c0 + vec]
+                                dx[b, row, c0:c0 + vec] = (
+                                    a + g2 * (v - m) / den)
+                                writes[b, row, c0:c0 + vec] += 1
+    return dx, writes
+
+
+@pytest.mark.parametrize("n,hw,c,vec,chunks", [
+    (2, 32 * 32, 16, 8, 0),    # WRN's 32x32x16: 2 lanes, 128 rows a step
+    (3, 8 * 8, 128, 8, 0),     # 16 lanes, 4 steps: one chunk
+    (2, 7 * 7, 2048, 8, 0),    # 256 lanes: a step is one row
+    (2, 9, 4096, 8, 0),        # two tiles a sample
+    (2, 37, 3, 1, 0),          # C = 3: a lane idle
+    (1, 23, 12, 1, 0),         # C = 12 bf16 on one-element lanes
+    (3, 1, 40, 4, 0),          # H·W = 1
+    (1, 300, 8, 8, 0),         # N = 1: chunks fill the card
+    (2, 300, 24, 8, 7),        # forced chunks; 3 lanes of vectors round up
+    (1, 1000, 33, 1, 5),       # forced chunks, 64 lanes, 31 idle
+])
+def test_k1_bwd_emulated_kernel_writes_each_element_once(n, hw, c, vec,
+                                                         chunks):
+    """Every dx element written once, from its own (sample, channel)'s
+    statistics: each statistic differs, so a misread one shows."""
+    p = ins_bwd_plan(n, hw, c, F32 if vec == 4 else BF16, vec, 3,
+                     chunks=chunks)
+    _k1_bwd_invariants(p, n, hw, c, vec, auto=chunks == 0)
+    rng = np.random.RandomState(n * hw + c)
+    x = rng.randn(n, hw, c)
+    mean, gm, gs = (rng.randn(n, c) for _ in range(3))
+    std = rng.uniform(0.5, 2.0, (n, c))
+    dx, writes = _emulate_k1_bwd(x, mean, std, gm, gs, p, vec)
+    assert (writes == 1).all()
+    want = (gm[:, None] / hw + gs[:, None] * (x - mean[:, None])
+            / (max(hw - 1, 1) * std[:, None]))
+    np.testing.assert_allclose(dx, want, rtol=1e-13, atol=1e-13)
