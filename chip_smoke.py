@@ -49,6 +49,20 @@ BatchNorm2d layer, K1 once per SelfNorm site and image statistics):
     epoch of 40 steps and an evaluation of 10,000 images at batch 1000
     (K3 at N = 1000) timed, their launches checked, beside the loader's
     own time, the wait for staged batches and a profile of trainer steps;
+  * the other three CIFAR models and the consistency regimes: K1, K2,
+    K3 and K4 held against their plain versions at the shapes AllConvNet,
+    DenseNet-40-12 (C ≡ 4 mod 8: one-element loads, K3's v1 kernel, K4's
+    wmma kernel in bf16) and ResNeXt-29 give them, and K4 at DenseNet's
+    37 3x3 sites against cuDNN's gradient and time; then
+    (``train_cifar_models``) the cnsn.yaml (cn) and cnsn-consist.yaml
+    (cn_consistency) recipes of AllConvNet, DenseNet-40-12 and ResNeXt-29
+    and WRN-40-2's cnsn-consist.yaml at b=128 32² bf16 under
+    CNSN_CONV3X3=pallas, gated, timed, every step's launches checked
+    (K4 by kernel), profiled, evaluated through K3; one consistency step
+    of a reduced WRN and DenseNet, card and CPU each against a float64
+    twin; ``cli train``/``eval resume=`` of DenseNet's and WRN's
+    cnsn-consist.yaml; 5 steps of ``imagenet/resnet50/cnsn-consist.yaml``
+    (cn_image_consist) at b=128 224² bf16, its peak memory;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -191,6 +205,39 @@ SPIN_CYCLES = 2_000_000  # ~1 ms of card clock: host head start per launch
 TRAINER_EPOCHS, TRAINER_TRAIN, TRAINER_TEST = 2, 5120, 10_000
 TRAINER_PROFILE_STEPS = 4
 EVAL_BATCH = 1000  # the recipes' eval_batch_size
+# phase train_cifar_models: the cn and cn_consistency recipes of the other
+# three CIFAR models and WRN-40-2's consistency recipe, b=128 32² bf16
+# under CNSN_CONV3X3=pallas, timed as train_wrn times (TRAIN_STEPS)
+CIFAR_RECIPES = tuple(
+    os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10", model, name)
+    for model in ("allconv", "densenet", "resnext")
+    for name in ("cnsn.yaml", "cnsn-consist.yaml")) + (
+    os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10", "wideresnet",
+                 "cnsn-consist.yaml"),)
+CIFAR_GATED_STEPS = 3  # the gated step timed alone, before its profile
+# a forward's train-mode forwards by step kind: plain, a cn step, and a
+# consistency step's clean and two CrossNorm forwards
+FORWARDS = {"plain": (False,), "cn": (True,),
+            "cn_consistency": (False, True, True)}
+R50_CONSIST_RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "imagenet",
+                                  "resnet50", "cnsn-consist.yaml")
+# phase kernel_vs_plain_cifar: (model, (N, H, W, C)) of K1 and K2 at
+# DenseNet-40-12's C ≡ 4 (mod 8) channels (its BN and 'conv1_pre' inputs)
+# and AllConvNet's late planes, b=128 bf16; K3 at DenseNet's eval batch of
+# 1000; K4 (H, Cin, Cout) at DenseNet's sites (narrow 24→12, wmma from 36)
+# and ResNeXt-29's stem (3→64, wmma)
+CIFAR_STATS = (("densenet", (128, 32, 32, 36)),
+               ("densenet", (128, 16, 16, 180)),
+               ("densenet", (128, 8, 8, 324)),
+               ("allconv", (128, 6, 6, 192)), ("allconv", (128, 8, 8, 192)),
+               ("allconv", (128, 10, 10, 192)))
+CIFAR_K3 = ((32, 36), (16, 180), (8, 324))
+CIFAR_K4 = (("densenet", 32, 24, 12), ("densenet", 32, 36, 12),
+            ("densenet", 8, 432, 12), ("resnext", 32, 3, 64))
+# phase trainer_cifar: cli train of one synthetic epoch and cli eval
+TRAINER_CIFAR_RECIPES = tuple(
+    os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10", m,
+                 "cnsn-consist.yaml") for m in ("densenet", "wideresnet"))
 
 
 def emit(obj):
@@ -809,15 +856,17 @@ def conv3x3_mode(mode):
 
 
 def flagship(dev, recipe=RECIPE):
-    """The flagship recipe's (or another ImageNet cn_image recipe's) train
-    state and step, b=128 224² bf16, built as a user builds it;
-    ``step(cn)`` runs a cn_image or a plain step."""
+    """The flagship recipe's (or another ImageNet recipe's: cn_image or
+    cn_image_consist) train state and step, b=128 224² bf16, built as a
+    user builds it; ``step(cn)`` runs the recipe's gated step or a plain
+    step."""
     from cnsn_tpu_torch.config import load_config
     from cnsn_tpu_torch.models import build_model
     from cnsn_tpu_torch.train import (StepFns, create_train_state,
                                       imagenet_step_lr)
     cfg = load_config(recipe, compute_dtype="bf16")
-    check(cfg.regime == "cn_image" and cfg.schedule == "imagenet_step",
+    check(cfg.regime in ("cn_image", "cn_image_consist")
+          and cfg.schedule == "imagenet_step",
           f"recipe resolves to {cfg.regime}, {cfg.schedule}")
     model = build_model(cfg.model, cfg.num_classes,
                         generator=torch.Generator().manual_seed(cfg.seed),
@@ -828,7 +877,9 @@ def flagship(dev, recipe=RECIPE):
                                 STEPS_PER_EPOCH),
         momentum=cfg.momentum, weight_decay=cfg.weight_decay,
         nesterov=cfg.nesterov, device=dev)
-    steps = StepFns(image_crop=cfg.crop, image_beta=cfg.beta)
+    steps = StepFns(consist_wt=cfg.consist_wt or 0.0, image_crop=cfg.crop,
+                    image_beta=cfg.beta)
+    gated = getattr(steps, cfg.regime)
     b = cfg.batch_size
     gen = torch.Generator().manual_seed(cfg.seed)
     images = torch.randn(b, IMAGE, IMAGE, 3, generator=gen).to(dev)
@@ -840,7 +891,7 @@ def flagship(dev, recipe=RECIPE):
 
     def step(cn):
         if cn:
-            return steps.cn_image(state, images, labels, generator=perm_gen)
+            return gated(state, images, labels, generator=perm_gen)
         return steps.plain(state, images, labels)
 
     return cfg, state, steps, step, gates, images, labels
@@ -1224,54 +1275,86 @@ def phase_train_wrn(dev):
     return wrn_counts
 
 
+def bound_shares(card, refs):
+    """Each quantity's card error (``compare_runs``: a loss's one-step
+    list, or a tensor's (error, name)) over its bound,
+    ``CARD_VS_CPU_ROUNDING`` times the largest of the witnesses' errors
+    ``refs``, floored at ``ROUNDING_FLOOR``."""
+    return {key: got[0] / (CARD_VS_CPU_ROUNDING * max(
+        max(r[key][0] for r in refs), ROUNDING_FLOOR))
+        for key, got in card.items()}
+
+
+def card_vs_cpu_step(dev, head, run, want, seeds=None):
+    """One training step of ``train/rounding.py`` (``run(device, dtype,
+    replay=, seed=, **kw)``), float32 with TF32 off, on the card and on
+    the CPU, each held to a float64 twin on the CPU that replays its ReLU
+    masks: the card's error at most ``CARD_VS_CPU_ROUNDING`` times the
+    CPU's (``bound_shares``), in the loss and in the worst tensor of the
+    state and of the momentum buffers after the step; the card's K1 and
+    K2 launches equal to ``want``.  With ``seeds``, where the card reads
+    within 30% of that bound the check is made again at each seed against
+    the largest of two float32 witnesses (the CPU, the card with exact BN
+    sums), as ``train_card_vs_cpu_seeds``.  Emits ``head`` with the
+    readings."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train.rounding import compare_runs, exact_bn_sums
+
+    def errors(device, seed=3, **kw):
+        got = run(device, torch.float32, seed=seed, **kw)
+        return got, compare_runs(got, run("cpu", torch.float64,
+                                          replay=got.tape, seed=seed))
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    card, card_err = errors(dev)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    cpu, cpu_err = errors("cpu")
+    share = bound_shares(card_err, [cpu_err])
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in card.states[1].values())
+    line = {**head, "batch": 8, "image": 32, "dtype": "float32",
+            "tf32": False, "loss_card": card.losses[0],
+            "loss_cpu": cpu.losses[0],
+            "vs_replaying_float64": {"card": card_err, "cpu": cpu_err},
+            "share_of_bound": share,
+            "bound": f"card <= {CARD_VS_CPU_ROUNDING} x max(cpu, "
+                     f"{ROUNDING_FLOOR})", "launches": launches,
+            "expected_launches": want, "finite": finite}
+    worst = max(share.values())
+    if seeds is not None and worst > 0.7:
+        line["seeds"] = {
+            seed: bound_shares(errors(dev, seed)[1], [
+                errors("cpu", seed)[1],
+                errors(dev, seed, sums=exact_bn_sums)[1]])
+            for seed in seeds}
+        worst = max(max(v.values()) for v in line["seeds"].values())
+    emit(line)
+    what = f"{head['phase']} {head.get('knobs', head.get('model'))}"
+    check(finite, f"{what}: finite parameters after the step")
+    check(launches == want, f"{what}: launches {launches}, expected {want}")
+    check(worst <= 1.0, f"{what}: card vs float64 at {worst} of the bound")
+
+
 def phase_cn_card_vs_cpu(dev):
     """One cn step of a reduced WRN (depth 10, widen 2, pos 'post', b=8
-    32², float32, TF32 off) with fixed draws (sites 1 and 3 on, each
-    site's permutation and boxes from a seed: ``train/rounding.py``'s
-    ``run_cn_step``), for CrossNorm 'neither' (K1 and its backward at the
-    active sites), CNSN 'both' (masked statistics) and CNSN 'style' (the
-    fused site), on the card and on the CPU.  Each run is held to a
-    float64 twin on the CPU that replays its ReLU masks; the card's error
-    may be at most ``CARD_VS_CPU_ROUNDING`` times the CPU's (floored at
-    ``ROUNDING_FLOOR``), as in train_card_vs_cpu: in the loss, and in the
-    worst tensor of the state and of the momentum buffers after the
-    step.  The card's K1 and K2 launches are checked."""
-    from cnsn_tpu_torch.ops.kernels import LAUNCHES
-    from cnsn_tpu_torch.train.rounding import (CN_KNOBS, CN_MASK,
-                                               compare_runs, run_cn_step)
-    f32, f64 = torch.float32, torch.float64
+    32²) with fixed draws (sites 1 and 3 on, each site's permutation and
+    boxes from a seed: ``train/rounding.py``'s ``run_cn_step``), for
+    CrossNorm 'neither' (K1 and its backward at the active sites), CNSN
+    'both' (masked statistics) and CNSN 'style' (the fused site), held
+    card against CPU by ``card_vs_cpu_step``."""
+    from cnsn_tpu_torch.train.rounding import CN_KNOBS, CN_MASK, run_cn_step
     for knobs in CN_KNOBS:
-        torch.cuda.synchronize()
-        LAUNCHES.clear()
-        card = run_cn_step(dev, f32, knobs)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        cpu = run_cn_step("cpu", f32, knobs)
-        errs = {name: compare_runs(run, run_cn_step(
-            "cpu", f64, knobs, replay=run.tape))
-            for name, run in (("card", card), ("cpu", cpu))}
-        finite = all(bool(torch.isfinite(v).all())
-                     for v in card.states[1].values())
         k1 = CN_STEP_K1[knobs]
-        want = {"bn_sums": CN_STEP_BN, "bn_sums_bwd": CN_STEP_BN,
-                "ins_stats": k1, "ins_stats_bwd": k1}
-        emit({"phase": "cn_card_vs_cpu", "knobs": knobs,
-              "model": "wideresnet depth 10 widen 2 pos post", "batch": 8,
-              "image": 32, "dtype": "float32", "tf32": False,
-              "mask": list(CN_MASK), "loss_card": card.losses[0],
-              "loss_cpu": cpu.losses[0], "vs_replaying_float64": errs,
-              "bound": f"card <= {CARD_VS_CPU_ROUNDING} x max(cpu, "
-                       f"{ROUNDING_FLOOR})", "launches": launches,
-              "expected_launches": want, "finite": finite})
-        check(finite, f"finite parameters after the {knobs} cn step")
-        check(launches == want, f"{knobs} cn step launches {launches}, "
-              f"expected {want}")
-        for key, cpu_err in errs["cpu"].items():
-            # the loss's one-step list, or a tensor's (error, name)
-            got, ref = errs["card"][key][0], cpu_err[0]
-            check(got <= CARD_VS_CPU_ROUNDING * max(ref, ROUNDING_FLOOR),
-                  f"{knobs} card vs float64 {key}: {got} against the "
-                  f"CPU's {ref}")
+        card_vs_cpu_step(
+            dev, {"phase": "cn_card_vs_cpu", "knobs": knobs,
+                  "model": "wideresnet depth 10 widen 2 pos post",
+                  "mask": list(CN_MASK)},
+            lambda device, dtype, **kw: run_cn_step(device, dtype, knobs,
+                                                    **kw),
+            {"bn_sums": CN_STEP_BN, "bn_sums_bwd": CN_STEP_BN,
+             "ins_stats": k1, "ins_stats_bwd": k1})
 
 
 def phase_train_wrn_cn(dev):
@@ -1396,6 +1479,36 @@ def _cli(argv, log):
     return buf.getvalue()
 
 
+def cli_train_eval(common, epochs, exp_root, log):
+    """``cli train`` with the arguments ``common`` under
+    CNSN_CONV3X3=pallas for ``epochs`` epochs into ``exp_root``, log.txt
+    holding one five-column row an epoch; then ``cli eval resume=<its last
+    checkpoint>`` printing the last row's Test Error exactly.  Returns
+    (exp dir, log.txt's rows, the last checkpoint, the printed Test
+    Error, the seconds cli train took)."""
+    t0 = time.perf_counter()
+    with conv3x3_mode("pallas"):
+        _cli(["train", *common, f"epochs={epochs}", f"exp_dir={exp_root}"],
+             log)
+    train_s = time.perf_counter() - t0
+    [exp_dir] = [os.path.join(d, e) for d in glob.glob(exp_root + "/*")
+                 for e in os.listdir(d)]
+    lines = open(os.path.join(exp_dir, "log.txt")).read().splitlines()
+    header = "epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1"
+    check(header in lines, f"log.txt {lines}")
+    rows = [ln.split("\t") for ln in lines[lines.index(header) + 1:]]
+    check(len(rows) == epochs and all(len(r) == 5 for r in rows),
+          f"log.txt rows {rows}")
+    [last] = [os.path.join(exp_dir, f) for f in os.listdir(exp_dir)
+              if f.endswith("_last_ckpt")]
+    with conv3x3_mode("pallas"):
+        printed = _cli(["eval", *common, f"resume={last}"], log)
+    m = re.search(r"Test Error (\S+)", printed)
+    check(m is not None and m.group(1) == rows[-1][3],
+          f"cli eval printed {printed!r}, log.txt's last row {rows[-1]}")
+    return exp_dir, rows, last, m.group(1), train_s
+
+
 def phase_trainer_wrn(dev, step_ms, cnsn_counts):
     """The host side of CIFAR training at full width: cnsn.yaml (WRN-40-2
     + CNSN 'both', b=128 32² bf16, CNSN_CONV3X3=pallas) on the synthetic
@@ -1438,14 +1551,8 @@ def phase_trainer_wrn(dev, step_ms, cnsn_counts):
               "synthetic_data=true", "compute_dtype=bf16"]
 
     # (a) the command line, end to end
-    exp_root = os.path.join(out_dir, "exp")
-    t0 = time.perf_counter()
-    with conv3x3_mode("pallas"):
-        _cli(["train", *common, f"epochs={TRAINER_EPOCHS}",
-              f"exp_dir={exp_root}"], log)
-    train_s = time.perf_counter() - t0
-    [exp_dir] = [os.path.join(d, e) for d in glob.glob(exp_root + "/*")
-                 for e in os.listdir(d)]
+    exp_dir, rows, last, test_error, train_s = cli_train_eval(
+        common, TRAINER_EPOCHS, os.path.join(out_dir, "exp"), log)
     files = sorted(os.listdir(exp_dir))
     for want in ("log.txt", "WideResNet_last_ckpt", "WideResNet_best_ckpt",
                  "config.yaml"):
@@ -1453,18 +1560,6 @@ def phase_trainer_wrn(dev, step_ms, cnsn_counts):
     check(any(f.startswith("code-") for f in files)
           and any(f.startswith("train-") for f in files),
           f"exp dir {files}: code snapshot, tee log")
-    lines = open(os.path.join(exp_dir, "log.txt")).read().splitlines()
-    header = "epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1"
-    check(header in lines, f"log.txt {lines}")
-    rows = [ln.split("\t") for ln in lines[lines.index(header) + 1:]]
-    check(len(rows) == TRAINER_EPOCHS and all(len(r) == 5 for r in rows),
-          f"log.txt rows {rows}")
-    last = os.path.join(exp_dir, "WideResNet_last_ckpt")
-    with conv3x3_mode("pallas"):
-        printed = _cli(["eval", *common, f"resume={last}"], log)
-    m = re.search(r"Test Error (\S+)", printed)
-    check(m is not None and m.group(1) == rows[-1][3],
-          f"cli eval printed {printed!r}, log.txt's last row {rows[-1]}")
     artifact = os.path.join(out_dir, "wrn_cnsn_bf16.pt2")
     _cli(["export", *common, f"resume={last}", "--out", artifact], log)
     model = build_classifier(cfg.model, cfg.num_classes, device=dev,
@@ -1482,7 +1577,7 @@ def phase_trainer_wrn(dev, step_ms, cnsn_counts):
     scale = eager.abs().max().item()
     emit({"phase": "trainer_wrn_cli", "recipe": recipe,
           "epochs": TRAINER_EPOCHS, "train_s": train_s, "files": files,
-          "log_rows": rows, "eval_test_error": m.group(1),
+          "log_rows": rows, "eval_test_error": test_error,
           "ckpt_epoch": ckpt["epoch"], "ckpt_step": ckpt["step"],
           "export_max_abs_err": export_err, "max_abs_logit": scale})
     check(ckpt["epoch"] == TRAINER_EPOCHS and ckpt["step"] == 4 * TRAINER_EPOCHS,
@@ -1599,20 +1694,23 @@ def phase_trainer_wrn(dev, step_ms, cnsn_counts):
             "eval_batches": batches}
 
 
-def phase_train_resnet_cn_both(dev):
-    """``imagenet/resnet50/cn.yaml``: image CrossNorm at crop 'both' (the
-    style statistics inside one box, applied inside another, both masked:
-    plain torch) on a plain ResNet-50 (no CNSN site), b=128 224² bf16, for
-    R50_CN_STEPS steps gated as the flagship is: 53 K2 launches forward
-    and backward per step and no K1 launch; the time of the last three; a
-    profile of one cn_image step.  Returns the launches."""
+def resnet_recipe_steps(dev, recipe, phase, resolves, want):
+    """R50_CN_STEPS steps of an ImageNet recipe (``flagship``: b=128 224²
+    bf16) gated as the flagship is, every step's launches checked against
+    ``want[gate]``, the time of the last three and the peak memory; then
+    one gated step alone, timed, and two profiled, their K1 and K2 kernels
+    checked.  ``resolves``: the config fields the recipe must resolve to.
+    Emits the ``phase`` and ``phase``_profile lines; returns the
+    launches."""
     from cnsn_tpu_torch.ops.kernels import LAUNCHES
     from cnsn_tpu_torch.utils.profiling import device_time_breakdown
-    cfg, state, _, step, gates, images, _ = flagship(dev, R50_CN_RECIPE)
-    check((cfg.cnsn_type, cfg.crop) == (None, "both"),
-          f"resnet50/cn.yaml resolves to {cfg}")
+    cfg, state, _, step, gates, images, _ = flagship(dev, recipe)
+    name = os.path.relpath(recipe, ROOT)
+    got = {k: getattr(cfg, k) for k in resolves}
+    check(got == resolves, f"{name} resolves to {got}")
     n = R50_CN_STEPS
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     per_step, losses = [], []
     for i in range(n):
@@ -1624,28 +1722,571 @@ def phase_train_resnet_cn_both(dev):
     float(losses[-1])
     ms = (time.perf_counter() - t0) * 1e3 / (n - 2)
     counts = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    float(step(True)[1]["loss"])
+    gated_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = torch.stack(losses).float().cpu()
-    want = {"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS}
-    emit({"phase": "train_resnet_cn_both",
-          "recipe": os.path.relpath(R50_CN_RECIPE, ROOT),
-          "regime": cfg.regime, "crop": cfg.crop, "batch": cfg.batch_size,
-          "image": IMAGE, "dtype": "bfloat16", "steps": n,
-          "gates": [int(g) for g in gates[:n]], "launches": counts,
-          "per_step_launches": per_step, "ms_per_step_last3": ms,
-          "img_per_s": cfg.batch_size / ms * 1e3, "losses": losses.tolist(),
-          "card": nvidia_smi_name_power()})
-    check(all(d == want for d in per_step),
-          f"resnet50/cn.yaml launches per step {per_step}, expected {want}")
+    expected = [want[bool(g)] for g in gates[:n]]
+    emit({"phase": phase, "recipe": name, "regime": cfg.regime,
+          "crop": cfg.crop, "consist_wt": cfg.consist_wt,
+          "batch": cfg.batch_size, "image": IMAGE, "dtype": "bfloat16",
+          "steps": n, "gates": [int(g) for g in gates[:n]],
+          "launches": counts, "per_step_launches": per_step,
+          "ms_per_step_last3": ms, "img_per_s": cfg.batch_size / ms * 1e3,
+          "gated_step_ms": gated_ms, "losses": losses.tolist(),
+          "peak_mem_gib": peak, "card": nvidia_smi_name_power()})
+    check(per_step == expected,
+          f"{name} launches per step {per_step}, expected {expected}")
     check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
-    prof = device_time_breakdown(lambda: step(True), iters=2, warmup=1,
+    prof = device_time_breakdown(lambda: step(True), iters=2, warmup=0,
                                  top=12)
-    prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / ms
-    emit({"phase": "train_resnet_cn_both_profile", "step": "cn_image",
+    prof["idle_share_vs_unprofiled"] = 1.0 - prof["device_busy_ms"] / gated_ms
+    emit({"phase": phase + "_profile", "step": cfg.regime,
           "batch": cfg.batch_size, "dtype": "bfloat16", **prof})
-    check_stats_kernels(prof, want, "resnet50/cn.yaml cn_image step")
+    check_stats_kernels(prof, want[True], f"{name} {cfg.regime} step")
     del state, images
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_train_resnet_cn_both(dev):
+    """``imagenet/resnet50/cn.yaml``: image CrossNorm at crop 'both' (the
+    style statistics inside one box, applied inside another, both masked:
+    plain torch) on a plain ResNet-50 (no CNSN site): 53 K2 launches
+    forward and backward per step and no K1 launch
+    (``resnet_recipe_steps``)."""
+    step = {"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS}
+    return resnet_recipe_steps(
+        dev, R50_CN_RECIPE, "train_resnet_cn_both",
+        {"regime": "cn_image", "cnsn_type": None, "crop": "both"},
+        {False: step, True: step})
+
+
+def phase_train_resnet_consist(dev):
+    """``imagenet/resnet50/cnsn-consist.yaml`` (ResNet-50 + SelfNorm post,
+    image CrossNorm at crop 'both' drawn twice a consistency step, three
+    forwards in one graph, consist_wt 10; ``resnet_recipe_steps``): each
+    forward runs 53 BatchNorms and 16 SelfNorms, and image CrossNorm at
+    crop 'both' takes masked statistics (plain torch), no K1 of its own.
+    Three forwards of activations stay alive to the backward: the line's
+    peak memory."""
+    plain = {"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS,
+             "ins_stats": SN_SITES, "ins_stats_bwd": SN_SITES}
+    return resnet_recipe_steps(
+        dev, R50_CONSIST_RECIPE, "train_resnet_consist",
+        {"regime": "cn_image_consist", "cnsn_type": "sn", "crop": "both"},
+        {False: plain, True: {k: 3 * v for k, v in plain.items()}})
+
+
+def phase_kernel_vs_plain_cifar(dev, flush):
+    """The kernels at the shapes the three other CIFAR models give them
+    (``CIFAR_STATS``, ``CIFAR_K3``, ``CIFAR_K4``), each against its plain
+    version as at the other shapes, with times, bound and the library's
+    call: K1 forward (eps 1e-12, SelfNorm's) and backward and K2 forward
+    and backward at DenseNet's C ≡ 4 (mod 8) channels (one-element loads)
+    and AllConvNet's 6², 8² and 10² planes; K3 at DenseNet's eval shapes
+    at batch 1000 and at b=128 at each of its SelfNorm sites whose C is
+    not a multiple of 8 (the v1 kernel); K4 bf16 at
+    DenseNet's narrow and wmma sites and ResNeXt's stem.  Each row's
+    ``sites`` is 1: its times are per call."""
+    from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
+                                    bn_sums_cuda, bn_sums_reference,
+                                    ins_stats_bwd_cuda,
+                                    ins_stats_bwd_reference, ins_stats_cuda,
+                                    ins_stats_reference, selfnorm_infer_cuda,
+                                    selfnorm_infer_reference, selfnorm_path,
+                                    wgrad3x3_cuda, wgrad3x3_path,
+                                    wgrad3x3_reference)
+    from cnsn_tpu_torch.ops.kernels.conv_wgrad import PATHS
+    from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS as SN_PATHS
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for model, shape in CIFAR_STATS:
+        n, _, _, c = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5
+             + 0.3).to(torch.bfloat16)
+        elems, stats = x.numel(), n * c * 4
+        got, want = ins_stats_cuda(x, 1e-12), ins_stats_reference(x, 1e-12)
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+        err = max((g - r).abs().max().item() for g, r in zip(got, want))
+        rows.append(_row(
+            "ins_stats", shape, torch.bfloat16, 1, err,
+            {"rtol": 1e-5, "atol": 1e-5}, flush,
+            lambda: ins_stats_cuda(x, 1e-12),
+            lambda: ins_stats_reference(x, 1e-12),
+            lambda: torch.std_mean(x, dim=(1, 2)), "torch.std_mean",
+            elems * 2 + 2 * stats, 3 * elems, model=model, eps=1e-12))
+        mean, std = want
+        gm = torch.randn(n, c, generator=gen, device=dev)
+        gs = torch.randn(n, c, generator=gen, device=dev)
+        got = ins_stats_bwd_cuda(x, mean, std, gm, gs)
+        want = ins_stats_bwd_reference(x, mean, std, gm, gs)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= 2 ** -7 * want.float().abs().max().item(),
+              f"K1 backward {shape}: {err}")
+        rows.append(_row(
+            "ins_stats_bwd", shape, torch.bfloat16, 1, err,
+            {"of_max_abs": 2 ** -7}, flush,
+            lambda: ins_stats_bwd_cuda(x, mean, std, gm, gs),
+            lambda: ins_stats_bwd_reference(x, mean, std, gm, gs), None,
+            "null: no single PyTorch call computes this backward",
+            2 * elems * 2 + 4 * stats, 4 * elems, model=model))
+        m0 = torch.randn(c, generator=gen, device=dev) * 0.3
+        s1, s2 = bn_sums_cuda(x, m0)
+        w1, w2 = bn_sums_reference(x, m0)
+        torch.cuda.synchronize()
+        d_abs = (x.float() - m0).abs().sum(dim=(0, 1, 2))
+        err = max((s1 - w1).abs().max().item(), (s2 - w2).abs().max().item())
+        check(bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
+              and bool(((s2 - w2).abs() <= 1e-5 * w2).all()),
+              f"K2 forward {shape}: {err}")
+        rows.append(_row(
+            "bn_sums", shape, torch.bfloat16, 1, err,
+            {"s1_of_sum_abs": 1e-5, "s2_rtol": 1e-5}, flush,
+            lambda: bn_sums_cuda(x, m0), lambda: bn_sums_reference(x, m0),
+            lambda: torch.var_mean(x, dim=(0, 1, 2)), "torch.var_mean",
+            elems * 2 + 3 * c * 4, 4 * elems, model=model))
+        g1 = torch.randn(c, generator=gen, device=dev)
+        g2 = torch.randn(c, generator=gen, device=dev) * 1e-3
+        got = bn_sums_bwd_cuda(x, m0, g1, g2)
+        want = bn_sums_bwd_reference(x, m0, g1, g2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= 2 ** -7 * want.float().abs().max().item(),
+              f"K2 backward {shape}: {err}")
+        rows.append(_row(
+            "bn_sums_bwd", shape, torch.bfloat16, 1, err,
+            {"of_max_abs": 2 ** -7}, flush,
+            lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
+            lambda: bn_sums_bwd_reference(x, m0, g1, g2), None,
+            "null: no single PyTorch call computes this backward",
+            2 * elems * 2 + 3 * c * 4, 4 * elems, model=model))
+        del x, got, want, mean, std
+    # DenseNet's eval at the recipes' eval batch (one site a block), and
+    # at b=128 at each SelfNorm site that takes v1 (C ≡ 4 mod 8): the
+    # sites of train_cifar_models' DenseNet eval step
+    recipe = os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
+                          "densenet", "cnsn.yaml")
+    sites = [(128, h, w, c) for h, w, c in selfnorm_inputs(
+        _cifar_model(dev, recipe)[1].model, dev) if c % 8]
+    k3_cases = ([("densenet_eval", (EVAL_BATCH, hw, hw, c))
+                 for hw, c in CIFAR_K3]
+                + [("densenet_eval_b128", shape) for shape in sites])
+    for model, shape in k3_cases:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5
+             + 0.3).to(torch.bfloat16)
+        w = torch.randn(c, 2, generator=gen, device=dev) * 0.3
+        a = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+        b = torch.randn(c, generator=gen, device=dev) * 0.1
+        path = selfnorm_path(x)
+        check(path == "v1", f"K3 {shape} takes {path}")
+        got = selfnorm_infer_cuda(x, w, a, b)
+        want = selfnorm_infer_reference(x, w, a, b)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[torch.bfloat16])
+        err = (got.float() - want.float()).abs().max().item()
+        rows.append(_row(
+            SN_PATHS[path][1], shape, torch.bfloat16, 1, err,
+            TOL[torch.bfloat16], flush,
+            lambda: selfnorm_infer_cuda(x, w, a, b),
+            lambda: selfnorm_infer_reference(x, w, a, b), None,
+            "null: no single PyTorch call computes the fused SelfNorm",
+            2 * x.numel() * 2 + 4 * c * 4, 5 * x.numel(), path=path,
+            model=model))
+        del x, got, want
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for model, hw, cin, cout in CIFAR_K4:
+        x = torch.randn(128, hw, hw, cin, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        dy = torch.randn(128, hw, hw, cout, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        path = wgrad3x3_path(x, dy)
+        got = wgrad3x3_cuda(x, dy)
+        want = wgrad3x3_reference(x, dy)
+        scale = wgrad3x3_reference(x.abs(), dy.abs())
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        worst = (err / scale.clamp_min(1e-30)).max().item()
+        check(bool((err <= K4_TOL * scale).all()),
+              f"K4 {path} {tuple(x.shape)}->{cout}: {worst} of sum |x||dy|")
+        w = torch.empty(cout, cin, 3, 3, device=dev, dtype=torch.bfloat16,
+                        memory_format=torch.channels_last)
+        xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        rows.append(_row(
+            PATHS[path][1], (128, hw, hw, cin, cout), torch.bfloat16, 1,
+            err.max().item(), {"of_sum_abs_x_dy": K4_TOL}, flush,
+            lambda: wgrad3x3_cuda(x, dy), lambda: wgrad3x3_reference(x, dy),
+            lambda: torch.ops.aten.convolution_backward(
+                dyc, xc, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [False, True, False]),
+            "aten.convolution_backward weight only (cuDNN wgrad)",
+            (x.numel() + dy.numel()) * 2 + 9 * cin * cout * 4,
+            2 * x.numel() * 9 * cout, peak=BF16_FLOPS, model=model,
+            err_over_sum_abs=worst, path=path))
+        del x, dy, got, want, scale, err
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _cifar_model(dev, recipe, **over):
+    """A CIFAR recipe's config, model (bf16, CNSN_CONV3X3=pallas, random
+    weights from its seed) and train state, and its steps."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
+    cfg = load_config(recipe, compute_dtype="bf16", **over)
+    with conv3x3_mode("pallas"):
+        model = build_model(cfg.model, cfg.num_classes,
+                            generator=torch.Generator().manual_seed(cfg.seed),
+                            pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
+                            cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16)
+    state = create_train_state(
+        model, cosine_lr(cfg.lr, cfg.epochs * WRN_STEPS_PER_EPOCH),
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        nesterov=cfg.nesterov, device=dev)
+    steps = StepFns(active_num=cfg.active_num or 1,
+                    consist_wt=cfg.consist_wt or 0.0, image_crop=cfg.crop,
+                    image_beta=cfg.beta)
+    return cfg, state, steps
+
+
+def selfnorm_inputs(model, dev, image=WRN_IMAGE):
+    """(H, W, C) of the input of each SelfNorm site of ``model``, in the
+    order of one eval forward."""
+    from cnsn_tpu_torch.nn import SelfNorm
+    shapes = []
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: shapes.append((*args[0].shape[2:],
+                                         args[0].shape[1])))
+        for m in model.modules() if isinstance(m, SelfNorm)]
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, image, image, 3, device=dev))
+    finally:
+        for h in handles:
+            h.remove()
+        model.train()
+    return shapes
+
+
+def k4_paths_per_forward(model, dev, image=WRN_IMAGE):
+    """K4's launches per train forward of ``model`` by kernel, from the
+    path rule (``wgrad3x3_path``) at each stride-1 ``ConvCustomBwd``'s
+    channels and plane in bf16 (what the backward hands K4: NHWC-
+    contiguous, 16-byte-aligned copies)."""
+    from cnsn_tpu_torch.models.common import ConvCustomBwd
+    from cnsn_tpu_torch.ops import wgrad3x3_path
+    from cnsn_tpu_torch.ops.kernels.conv_wgrad import PATHS
+    paths = collections.Counter()
+
+    def hook(module, inputs, out):
+        _, cin, h, w = inputs[0].shape
+        x = torch.empty(1, h, w, cin, device=dev, dtype=torch.bfloat16)
+        dy = torch.empty(1, h, w, out.shape[1], device=dev,
+                         dtype=torch.bfloat16)
+        paths[wgrad3x3_path(x, dy)] += 1
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, ConvCustomBwd) and m.stride == 1]
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, image, image, 3, device=dev))
+    finally:
+        for h in handles:
+            h.remove()
+        model.train()
+    return {PATHS[p][1]: n for p, n in paths.items()}
+
+
+def expected_launches(model, cfg, kind, k4):
+    """The K1, K2 and K4 launches of one ``kind`` step (``FORWARDS``) of a
+    CNSN model at its recipe: per train forward, K2 once per BatchNorm2d
+    and each way; K1 (each way) once per SelfNorm site, and on a
+    CrossNorm forward once more per active CrossNorm site whose crop
+    leaves a role unmasked, except at a fused CNSN site, whose one K1
+    pass serves both; K4 ``k4`` per forward."""
+    from cnsn_tpu_torch.nn import CNSN
+    from cnsn_tpu_torch.nn.norm import BatchNorm
+    sites = [m for m in model.modules() if isinstance(m, CNSN)]
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    n_sn = sum(m.selfnorm is not None for m in sites)
+    fused = all(m.fused for m in sites)
+    unmasked = "cn" in cfg.cnsn_type and cfg.crop != "both"
+    out = collections.Counter()
+    for cn in FORWARDS[kind]:
+        k1 = n_sn
+        if cn and not fused and unmasked:
+            k1 += cfg.active_num
+        out.update({"bn_sums": n_bn, "bn_sums_bwd": n_bn, "ins_stats": k1,
+                    "ins_stats_bwd": k1, **k4})
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_train_cifar_models(dev):
+    """The other three CIFAR models (AllConvNet, DenseNet-40-12,
+    ResNeXt-29 4×32d) at their cnsn.yaml (the cn regime) and
+    cnsn-consist.yaml (cn_consistency), and WRN-40-2's cnsn-consist.yaml:
+    each at b=128 32² bf16 under CNSN_CONV3X3=pallas, gated by
+    ``RandomState(GATE_SEED).rand() < cn_prob`` (the gated step or plain,
+    as ``cnsn_tpu/train/trainer.py:263-266`` picks), TRAIN_STEPS steps
+    timed as train_wrn times them (``timed_windows``), every step's
+    launches checked against ``expected_launches`` (K4 by kernel
+    from the path rule at the model's shapes); the peak memory; a profile
+    of one gated step (its K1 and K2 kernels checked); then one eval step
+    with K3's launches by kernel against the path rule at each SelfNorm
+    site.  Returns each recipe's launches and its eval launches."""
+    from cnsn_tpu_torch.nn import SelfNorm
+    from cnsn_tpu_torch.ops import selfnorm_path
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS as SN_PATHS
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    out = {}
+    for recipe in CIFAR_RECIPES:
+        name = os.path.relpath(recipe, os.path.join(ROOT, "cnsn_tpu",
+                                                     "configs"))
+        cfg, state, steps = _cifar_model(dev, recipe)
+        check(cfg.regime in ("cn", "cn_consistency"),
+              f"{name} resolves to {cfg.regime}")
+        b = cfg.batch_size
+        gen = torch.Generator().manual_seed(cfg.seed)
+        images = torch.randn(b, WRN_IMAGE, WRN_IMAGE, 3, generator=gen).to(dev)
+        labels = torch.randint(0, cfg.num_classes, (b,),
+                               generator=gen).to(dev)
+        draws = torch.Generator().manual_seed(cfg.seed)
+        gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < cfg.cn_prob
+        gated = getattr(steps, cfg.regime)
+
+        def step(cn):
+            if cn:
+                return gated(state, images, labels, generator=draws)
+            return steps.plain(state, images, labels)
+
+        k4 = k4_paths_per_forward(state.model, dev)
+        want = {kind: expected_launches(state.model, cfg, kind, k4)
+                for kind in ("plain", cfg.regime)}
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        per_step, losses, window_ms, warmup_s = timed_windows(
+            lambda i: step(gates[i]))
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(window_ms)
+        emit({"phase": "train_cifar_models", "recipe": name,
+              "model": cfg.model, "regime": cfg.regime, "pos": cfg.pos,
+              "cnsn_type": cfg.cnsn_type, "crop": cfg.crop,
+              "cn_prob": cfg.cn_prob, "active_num": cfg.active_num,
+              "consist_wt": cfg.consist_wt, "conv3x3": "pallas", "batch": b,
+              "image": WRN_IMAGE, "dtype": "bfloat16", "steps": TRAIN_STEPS,
+              "gated_steps": int(gates.sum()),
+              "gates": [int(g) for g in gates],
+              "k4_per_forward_by_kernel": k4,
+              "expected_per_step": want, "launches": counts,
+              "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+              "losses_finite": bool(torch.isfinite(losses).all()),
+              "warmup_s": warmup_s, "windows_ms_per_step": window_ms,
+              "ms_per_step": med, "img_per_s": b / med * 1e3,
+              "peak_mem_gib": peak, "host_loadavg": os.getloadavg(),
+              "card": nvidia_smi_name_power()})
+        bad = [(i, got, want[cfg.regime if g else "plain"])
+               for i, (got, g) in enumerate(zip(per_step, gates))
+               if got != want[cfg.regime if g else "plain"]]
+        check(not bad, f"{name} launches per step (step, got, expected): "
+              f"{bad[:2]}")
+        check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+        # the gated step alone (the windows mix it with plain steps), then
+        # one of it profiled, beside that time
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(CIFAR_GATED_STEPS):
+            loss = step(True)[1]["loss"]
+        float(loss)
+        gated_ms = (time.perf_counter() - t0) * 1e3 / CIFAR_GATED_STEPS
+        prof = device_time_breakdown(lambda: step(True), iters=1, warmup=0,
+                                     top=12)
+        prof["gated_step_ms_unprofiled"] = gated_ms
+        prof["idle_share_vs_unprofiled"] = (1.0 - prof["device_busy_ms"]
+                                            / gated_ms)
+        prof["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        emit({"phase": "train_cifar_models_profile", "recipe": name,
+              "step": cfg.regime, "batch": b, "dtype": "bfloat16", **prof})
+        check_stats_kernels(prof, want[cfg.regime], f"{name} gated step")
+        paths = collections.Counter()
+        handles = [m.register_forward_pre_hook(
+            lambda mod, args: paths.update(
+                [SN_PATHS[selfnorm_path(args[0].permute(0, 2, 3, 1))][1]]))
+            for m in state.model.modules() if isinstance(m, SelfNorm)]
+        LAUNCHES.clear()
+        ev = steps.eval_step(state, images, labels)
+        torch.cuda.synchronize()
+        for h in handles:
+            h.remove()
+        k3 = dict(LAUNCHES)
+        emit({"phase": "train_cifar_models_then_eval", "recipe": name,
+              "batch": b, "launches": k3, "expected": dict(paths),
+              "loss": ev["loss"].item(), "correct": ev["correct"].item()})
+        check(k3 == dict(paths) and sum(k3.values()) == sum(
+            isinstance(m, SelfNorm) for m in state.model.modules()),
+            f"{name} eval launches {k3}, expected {dict(paths)}")
+        check(ev["logits"].shape == (b, cfg.num_classes)
+              and bool(torch.isfinite(ev["logits"]).all()),
+              f"finite {name} eval logits")
+        out[name] = {"train": counts, "eval": k3, "steps": TRAIN_STEPS,
+                     "ms_per_step": med}
+        del state, images, ev
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_densenet_k4_vs_cudnn(dev, flush):
+    """DenseNet-40-12 (cnsn.yaml, b=128 32² bf16, CNSN_CONV3X3=pallas):
+    one train forward and backward, the x and dy of each of its 37
+    stride-1 3×3 convs captured; at each, K4's weight gradient (the
+    kernel the path rule picks: wmma from Cin 36 on, narrow at 3→24 and
+    24→12) against cuDNN's float32 gradient of the same bf16 values (TF32
+    off), within K4_TOL of Σ|x|·|dy|; the gradient the backward handed the
+    conv weight equal to K4's rounded to bf16; and per site K4's time
+    beside cuDNN's bf16 weight gradient (what the conv mode runs) and the
+    plain version, with its bound.  Returns per-step sums by kernel."""
+    from cnsn_tpu_torch.models.common import ConvCustomBwd
+    from cnsn_tpu_torch.ops import (wgrad3x3_cuda, wgrad3x3_path,
+                                    wgrad3x3_reference)
+    from cnsn_tpu_torch.train.losses import cross_entropy
+    recipe = os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
+                          "densenet", "cnsn.yaml")
+    cfg, state, _ = _cifar_model(dev, recipe)
+    model = state.model
+    gen = torch.Generator().manual_seed(cfg.seed)
+    images = torch.randn(cfg.batch_size, WRN_IMAGE, WRN_IMAGE, 3,
+                         generator=gen).to(dev)
+    labels = torch.randint(0, cfg.num_classes, (cfg.batch_size,),
+                           generator=gen).to(dev)
+    convs = {n: m for n, m in model.named_modules()
+             if isinstance(m, ConvCustomBwd) and m.stride == 1}
+    seen = {}
+
+    def hook(name):
+        def fn(module, inputs, out):
+            # the conv's input in its compute type (the stem's is cast)
+            seen[name] = [inputs[0].detach().to(out.dtype), None]
+            out.register_hook(lambda g: seen[name].__setitem__(1, g))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in convs.items()]
+    model.zero_grad(set_to_none=True)
+    cross_entropy(model.train()(images), labels).backward()
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    sites, totals = [], collections.defaultdict(float)
+    for name, conv in convs.items():
+        xc, dyc = seen[name]
+        x = xc.permute(0, 2, 3, 1).contiguous()
+        dy = dyc.permute(0, 2, 3, 1).contiguous()
+        cin, cout = x.shape[-1], dy.shape[-1]
+        path = wgrad3x3_path(x, dy)
+        got = wgrad3x3_cuda(x, dy).permute(3, 2, 0, 1)
+        w32 = torch.empty(cout, cin, 3, 3, device=dev)
+        ref = torch.ops.aten.convolution_backward(
+            dyc.float(), xc.float(), w32, None, [1, 1], [1, 1], [1, 1],
+            False, [0, 0], 1, [False, True, False])[1]
+        scale = wgrad3x3_reference(x.abs(), dy.abs()).permute(3, 2, 0, 1)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        worst = (err / scale.clamp_min(1e-30)).max().item()
+        applied = torch.equal(conv.weight.grad,
+                              got.to(torch.bfloat16).float())
+        check(bool((err <= K4_TOL * scale).all()),
+              f"DenseNet {name} K4 {path} vs cuDNN: {worst} of sum |x||dy|")
+        check(applied, f"DenseNet {name}: the weight's gradient is not K4's")
+        wb = torch.empty(cout, cin, 3, 3, device=dev, dtype=torch.bfloat16,
+                         memory_format=torch.channels_last)
+        k_ms = time_ms(lambda: wgrad3x3_cuda(x, dy), 20, flush)
+        lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+            dyc, xc, wb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False]), 20, flush)
+        p_ms = time_ms(lambda: wgrad3x3_reference(x, dy), 5, flush)
+        b_ms, b_by = bound((x.numel() + dy.numel()) * 2 + 9 * cin * cout * 4,
+                           2 * x.numel() * 9 * cout, BF16_FLOPS)
+        sites.append({"conv": name, "shape": list(x.shape), "cout": cout,
+                      "path": path, "err_over_sum_abs": worst,
+                      "kernel_ms": k_ms, "cudnn_ms": lib_ms,
+                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+        for key, v in (("kernel_ms", k_ms), ("library_ms", lib_ms),
+                       ("plain_ms", p_ms), ("bound_ms", b_ms)):
+            totals[(path, key)] += v
+        totals[(path, "sites")] += 1
+        del x, dy, got, ref, scale, err
+    torch.backends.cudnn.allow_tf32 = tf32
+    by_path = collections.defaultdict(dict)
+    for (path, key), v in totals.items():
+        by_path[path][key] = v
+    emit({"phase": "densenet_k4_vs_cudnn", "recipe": "cifar10/densenet/"
+          "cnsn.yaml", "batch": cfg.batch_size, "image": WRN_IMAGE,
+          "dtype": "bfloat16", "tol": f"{K4_TOL} of sum |x||dy| against "
+          "cuDNN's float32 gradient of the same bf16 values",
+          "sites": sites, "per_step_by_kernel": dict(by_path),
+          "card": nvidia_smi_name_power()})
+    del state, model, seen
+    torch.cuda.empty_cache()
+    return dict(by_path)
+
+
+def phase_consist_card_vs_cpu(dev):
+    """One cn_consistency step (three forwards, fixed masks and draws:
+    ``train/rounding.py::run_consist_step``) of a WRN of depth 10 at
+    cnsn-consist.yaml's knobs and of a DenseNet of depth 7 at its
+    cnsn-consist.yaml's (crop 'content': C = 24, 36, 48), b=8 32², held
+    card against CPU by ``card_vs_cpu_step``, with the multi-seed witness
+    check at seeds 0-3 where one seed reads within 30% of the bound."""
+    from cnsn_tpu_torch.train.rounding import CONSIST, run_consist_step
+    bn = {"wrn": CN_STEP_BN, "densenet": 6}
+    k1 = {"wrn": 3 * 3, "densenet": 3 * 3 + 1 + 1}  # 3 SN sites, content crop
+    for model in CONSIST:
+        card_vs_cpu_step(
+            dev, {"phase": "consist_card_vs_cpu", "model": model},
+            lambda device, dtype, **kw: run_consist_step(device, dtype,
+                                                         model, **kw),
+            {"bn_sums": 3 * bn[model], "bn_sums_bwd": 3 * bn[model],
+             "ins_stats": k1[model], "ins_stats_bwd": k1[model]},
+            seeds=range(4))
+
+
+def phase_trainer_cifar(dev):
+    """``cli train`` of cifar10/densenet/cnsn-consist.yaml and of
+    cifar10/wideresnet/cnsn-consist.yaml (cn_consistency), bf16, one
+    epoch of the synthetic set (512 images: 4 steps at b=128, then an
+    evaluation of its 512 test images), then ``cli eval resume=<last>``
+    (``cli_train_eval``).  The printing goes to
+    chiprun_out/trainer_cifar/cli.txt, the experiment directories
+    (checkpoints) to a temporary directory."""
+    out_dir = os.path.join(ROOT, "chiprun_out", "trainer_cifar")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = os.path.join(out_dir, "cli.txt")
+    with tempfile.TemporaryDirectory() as tmp:
+        for recipe in TRAINER_CIFAR_RECIPES:
+            model = os.path.basename(os.path.dirname(recipe))
+            _, rows, last, test_error, train_s = cli_train_eval(
+                ["--config", recipe, "--device", str(dev),
+                 "synthetic_data=true", "compute_dtype=bf16"], 1,
+                os.path.join(tmp, model), log)
+            emit({"phase": "trainer_cifar",
+                  "recipe": os.path.relpath(recipe, ROOT), "epochs": 1,
+                  "train_s": train_s, "log_rows": rows,
+                  "eval_test_error": test_error,
+                  "checkpoint": os.path.basename(last)})
+            check(math.isfinite(float(rows[-1][2])), f"train loss {rows[-1]}")
+    torch.cuda.empty_cache()
 
 
 def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
@@ -1702,6 +2343,10 @@ def main():
     rows = (timed("k1_vs_plain", phase_k1_vs_plain, dev, flush)
             + timed("k2_vs_plain", phase_k2_vs_plain, dev, flush))
     k4_rows = timed("k4_vs_plain", phase_k4_vs_plain, dev, flush)
+    cifar_rows = timed("kernel_vs_plain_cifar", phase_kernel_vs_plain_cifar,
+                       dev, flush)
+    densenet_k4 = timed("densenet_k4_vs_cudnn", phase_densenet_k4_vs_cudnn,
+                        dev, flush)
     del flush
     torch.cuda.empty_cache()
     with conv3x3_mode("conv"):
@@ -1717,9 +2362,15 @@ def main():
     cn_counts, cn_ms = timed("train_wrn_cn", phase_train_wrn_cn, dev)
     trainer_counts = timed("trainer_wrn", phase_trainer_wrn, dev,
                            cn_ms["cnsn.yaml"], cn_counts["cnsn.yaml"])
+    cifar = timed("train_cifar_models", phase_train_cifar_models, dev)
+    with conv3x3_mode("conv"):
+        timed("consist_card_vs_cpu", phase_consist_card_vs_cpu, dev)
+    timed("trainer_cifar", phase_trainer_cifar, dev)
     with conv3x3_mode("conv"):
         cn_counts["resnet50/cn.yaml"] = timed(
             "train_resnet_cn_both", phase_train_resnet_cn_both, dev)
+        r50_consist = timed("train_resnet_consist",
+                            phase_train_resnet_consist, dev)
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
     counts = timed("serving", phase_serving, dev)
 
@@ -1751,16 +2402,30 @@ def main():
               "per": f"WRN-40-2 cnsn.yaml eval batch of {EVAL_BATCH}, "
                      "bf16 (phase trainer_wrn)"},
           "per": f"b={BATCH} bf16 serving forward"}
-    # The v1 kernel runs on no main path (unaligned views, C not a multiple
-    # of the vector): its line holds its time at the same 16 sites through
-    # the forced path
-    k3_v1 = {"name": K3_V1, **k3_source, "launches": counts.get(K3_V1, 0),
-             "max_abs_err": max(r["v1_max_abs_err"] for r in k3_rows),
-             "ms": per_forward(BATCH, "v1_ms"),
-             "plain_ms": per_forward(BATCH, "plain_ms"),
-             "bound_ms": per_forward(BATCH, "bound_ms"),
-             "per": f"b={BATCH} bf16 serving forward's {SN_SITES} sites, "
-                    "forced path (no launch on a main path)"}
+    # The v1 kernel's main path is DenseNet-40-12's eval (its SelfNorm
+    # sites whose C is not a multiple of 8): its launches in one b=128 eval
+    # step, its times at those sites at b=128; beside them, its time at the
+    # serving forward's 16 sites through the forced path
+    v1_eval = cifar["cifar10/densenet/cnsn.yaml"]["eval"].get(K3_V1, 0)
+    dn_v1 = [r for r in cifar_rows if r["model"] == "densenet_eval_b128"]
+    check(v1_eval > 0 and len(dn_v1) == v1_eval,
+          f"K3 v1: {v1_eval} launches in DenseNet's eval, {len(dn_v1)} "
+          "sites timed")
+    k3_v1 = {"name": K3_V1, **k3_source, "launches": v1_eval,
+             "max_abs_err": max(r["max_abs_err"] for r in dn_v1),
+             **{out: sum(r[key] for r in dn_v1) for key, out in (
+                 ("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
+                 ("bound_ms", "bound_ms"))},
+             "per": f"DenseNet-40-12 cnsn.yaml eval step, b=128 bf16: its "
+                    f"{len(dn_v1)} SelfNorm sites whose C is not a multiple "
+                    "of 8 (phase train_cifar_models)",
+             "resnet50_serving_forced": {
+                 "ms": per_forward(BATCH, "v1_ms"),
+                 "plain_ms": per_forward(BATCH, "plain_ms"),
+                 "bound_ms": per_forward(BATCH, "bound_ms"),
+                 "max_abs_err": max(r["v1_max_abs_err"] for r in k3_rows),
+                 "per": f"b={BATCH} bf16 serving forward's {SN_SITES} "
+                        "sites, forced path"}}
     r50 = [r for r in rows if r.get("model", "resnet50") == "resnet50"]
     kernels = [summarize(r50, name, "cuda", f"cnsn_tpu_torch/csrc/{src}",
                          replaces, train_counts[name], TRAIN_STEPS, n_cn)
@@ -1822,27 +2487,36 @@ def main():
         # the wmma kernel's time at the same sites, through the forced path
         kernels[-1]["wmma_ms"] = sum(
             r["wmma_ms"] * r["sites"] for r in wrn_bf16 if r["kernel"] == name)
-    # The wmma kernel runs on neither main path (fp32 and unaligned calls
-    # only): its line holds its time at WRN's 13 narrow sites through the
-    # forced path, per WRN step, with those sites' bound, plain and cuDNN
-    # times, and its fp32 rows beside.
+    # The wmma kernel's main path is DenseNet-40-12's training step under
+    # pallas (35 sites, Cin 36…444 → 12; phase densenet_k4_vs_cudnn times
+    # each site): its line holds that step, with its launches over
+    # train_cifar_models' cnsn.yaml run; beside it, its time at WRN's 13
+    # narrow sites through the forced path, and its fp32 rows
     narrow = [r for r in wrn_bf16 if r["kernel"] == K4_NARROW]
     fp32 = [r for r in k4_rows if r["dtype"] == "float32"]
     check(wrn_counts.get(K4_WMMA, 0) == 0 and all(
         r["kernel"] == K4_WMMA for r in fp32), "K4 wmma kernel's rows")
+    dn = densenet_k4["wmma"]
+    dn_run = cifar["cifar10/densenet/cnsn.yaml"]
     kernels.append({
         "name": K4_WMMA, "route": "cuda", "source": k4_source,
         "replaces": "cnsn_tpu/ops/pallas/conv_wgrad.py:197",
-        "launches": wrn_counts.get(K4_WMMA, 0),
+        "launches": dn_run["train"].get(K4_WMMA, 0),
         "max_abs_err": max([r["wmma_max_abs_err"] for r in narrow]
-                           + [r["max_abs_err"] for r in fp32]),
-        **{out: sum(r[key] * r["sites"] for r in narrow)
-           for key, out in (("wmma_ms", "ms"), ("plain_ms", "plain_ms"),
-                            ("bound_ms", "bound_ms"),
-                            ("library_ms", "library_ms"))},
-        "bound_by": "bytes",
-        "per": "WRN-40-2 b=128 bf16 training step's 13 narrow sites, "
-               "forced path (no launch on a main path)",
+                           + [r["max_abs_err"] for r in fp32]
+                           + [r["max_abs_err"] for r in cifar_rows
+                              if r["kernel"] == K4_WMMA]),
+        "ms": dn["kernel_ms"], "plain_ms": dn["plain_ms"],
+        "bound_ms": dn["bound_ms"], "library_ms": dn["library_ms"],
+        "bound_by": "bytes", "sites": dn["sites"],
+        "per": "DenseNet-40-12 cnsn.yaml b=128 bf16 train forward's "
+               "backward, CNSN_CONV3X3=pallas (launches: "
+               f"{dn_run['steps']} steps of train_cifar_models)",
+        "wrn_narrow_sites_forced": {
+            out: sum(r[key] * r["sites"] for r in narrow)
+            for key, out in (("wmma_ms", "ms"), ("plain_ms", "plain_ms"),
+                             ("bound_ms", "bound_ms"),
+                             ("library_ms", "library_ms"))},
         "fp32": [{"shape": r["shape"], "ms": r["kernel_ms"],
                   "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
                   "library_ms": r["library_ms"]} for r in fp32]})
@@ -1860,6 +2534,20 @@ def main():
                         "steps": trainer_counts["steps"],
                         "per": "WRN-40-2 cnsn.yaml Trainer epoch, b=128 "
                                "bf16, CNSN_CONV3X3=pallas"}
+    # each kernel's launches on the paths of this slice (train_cifar_models'
+    # recipes and their eval steps; resnet50/cnsn-consist.yaml) and its
+    # rows at their new shapes (per call)
+    for k in [k3, k3_v1] + kernels:
+        k["cifar_models"] = {
+            name: {"train": run["train"].get(k["name"], 0),
+                   "eval": run["eval"].get(k["name"], 0),
+                   "steps": run["steps"]} for name, run in cifar.items()}
+        k["resnet50_cnsn_consist"] = r50_consist.get(k["name"], 0)
+        k["new_shapes"] = [
+            {key: r[key] for key in ("shape", "model", "kernel_ms",
+                                     "plain_ms", "bound_ms", "library_ms",
+                                     "max_abs_err")}
+            for r in cifar_rows if r["kernel"] == k["name"]]
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
     emit({"kernels": [k3, k3_v1] + kernels})

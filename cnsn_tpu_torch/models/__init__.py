@@ -9,15 +9,18 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from .allconv import AllConvNet
+from .densenet import DenseNet, densenet
 from .resnet import ResNet, resnet50
+from .resnext import CifarResNeXt, resnext29
 from .wideresnet import WideResNet
 
-__all__ = ["ResNet", "WideResNet", "resnet50", "build_model",
+__all__ = ["AllConvNet", "CifarResNeXt", "DenseNet", "ResNet", "WideResNet",
+           "densenet", "resnet50", "resnext29", "build_model",
            "build_classifier"]
 
 # Models of the JAX package that this port does not have yet.
-_NOT_PORTED = ("allconv", "densenet", "resnext", "resnet50_ibn_a",
-               "resnet50_ibn_b")
+_NOT_PORTED = ("resnet50_ibn_a", "resnet50_ibn_b")
 
 
 def build_model(name: str, num_classes: int,
@@ -27,12 +30,24 @@ def build_model(name: str, num_classes: int,
 
     knobs: pos, crop, beta, cnsn_type, dtype, and ``layers`` for
     resnet50; None values take the model's defaults, as in the JAX
-    registry.  ``wideresnet`` is WRN-40-2 without dropout, as there.
+    registry.  ``wideresnet`` is WRN-40-2 without dropout, ``densenet``
+    DenseNet-40-12 and ``resnext`` ResNeXt-29 4×32d, as there; AllConvNet
+    takes ``pos`` as an int (the recipes write '1').
     """
     knobs = {k: v for k, v in knobs.items() if v is not None}
     if name == "wideresnet":
         return WideResNet(depth=40, widen_factor=2, num_classes=num_classes,
                           generator=generator, **knobs)
+    if name == "allconv":
+        if "pos" in knobs:
+            knobs["pos"] = int(knobs["pos"])
+        return AllConvNet(num_classes=num_classes, generator=generator,
+                          **knobs)
+    if name == "densenet":
+        return densenet(num_classes=num_classes, generator=generator, **knobs)
+    if name == "resnext":
+        return resnext29(num_classes=num_classes, generator=generator,
+                         **knobs)
     if name == "resnet50":
         return resnet50(num_classes=num_classes, generator=generator, **knobs)
     if name in _NOT_PORTED:

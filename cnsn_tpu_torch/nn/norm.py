@@ -1,5 +1,5 @@
 """Normalization layers: port of ``cnsn_tpu/nn/norm.py`` (``BatchNorm``,
-``BatchNorm1dStats``), in train and eval mode.
+``BatchNorm1dStats``, ``gelu_sig``), in train and eval mode.
 
 Both keep the reference torch state-dict names (``weight``, ``bias``,
 ``running_mean``, ``running_var``) with fp32 parameters and statistics.
@@ -14,9 +14,15 @@ from torch import nn
 
 from ..ops.kernels.bn_stats import BnSums
 
-__all__ = ["BatchNorm", "BatchNorm1dStats"]
+__all__ = ["BatchNorm", "BatchNorm1dStats", "gelu_sig"]
 
 MOMENTUM = 0.1  # running ← (1−m)·running + m·batch, as torch's and JAX's
+
+
+def gelu_sig(x: torch.Tensor) -> torch.Tensor:
+    """Sigmoid-approximated GELU, x·sigmoid(1.702·x): AllConvNet's
+    activation (``cnsn_tpu/nn/norm.py:31``), in x's type."""
+    return x * torch.sigmoid(1.702 * x)
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:

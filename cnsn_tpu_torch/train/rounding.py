@@ -35,6 +35,11 @@ largest of the other three (``chip_smoke.py``'s
 with fixed draws (``CN_MASK``, ``cn_draws``), for the knob sets of
 ``CN_KNOBS``; its float32 runs are held to float64 twins that replay
 their ReLU masks in the same way (``chip_smoke.py``'s ``cn_card_vs_cpu``).
+``run_consist_step`` is one ``cn_consistency`` step (three forwards in one
+graph) with fixed masks and draws, of the reduced WRN at
+``cifar10/wideresnet/cnsn-consist.yaml``'s knobs and of a DenseNet of
+depth 7 at ``cifar10/densenet/cnsn-consist.yaml``'s (``CONSIST``;
+``chip_smoke.py``'s ``consist_card_vs_cpu``).
 
 The first prints one JSON line: for the float32 run on ``--device`` and
 for the CPU's, the error against its replaying float64 twin, and, for
@@ -58,8 +63,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models import build_model
+from ..models import densenet as _densenet
 from ..models import resnet as _resnet
 from ..models import wideresnet as _wideresnet
+from ..models.densenet import DenseNet
 from ..models.wideresnet import WideResNet
 from ..ops.bbox import sample_bbox
 from ..ops.crossnorm import grouped_permutation
@@ -69,9 +76,10 @@ from ..utils.device import resolve_device
 from .schedules import cosine_lr
 from .steps import StepFns, create_train_state
 
-__all__ = ["CN_KNOBS", "CN_MASK", "KINDS", "Run", "WITNESSES", "cn_draws",
-           "compare_runs", "compare_traces", "exact_bn_sums", "run_cn_step",
-           "run_steps", "seed_bounds", "seed_spread"]
+__all__ = ["CN_KNOBS", "CN_MASK", "CONSIST", "KINDS", "Run", "WITNESSES",
+           "cn_draws", "compare_runs", "compare_traces", "exact_bn_sums",
+           "run_cn_step", "run_consist_step", "run_steps", "seed_bounds",
+           "seed_spread"]
 
 KINDS = ("plain", "cn_image", "plain")
 BATCH, SIZE, CLASSES = 4, 64, 10  # 64² leaves layer4 at 2x2
@@ -83,6 +91,20 @@ CN_MASK = (True, False, True)
 CN_KNOBS = {"cn_neither": dict(cnsn_type="cn", crop="neither"),
             "cnsn_both": dict(cnsn_type="cnsn", crop="both"),
             "cnsn_style": dict(cnsn_type="cnsn", crop="style")}
+# the cn_consistency step: (model module, model, its two site masks, its
+# SGD) at each recipe's knobs and active_num, 3 sites each (32², 16², 8²)
+CONSIST = {
+    "wrn": (_wideresnet, lambda g: WideResNet(
+        depth=10, widen_factor=2, num_classes=CLASSES, pos="post",
+        cnsn_type="cnsn", crop="both", generator=g),
+        ((True, False, True), (False, True, True)),
+        dict(momentum=0.9, weight_decay=5e-4, nesterov=True)),
+    "densenet": (_densenet, lambda g: DenseNet(
+        depth=7, num_classes=CLASSES, pos="conv1_pre", cnsn_type="cnsn",
+        crop="content", generator=g),
+        ((False, True, False), (True, False, False)),
+        dict(momentum=0.9, weight_decay=1e-4, nesterov=True))}
+CONSIST_WT = 10.0
 
 
 class _Tape:
@@ -96,6 +118,9 @@ class _Tape:
 
     def _next(self):
         return self.replay[len(self.record)]
+
+    def __getattr__(self, name):  # the rest of torch.nn.functional
+        return getattr(F, name)
 
     def relu(self, x):
         if self.replay is None:
@@ -266,6 +291,41 @@ def run_cn_step(device: str | torch.device, dtype: torch.dtype, knobs: str,
             state, images.to(device, dtype), labels.to(device),
             mask=CN_MASK, draws=cn_draws())
         loss = float(metrics["loss"])
+    return Run([loss], {1: _snapshot(state)}, tape.record)
+
+
+def run_consist_step(device: str | torch.device, dtype: torch.dtype,
+                     model: str, *, replay: Optional[list] = None,
+                     seed: int = 3, sums: Optional[Callable] = None) -> Run:
+    """One ``cn_consistency`` step (a clean and two CrossNorm forwards,
+    consist_wt 10, masks and draws fixed: ``CONSIST[model]``,
+    ``cn_draws(0)`` and ``cn_draws(1)``) of ``model`` on ``device`` (TF32
+    off) in ``dtype``, b=8 32², from seeded weights and data; ``replay``:
+    another run's ReLU masks, applied; ``sums``: as in ``run_steps``.  The
+    Run's state is the one after the step (key 1)."""
+    device = resolve_device(device)
+    module, build, masks, sgd = CONSIST[model]
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(CN_BATCH, CN_SIZE, CN_SIZE, 3, generator=gen)
+    labels = torch.randint(0, CLASSES, (CN_BATCH,), generator=gen)
+    net = build(torch.Generator().manual_seed(0))
+    state = create_train_state(net.to(dtype), cosine_lr(0.1, 4),
+                               device=device, **sgd)
+    tape = _Tape(replay)
+    patched = {k: getattr(_bn_stats, k)
+               for k in ("bn_sums_reference", "bn_sums_cuda")}
+    if sums is not None:
+        for k in patched:
+            setattr(_bn_stats, k, sums)
+    try:
+        with _exact(module, tape):
+            state, metrics = StepFns(consist_wt=CONSIST_WT).cn_consistency(
+                state, images.to(device, dtype), labels.to(device),
+                masks=masks, draws=(cn_draws(0), cn_draws(1)))
+            loss = float(metrics["loss"])
+    finally:
+        for k, fn in patched.items():
+            setattr(_bn_stats, k, fn)
     return Run([loss], {1: _snapshot(state)}, tape.record)
 
 

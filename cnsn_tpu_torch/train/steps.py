@@ -1,10 +1,13 @@
 """Train and eval steps: port of ``cnsn_tpu/train/steps.py``:
 ``StepFns.plain``, ``StepFns.cn`` (in-network CrossNorm at a random
-``active_num`` of the model's sites, the CIFAR ``cn`` regime) and
+``active_num`` of the model's sites, the CIFAR ``cn`` regime),
 ``StepFns.cn_image`` (image-space CrossNorm at every crop mode, the
-ImageNet regime), each chosen per batch against ``plain`` by the host
-Bernoulli gate ``np.random.RandomState(seed).rand() < cn_prob``; and the
-eval steps ``eval_step`` and ``eval_sum`` (the evaluation loop's).
+ImageNet regime) and the consistency regimes ``StepFns.cn_consistency``
+and ``StepFns.cn_image_consist`` (a clean and two CrossNorm forwards in
+one graph, cross-entropy plus ``consist_wt`` times their JSD), each
+chosen per batch against ``plain`` by the host Bernoulli gate
+``np.random.RandomState(seed).rand() < cn_prob``; and the eval steps
+``eval_step`` and ``eval_sum`` (the evaluation loop's).
 
 PyTorch runs eagerly, so where JAX jits a pure function of the state, a
 step here updates the state in place (parameters, momentum buffers,
@@ -12,7 +15,9 @@ running statistics, update count) and returns it with its metrics.  The
 metrics are device tensors: nothing in a step waits for the device.  The
 random draws of a CrossNorm step (the site mask, each site's partner
 permutation and boxes) are made on the host from a CPU generator, or
-passed in by the caller.
+passed in by the caller.  A consistency step's three forwards update the
+running statistics in turn, in place: forward k's BatchNorm shift is the
+running mean that forward k−1 left, which is JAX's s1 → s2 → s3.
 
 The optimizer is ``torch.optim.SGD(momentum, dampening=0, weight_decay,
 nesterov)``, which is the JAX package's ``make_sgd``
@@ -20,9 +25,12 @@ nesterov)``, which is the JAX package's ``make_sgd``
 every parameter's gradient (BN and SelfNorm's included) before the
 momentum buffer, and update s runs at lr = schedule(s), counted from 0.
 
-The other five regimes of the JAX package (cn_consistency, augmix,
-augmix_cn, cn_image_consist, cn_image_augmix) are not ported yet
-(ROADMAP queue 1) and raise.
+A parameter that no forward reaches (ResNeXt's 'identity' SelfNorm where
+a downsample overwrites its output) gets a zero gradient, so that its
+weight decay and momentum run as optax runs them on JAX's zero gradient.
+
+The other three regimes of the JAX package (augmix, augmix_cn,
+cn_image_augmix) are not ported yet (ROADMAP queue 1) and raise.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ from torch import nn
 
 from ..ops.crossnorm import cross_norm_2ins
 from ..utils.device import resolve_device
-from .losses import cross_entropy, error_topk
+from .losses import cross_entropy, error_topk, jsd_consistency, softmax_probs
 
 __all__ = ["StepFns", "TrainState", "create_train_state", "sample_cn_mask"]
 
@@ -89,22 +97,36 @@ def _not_ported(regime: str):
 class StepFns:
     """The step functions of one knob set (``steps.py:70-96``):
     ``active_num`` CrossNorm sites on per ``cn`` step, of the model's
-    ``cn_num``; ``image_crop`` and ``image_beta`` for image-space
-    CrossNorm.  One card pairs instances over the whole batch: the
-    per-shard pairing of data parallelism comes with the parallel slice
-    (ROADMAP queue 1)."""
+    ``cn_num``; ``consist_wt``, the JSD's weight in a consistency step;
+    ``image_crop`` and ``image_beta`` for image-space CrossNorm.  One card
+    pairs instances over the whole batch: the per-shard pairing of data
+    parallelism comes with the parallel slice (ROADMAP queue 1)."""
 
-    cn_consistency = staticmethod(_not_ported("cn_consistency"))
     augmix = staticmethod(_not_ported("augmix"))
     augmix_cn = staticmethod(_not_ported("augmix_cn"))
-    cn_image_consist = staticmethod(_not_ported("cn_image_consist"))
     cn_image_augmix = staticmethod(_not_ported("cn_image_augmix"))
 
-    def __init__(self, *, active_num: int = 1, image_crop: str = "neither",
-                 image_beta: float = 1.0):
+    def __init__(self, *, active_num: int = 1, consist_wt: float = 0.0,
+                 image_crop: str = "neither", image_beta: float = 1.0):
         self.active_num = active_num
+        self.consist_wt = consist_wt
         self.image_crop = image_crop
         self.image_beta = image_beta
+
+    @staticmethod
+    def _sgd(state: TrainState, loss: torch.Tensor) -> None:
+        """Back-propagate ``loss`` and take one SGD update at
+        lr = schedule(step); a parameter the loss does not reach gets a
+        zero gradient (JAX's), not none."""
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.schedule(state.step)
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        state.optimizer.step()
+        state.step += 1
 
     def _update(self, state: TrainState, images: torch.Tensor,
                 labels: torch.Tensor, **forward):
@@ -113,16 +135,26 @@ class StepFns:
         model = state.model.train()
         logits = model(images, **forward)
         loss = cross_entropy(logits, labels)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
+        self._sgd(state, loss)
         logits = logits.detach()
         return state, {"loss": loss.detach(),
                        "err1": error_topk(logits, labels, 1)}
+
+    def _consistency(self, state: TrainState, labels: torch.Tensor,
+                     forwards: Sequence[tuple]):
+        """One SGD update on ce(clean) + consist_wt · JSD(clean, a1, a2)
+        over three train-mode forwards in one graph (``steps.py:158-179``),
+        ``forwards`` = [(images, model keyword arguments)] for the clean,
+        the first and the second augmented forward, run in that order."""
+        model = state.model.train()
+        logits = [model(images, **kw) for images, kw in forwards]
+        ce = cross_entropy(logits[0], labels)
+        jsd = jsd_consistency(*(softmax_probs(t) for t in logits))
+        loss = ce + self.consist_wt * jsd
+        self._sgd(state, loss)
+        return state, {"loss": loss.detach(), "ce": ce.detach(),
+                       "jsd": jsd.detach(),
+                       "err1": error_topk(logits[0].detach(), labels, 1)}
 
     def plain(self, state: TrainState, images: torch.Tensor,
               labels: torch.Tensor):
@@ -145,6 +177,26 @@ class StepFns:
         return self._update(state, images, labels, cn_active=mask,
                             cn_draws=draws, generator=generator)
 
+    def cn_consistency(self, state: TrainState, images: torch.Tensor,
+                       labels: torch.Tensor,
+                       masks: Optional[Sequence[Sequence[bool]]] = None,
+                       draws: Optional[Sequence[Sequence[dict]]] = None,
+                       generator: Optional[torch.Generator] = None):
+        """In-network CrossNorm consistency (``steps.py:158-179``): a clean
+        forward (no site on), then one with ``masks[0]`` and one with
+        ``masks[1]`` (``active_num`` of ``cn_num`` sites on each), their
+        site draws ``draws[0]`` and ``draws[1]``; what is None is drawn
+        from ``generator`` (a CPU generator), both masks first, as JAX
+        draws them.  Metrics: loss, ce, jsd, err1 (of the clean logits)."""
+        if masks is None:
+            masks = [sample_cn_mask(state.model.cn_num, self.active_num,
+                                    generator=generator) for _ in range(2)]
+        draws = draws or (None, None)
+        return self._consistency(state, labels, [
+            (images, {}),
+            *((images, dict(cn_active=m, cn_draws=d, generator=generator))
+              for m, d in zip(masks, draws))])
+
     def cn_image(self, state: TrainState, images: torch.Tensor,
                  labels: torch.Tensor, perm: Optional[torch.Tensor] = None,
                  style_box: Optional[Sequence[int]] = None,
@@ -161,6 +213,24 @@ class StepFns:
                 perm=perm, style_box=style_box, content_box=content_box,
                 generator=generator)
         return self.plain(state, images, labels)
+
+    def cn_image_consist(self, state: TrainState, images: torch.Tensor,
+                         labels: torch.Tensor,
+                         draws: Optional[Sequence[dict]] = None,
+                         generator: Optional[torch.Generator] = None):
+        """Image-space CrossNorm consistency (``steps.py:241-262``): two
+        CrossNorm draws of the input batch at crop ``image_crop`` (no
+        gradient flows into them), ``draws[i]`` the keyword arguments of
+        ``cross_norm_2ins`` (perm, style_box, content_box; the rest from
+        ``generator``), then the clean and the two augmented forwards and
+        the loss of ``cn_consistency``."""
+        draws = draws or ({}, {})
+        with torch.no_grad():
+            augmented = [cross_norm_2ins(
+                images, crop=self.image_crop, beta=self.image_beta,
+                generator=generator, **d) for d in draws]
+        return self._consistency(state, labels,
+                                 [(images, {})] + [(a, {}) for a in augmented])
 
     def eval_step(self, state: TrainState, images: torch.Tensor,
                   labels: torch.Tensor):

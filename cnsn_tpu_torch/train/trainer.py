@@ -33,7 +33,6 @@ __all__ = ["Trainer", "NOT_PORTED"]
 
 DTYPES = {"fp32": None, "bf16": torch.bfloat16}
 
-_CONSISTENCY = "ROADMAP queue 1, the consistency regimes"
 _AUGMIX = "ROADMAP queue 1, AugMix"
 _PARALLEL = "ROADMAP queue 1, parallel"
 # (what is set, the ROADMAP item that ports it), checked in this order
@@ -48,12 +47,12 @@ NOT_PORTED = (
     (lambda c: c.ondevice_augmix, "ondevice_augmix", _AUGMIX),
     (lambda c: c.no_jsd, "no_jsd", _AUGMIX),
     (lambda c: "augmix" in c.regime, "an augmix regime", _AUGMIX),
-    (lambda c: c.regime in ("cn_consistency", "cn_image_consist"),
-     "a consistency regime", _CONSISTENCY),
 )
 
-# the regimes whose gated step is ported: regime → StepFns method
-_GATED = {"plain": None, "cn": "cn", "cn_image": "cn_image"}
+# the regimes whose gated step is ported: regime → the StepFns method the
+# gate picks, else plain (cnsn_tpu/train/trainer.py:259-278)
+_GATED = {"plain": None, "cn": "cn", "cn_consistency": "cn_consistency",
+          "cn_image": "cn_image", "cn_image_consist": "cn_image_consist"}
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
@@ -129,6 +128,7 @@ class Trainer:
             print(f"loaded pretrained '{cfg.pretrained}' "
                   f"({unmatched} unmatched keys)")
         self.steps = StepFns(active_num=cfg.active_num or 1,
+                             consist_wt=cfg.consist_wt or 0.0,
                              image_crop=cfg.crop or "neither",
                              image_beta=cfg.beta or 1.0)
 

@@ -1,15 +1,20 @@
 """Carry weights over from the JAX package's parameter trees.
 
-``state_dict_from_jax(params, batch_stats)`` is the inverse of
-``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet and WideResNet
-trees: it takes the JAX trees as nested dicts of arrays (numpy, or
-anything ``np.array`` reads) and returns a torch state dict in the
-reference's key names and layouts, which the port's modules load with
-``load_state_dict``:
+``state_dict_from_jax(params, batch_stats, key_map=None)`` is the inverse
+of ``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet, WideResNet,
+DenseNet, ResNeXt and (with ``key_map``) AllConvNet trees: it takes the
+JAX trees as nested dicts of arrays (numpy, or anything ``np.array``
+reads) and returns a torch state dict in the reference's key names and
+layouts, which the port's modules load with ``load_state_dict``:
 
   path  layer1_0 → layer1.0;  block1_0 → block1.layer.0 (WideResNet);
-        downsample_conv/_bn → downsample.0/.1
-  conv  kernel (kH, kW, I, O)  → weight (O, I, kH, kW)
+        dense1_0 → dense1.0, trans1_bn/_conv → trans1.bn1/.conv1
+        (DenseNet); stage1_0 → stage_1.0 (ResNeXt);
+        downsample_conv/_bn → downsample.0/.1;  a top-level name in
+        ``key_map``'s values → its key (AllConvNet: conv_0 → features.0
+        through ``models/allconv.py::allconv_key_map(pos)``, the map
+        ``convert_state_dict`` takes the other way)
+  conv  kernel (kH, kW, I/groups, O)  → weight (O, I/groups, kH, kW)
   dense kernel (in, out)       → weight (out, in)
   norm  scale / bias           → weight / bias
   stats mean / var             → running_mean / running_var
@@ -18,28 +23,33 @@ reference's key names and layouts, which the port's modules load with
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax"]
 
-_BLOCK = re.compile(r"^(layer\d+)_(\d+)$")
-_WRN_BLOCK = re.compile(r"^(block\d+)_(\d+)$")
+# JAX module name → torch path, by pattern (first match wins)
+_PATHS = ((re.compile(r"^(layer\d+|dense\d+)_(\d+)$"), r"\1.\2"),
+          (re.compile(r"^(block\d+)_(\d+)$"), r"\1.layer.\2"),
+          (re.compile(r"^stage(\d+)_(\d+)$"), r"stage_\1.\2"),
+          (re.compile(r"^(trans\d+)_(bn|conv)$"), r"\1.\g<2>1"))
 _DOWNSAMPLE = {"downsample_conv": "downsample.0",
                "downsample_bn": "downsample.1"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
-def _module_key(path) -> str:
+def _module_key(path, top: Mapping[str, str]) -> str:
     parts = []
-    for p in path:
-        m, w = _BLOCK.match(p), _WRN_BLOCK.match(p)
-        if m:
-            parts.append(f"{m.group(1)}.{m.group(2)}")
-        elif w:
-            parts.append(f"{w.group(1)}.layer.{w.group(2)}")
+    for i, p in enumerate(path):
+        if i == 0 and p in top:
+            parts.append(top[p])
+            continue
+        for pattern, repl in _PATHS:
+            if pattern.match(p):
+                parts.append(pattern.sub(repl, p))
+                break
         else:
             parts.append(_DOWNSAMPLE.get(p, p))
     return ".".join(parts)
@@ -58,11 +68,15 @@ def _join(mod: str, leaf: str) -> str:
 
 
 def state_dict_from_jax(params: Mapping[str, Any],
-                        batch_stats: Mapping[str, Any]
+                        batch_stats: Mapping[str, Any],
+                        key_map: Optional[Mapping[str, str]] = None
                         ) -> Dict[str, torch.Tensor]:
+    """``key_map``: torch prefix → JAX top-level module name, the map
+    ``convert_state_dict`` takes (AllConvNet's ``allconv_key_map(pos)``)."""
+    top = {jax_name: prefix for prefix, jax_name in (key_map or {}).items()}
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, v in _leaves(params):
-        mod = _module_key(path)
+        mod = _module_key(path, top)
         if leaf == "kernel" and v.ndim == 4:
             key, v = _join(mod, "weight"), v.transpose(3, 2, 0, 1)
         elif leaf == "kernel" and v.ndim == 2:
@@ -81,6 +95,6 @@ def state_dict_from_jax(params: Mapping[str, Any],
         if leaf not in _STATS:
             raise KeyError(f"no torch name for batch stat "
                            f"{'/'.join(path + (leaf,))}")
-        sd[_join(_module_key(path), _STATS[leaf])] = torch.from_numpy(
+        sd[_join(_module_key(path, top), _STATS[leaf])] = torch.from_numpy(
             np.ascontiguousarray(v))
     return sd

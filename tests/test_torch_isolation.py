@@ -38,6 +38,18 @@ def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
         state, metrics = StepFns().plain(state, torch.randn(2, 8, 8, 3),
                                          torch.tensor([1, 2]))
         assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+        state, metrics = StepFns(consist_wt=10.0).cn_image_consist(
+            state, torch.randn(2, 8, 8, 3), torch.tensor([1, 2]))
+        assert bool(torch.isfinite(metrics["jsd"])) and state.step == 2
+        for name, pos in (("allconv", "1"), ("densenet", "conv1_pre"),
+                          ("resnext", "post")):
+            net = cnsn_tpu_torch.models.build_model(name, 10, pos=pos,
+                                                    cnsn_type="cnsn")
+            state = create_train_state(net, lambda step: 0.01, device="cpu")
+            state, metrics = StepFns(consist_wt=10.0).cn_consistency(
+                state, torch.randn(2, 32, 32, 3), torch.tensor([1, 2]),
+                generator=torch.Generator().manual_seed(0))
+            assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
         import cnsn_tpu_torch.train.trainer as trainer_mod
         from cnsn_tpu_torch import cli, data, evaluation
         from cnsn_tpu_torch.config import load_config

@@ -1410,3 +1410,141 @@ def test_ins_stats_bwd_refuses_a_plan_it_does_not_take():
     assert launch(good) == 0
     torch.cuda.synchronize()
     _k1_bwd_held(dx, x, mean, std, gm, gs)
+
+
+# The CIFAR models of the port beside WRN-40-2, at a small batch: DenseNet-
+# 40-12's channel counts 24 + 12k with C ≡ 4 (mod 8) (K1, K2 at its BN and
+# 'conv1_pre' CNSN inputs: 36 at 32², 180 at 16², 324 at 8²; its
+# 'conv1_post' sites at C = 12) and AllConvNet's late planes (6², 8², 10²
+# at 192 channels)
+CIFAR_STATS = [(8, 32, 32, 36), (8, 16, 16, 180), (8, 8, 8, 324),
+               (8, 32, 32, 12), (8, 6, 6, 192), (8, 8, 8, 192),
+               (8, 10, 10, 192)]
+
+
+@pytest.mark.parametrize("shape", CIFAR_STATS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stats_kernels_at_the_cifar_models_shapes(shape, dtype):
+    """K1 forward and backward and K2 forward and backward at DenseNet's
+    and AllConvNet's shapes, held as at the other shapes: K1 forward to
+    1e-5, its backward to 1e-6 of its scale (fp32) or one bf16 ulp; K2's
+    sums to 1e-5 of Σ|x−m0| and of Σ(x−m0)², its backward to one ulp."""
+    n, _, _, c = shape
+    x = _x(shape, 220 + c, dtype)
+    got = ins_stats_cuda(x, eps=1e-12)
+    want = ins_stats_reference(x, eps=1e-12)
+    gm, gs = _vec((n, c), 221), _vec((n, c), 222)
+    dx = ins_stats_bwd_cuda(x, want[0], want[1], gm, gs)
+    want_dx = ins_stats_bwd_reference(x, want[0], want[1], gm, gs)
+    m0, g1, g2 = _vec((c,), 223, 0.5), _vec((c,), 224), _vec((c,), 225)
+    s1, s2 = bn_sums_cuda(x, m0)
+    w1, w2 = bn_sums_reference(x, m0)
+    bdx = bn_sums_bwd_cuda(x, m0, g1, g2)
+    want_bdx = bn_sums_bwd_reference(x, m0, g1, g2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    rel = 1e-6 if dtype == torch.float32 else 2 ** -7
+    _close_to_scale(dx, want_dx, rel)
+    d = x.float() - m0
+    assert (s1 - w1).abs().max() <= 1e-5 * d.abs().sum(dim=(0, 1, 2)).max()
+    assert (s2 - w2).abs().max() <= 1e-5 * w2.max()
+    _close_to_scale(bdx, want_bdx, 2 ** -7 if dtype == torch.bfloat16
+                    else 1e-6)
+
+
+@pytest.mark.parametrize("hwc", [(32, 32, 36), (16, 16, 180),
+                                 (8, 8, 324)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selfnorm_at_densenets_channels(hwc, dtype):
+    """K3 at DenseNet's 'conv1_pre' SelfNorm channels, C ≡ 4 (mod 8):
+    bf16 takes v1 (C not a multiple of its 8-element vector), fp32 the
+    staged kernel (C a multiple of 4); each held to its plain version."""
+    x, w, a, b = _inputs((100,) + hwc, 230 + hwc[2], dtype)
+    path = selfnorm_path(x)
+    assert path == ("v1" if dtype == torch.bfloat16 else "staged")
+    key = SN_PATHS[path][1]
+    before = LAUNCHES[key]
+    got = selfnorm_infer_cuda(x, w, a, b)
+    want = selfnorm_infer_reference(x, w, a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# K4 at the 3x3 stride-1 convs of DenseNet-40-12 (Cout 12; the stem 3→24
+# and the first dense layer 24→12 narrow, Cin 36…444 wmma) and of
+# ResNeXt-29's stem (3→64, wmma), bf16
+K4_CIFAR = [(32, 3, 24, "narrow"), (32, 24, 12, "narrow"),
+            (32, 36, 12, "wmma"), (32, 156, 12, "wmma"),
+            (16, 300, 12, "wmma"), (8, 432, 12, "wmma"),
+            (32, 3, 64, "wmma")]
+
+
+@pytest.mark.parametrize("h,cin,cout,path", K4_CIFAR)
+def test_wgrad3x3_at_the_cifar_models_bf16_shapes(h, cin, cout, path):
+    """The path the rule picks, and the result within 1e-5 of
+    Σ|x|·|dy|, at bf16 with the operands a model hands K4 (dy a copy of a
+    channel slice of the concatenation's gradient, as the backward makes
+    it for DenseNet)."""
+    x = _x((8, h, h, cin), 240 + cin, torch.bfloat16)
+    dy = _x((8, h, h, cout + 36), 241, torch.bfloat16,
+            offset=0.0)[..., 36:].contiguous()
+    assert wgrad3x3_path(x, dy) == path
+    key = PATHS[path][1]
+    before = LAUNCHES[key]
+    got = wgrad3x3_cuda(x, dy)
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == before + 1
+    _k4_close(got, x, dy)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("allconv", dict(pos=1, cnsn_type="cnsn", crop="style")),
+    ("densenet", dict(depth=7, pos="conv1_pre", cnsn_type="cnsn",
+                      crop="content")),
+    ("resnext", dict(depth=11, pos="post", cnsn_type="cnsn"))])
+def test_cifar_models_take_a_consistency_step_on_the_card(name, kw,
+                                                          monkeypatch):
+    """A reduced model of each, bf16 under CNSN_CONV3X3=pallas: one
+    cn_consistency step (finite loss, every parameter with a finite
+    gradient, K1 and K2 launched), then an eval forward through K3; no
+    grouped conv reaches K4 (ResNeXt launches it for its stem only)."""
+    from cnsn_tpu_torch.models.allconv import AllConvNet
+    from cnsn_tpu_torch.models.densenet import DenseNet
+    from cnsn_tpu_torch.models.resnext import CifarResNeXt
+    from cnsn_tpu_torch.train import StepFns, create_train_state
+    monkeypatch.setenv("CNSN_CONV3X3", "pallas")
+    cls = {"allconv": AllConvNet, "densenet": DenseNet,
+           "resnext": CifarResNeXt}[name]
+    model = cls(num_classes=10, dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(0), **kw)
+    state = create_train_state(model, lambda s: 0.1, device="cuda")
+    images = _x((16, 32, 32, 3), 250)
+    labels = torch.arange(16, device="cuda") % 10
+    LAUNCHES.clear()
+    state, metrics = StepFns(active_num=1, consist_wt=10.0).cn_consistency(
+        state, images, labels, generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in state.model.parameters())
+    assert counts["bn_sums"] == counts["bn_sums_bwd"] > 0
+    assert counts["ins_stats"] > 0 and counts["ins_stats_bwd"] > 0
+    # a 3x3 conv's weight gradient once per forward of the three: DenseNet
+    # at depth 7 has 2 narrow (3→24, 24→12) and 2 wmma convs (36→12,
+    # 48→12), ResNeXt one ungrouped 3x3 conv (its stem, wmma)
+    k4 = {p: counts.get(key, 0) for p, (_, key) in PATHS.items()}
+    want = {"allconv": {"wmma": 0, "wgmma": 0, "narrow": 0},
+            "densenet": {"wmma": 3 * 2, "wgmma": 0, "narrow": 3 * 2},
+            "resnext": {"wmma": 3, "wgmma": 0, "narrow": 0}}[name]
+    assert k4 == want, counts
+    LAUNCHES.clear()
+    with torch.no_grad():
+        out = state.model.eval()(images)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    # one K3 launch per SelfNorm site, one site per CrossNorm site here
+    assert sum(LAUNCHES[key] for _, key in SN_PATHS.values()) == \
+        model.cn_num

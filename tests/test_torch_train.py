@@ -352,11 +352,10 @@ def test_the_cn_recipes_resolve_as_jax_does():
 
 
 def test_other_regimes_are_not_ported_and_cn_num():
-    """The five regimes still to port raise; cn_num is one site per
+    """The three regimes still to port raise; cn_num is one site per
     bottleneck where cnsn_type has CrossNorm, as in JAX."""
     steps = StepFns()
-    for name in ("cn_consistency", "augmix", "augmix_cn",
-                 "cn_image_consist", "cn_image_augmix"):
+    for name in ("augmix", "augmix_cn", "cn_image_augmix"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             getattr(steps, name)(None, None, None)
     for cnsn_type, want in (("sn", 0), ("cnsn", 4), ("cn", 4), (None, 0)):

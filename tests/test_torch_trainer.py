@@ -313,8 +313,6 @@ def test_resume_restores_weights_momentum_and_step(small, tmp_path):
     (CNSN, dict(no_jsd=True), "no_jsd"),
     ("cnsn-augmix.yaml", {}, "augmix"),
     (CNSN, dict(regime="cn_image_augmix"), "augmix"),
-    ("cnsn-consist.yaml", {}, "consistency"),
-    (CNSN, dict(regime="cn_image_consist"), "consistency"),
 ])
 def test_unported_knobs_raise_at_construction(recipe, over, match,
                                               tmp_path):
