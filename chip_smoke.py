@@ -63,6 +63,19 @@ BatchNorm2d layer, K1 once per SelfNorm site and image statistics):
     twin; ``cli train``/``eval resume=`` of DenseNet's and WRN's
     cnsn-consist.yaml; 5 steps of ``imagenet/resnet50/cnsn-consist.yaml``
     (cn_image_consist) at b=128 224² bf16, its peak memory;
+  * the ImageNet loaders and host AugMix: image folders and an ImageNet-C
+    tree written here by PIL, the loaders timed alone ('train', 'eval',
+    'train_augmix' in worker processes); ``cli train`` of
+    ``imagenet/resnet50/cnsn.yaml`` on the folder and ``cli eval
+    resume=`` with ``corrupt_data_dir`` (log.txt's Test Error, the mCE of
+    its 75 ImageNet-C accuracies), a Trainer epoch timed beside the step
+    alone; ``imagenet/resnet50_ibn_b/cnsn-augmix.yaml`` (ResNet-50-IBN-b,
+    cn_image_augmix) in the step loop at its batch with its peak memory,
+    then through ``cli train`` and the AugMix pool; the CIFAR
+    ``cnsn-augmix.yaml`` of WRN-40-2 and DenseNet-40-12 through ``cli
+    train`` and the step loop, AllConvNet's with ``no_jsd``; one float32
+    ``augmix_cn`` and ``cn_image_augmix`` step each, card and CPU against
+    float64 twins;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -218,7 +231,8 @@ CIFAR_GATED_STEPS = 3  # the gated step timed alone, before its profile
 # a forward's train-mode forwards by step kind: plain, a cn step, and a
 # consistency step's clean and two CrossNorm forwards
 FORWARDS = {"plain": (False,), "cn": (True,),
-            "cn_consistency": (False, True, True)}
+            "cn_consistency": (False, True, True),
+            "augmix": (False,), "augmix_cn": (False, True, True)}
 R50_CONSIST_RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "imagenet",
                                   "resnet50", "cnsn-consist.yaml")
 # phase kernel_vs_plain_cifar: (model, (N, H, W, C)) of K1 and K2 at
@@ -238,6 +252,23 @@ CIFAR_K4 = (("densenet", 32, 24, 12), ("densenet", 32, 36, 12),
 TRAINER_CIFAR_RECIPES = tuple(
     os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10", m,
                  "cnsn-consist.yaml") for m in ("densenet", "wideresnet"))
+
+# this slice's phases: fake ImageNet folders written by PIL with a fixed
+# seed (classes; train and validation JPEGs a class; their size, about
+# ImageNet's mean), ImageNet-C's tree (15 corruptions × 5 severities × 2
+# classes × 8 JPEGs of 224²); the IBN-b AugMix recipe's batch: its own
+# b=256 (768 images a forward) does not fit an H100 80GB (out of memory
+# with 78.06 GiB allocated in its first step), so the largest that does
+IN_CLASSES, IN_TRAIN, IN_VAL, IN_SIZE = 10, 128, 25, (500, 375)
+IN_C_CLASSES, IN_C_PER_CLASS = 2, 8
+IBN_RECIPE = os.path.join(ROOT, "cnsn_tpu", "configs", "imagenet",
+                          "resnet50_ibn_b", "cnsn-augmix.yaml")
+IBN_BATCH = 192
+CIFAR_AUGMIX_RECIPES = tuple(
+    os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10", m,
+                 "cnsn-augmix.yaml") for m in ("wideresnet", "densenet"))
+ALLCONV_AUGMIX = os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
+                              "allconv", "cnsn-augmix.yaml")
 
 
 def emit(obj):
@@ -1314,7 +1345,7 @@ def card_vs_cpu_step(dev, head, run, want, seeds=None):
     share = bound_shares(card_err, [cpu_err])
     finite = all(bool(torch.isfinite(v).all())
                  for v in card.states[1].values())
-    line = {**head, "batch": 8, "image": 32, "dtype": "float32",
+    line = {"batch": 8, "image": 32, **head, "dtype": "float32",
             "tf32": False, "loss_card": card.losses[0],
             "loss_cpu": cpu.losses[0],
             "vs_replaying_float64": {"card": card_err, "cpu": cpu_err},
@@ -2289,6 +2320,497 @@ def phase_trainer_cifar(dev):
     torch.cuda.empty_cache()
 
 
+def _jpeg(path, seed, size, quality=90):
+    """One JPEG of smooth content (random coarse colours, upsampled) from
+    ``seed``, (width, height) ``size``."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    w, h = size
+    coarse = rng.randint(0, 256, (h // 24 + 2, w // 24 + 2, 3), np.uint8)
+    Image.fromarray(coarse).resize((w, h), Image.BICUBIC).save(
+        path, quality=quality)
+    return os.path.getsize(path)
+
+
+def write_fake_imagenet(root):
+    """ImageNet's layout under ``root`` (train/ and validation/, a folder
+    a class) and ImageNet-C's under ``root``/c (corruption/severity/
+    class), written by PIL with a fixed seed in threads.  Returns (data
+    dir, ImageNet-C dir, {tree: (files, bytes)})."""
+    from cnsn_tpu_torch.evaluation.classify import CORRUPTIONS
+    jobs = []
+    for split, n in (("train", IN_TRAIN), ("validation", IN_VAL)):
+        for c in range(IN_CLASSES):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            jobs += [(split, os.path.join(d, f"{i:04d}.JPEG"), IN_SIZE)
+                     for i in range(n)]
+    for corruption in CORRUPTIONS:
+        for sev in range(1, 6):
+            for c in range(IN_C_CLASSES):
+                d = os.path.join(root, "c", corruption, str(sev), f"n{c:08d}")
+                os.makedirs(d)
+                jobs += [("imagenet_c", os.path.join(d, f"{i}.JPEG"),
+                          (IMAGE, IMAGE)) for i in range(IN_C_PER_CLASS)]
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        sizes = list(pool.map(lambda j: _jpeg(j[1][1], j[0], j[1][2]),
+                              enumerate(jobs)))
+    trees = collections.defaultdict(lambda: [0, 0])
+    for (tree, _, _), nbytes in zip(jobs, sizes):
+        trees[tree][0] += 1
+        trees[tree][1] += nbytes
+    return root, os.path.join(root, "c"), dict(trees)
+
+
+def time_loader(loader):
+    """One pass of ``loader``: ms for each batch (the first includes the
+    pool's start-up and the first look-ahead), its shapes checked
+    finite."""
+    ms, shapes = [], set()
+    it = iter(loader)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            images, labels = next(it)
+        except StopIteration:
+            break
+        ms.append((time.perf_counter() - t0) * 1e3)
+        shapes.add(images.shape)
+        check(images.dtype == np.float32 and np.isfinite(images).all()
+              and labels.dtype == np.int32, f"batch {images.shape}")
+    return ms, sorted(shapes)
+
+
+def phase_imagenet_loader(root):
+    """The ImageNet host loaders alone on a PIL-written folder
+    (``write_fake_imagenet``): 'train' at b=128 (the recipes' batch) with
+    the recipes' 4 decode threads and with one a core, 'eval' at the
+    recipes' eval batch, 'train_augmix' at b=256 (the IBN-b recipe's)
+    with os.cpu_count() − 1 worker processes.  Returns the paths and ms
+    per batch."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.data import ImageNetLoader, scan_image_folder
+    t0 = time.perf_counter()
+    data_dir, corrupt_dir, trees = write_fake_imagenet(root)
+    write_s = time.perf_counter() - t0
+    cfg = load_config(RECIPE)
+    train = scan_image_folder(os.path.join(data_dir, "train"))
+    val = scan_image_folder(os.path.join(data_dir, "validation"))
+    check(len(train.samples) == IN_CLASSES * IN_TRAIN
+          and len(val.classes) == IN_CLASSES, "the fake folders")
+    ncpu = os.cpu_count()
+    out = {}
+    for name, loader in (
+            (f"train_b{cfg.batch_size}_threads{cfg.workers}",
+             ImageNetLoader(train, cfg.batch_size, workers=cfg.workers)),
+            (f"train_b{cfg.batch_size}_threads{ncpu}",
+             ImageNetLoader(train, cfg.batch_size, workers=ncpu)),
+            (f"eval_b{cfg.eval_batch_size}_threads{cfg.workers}",
+             ImageNetLoader(val, cfg.eval_batch_size, mode="eval",
+                            workers=cfg.workers))):
+        ms, shapes = time_loader(loader)
+        out[name] = {"ms_per_batch": ms, "shapes": shapes,
+                     "ms_per_batch_mean": statistics.mean(ms)}
+    with ImageNetLoader(train, IBN_BATCH, mode="train_augmix",
+                        mp_workers=ncpu - 1) as augmix_loader:
+        ms, shapes = time_loader(augmix_loader)
+    out[f"train_augmix_b{IBN_BATCH}_procs{ncpu - 1}"] = {
+        "ms_per_batch": ms, "shapes": shapes,
+        "ms_per_batch_mean_after_first": statistics.mean(ms[1:])}
+    check(shapes == [(3, IBN_BATCH, IMAGE, IMAGE, 3)], f"AugMix {shapes}")
+    emit({"phase": "imagenet_loader", "trees_files_bytes": trees,
+          "jpeg_size": IN_SIZE, "write_s": write_s, "host_cpus": ncpu,
+          "loaders": out, "host_loadavg": os.getloadavg(),
+          "card": nvidia_smi_name_power()})
+    return data_dir, corrupt_dir, out
+
+
+class StepCounts:
+    """The launches of each step a Trainer takes: its step functions
+    wrapped (``step_launches``) where the Trainer calls them, not where
+    one step calls another (cn_image ends in plain)."""
+
+    def __init__(self, trainer, names):
+        self.per_step, self.names, depth = [], [], [0]
+        for name in names:
+            fn = getattr(trainer.steps, name)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                if depth[0]:
+                    return _fn(*a, **kw)
+                depth[0] += 1
+                try:
+                    self.names.append(_name)
+                    return step_launches(lambda: _fn(*a, **kw),
+                                         self.per_step)
+                finally:
+                    depth[0] -= 1
+            setattr(trainer.steps, name, wrapped)
+
+
+def _spy_evaluate(accs):
+    """``train/trainer.py``'s ``evaluate``, each result's accuracy
+    appended to ``accs``; restore with the returned function."""
+    import cnsn_tpu_torch.train.trainer as trainer_mod
+    evaluate = trainer_mod.evaluate
+
+    def spy(*a, **kw):
+        out = evaluate(*a, **kw)
+        accs.append(out[1])
+        return out
+    trainer_mod.evaluate = spy
+
+    def restore():
+        trainer_mod.evaluate = evaluate
+    return restore
+
+
+def phase_trainer_imagenet(dev, data_dir, corrupt_dir, step_ms, loader_ms):
+    """The flagship recipe through the port's entry points on the fake
+    folder, bf16: ``cli train`` one epoch (10 steps at b=128, then an
+    evaluation of the 250 validation images), its launches against the
+    count from the code (K2 53 and K1 16 each way a step, K1 one more on
+    a cn_image step; K3 16 an eval forward); ``cli eval resume=<last>
+    corrupt_data_dir=`` printing log.txt's Test Error exactly and an mCE
+    equal to ``compute_mce`` of its 75 ImageNet-C accuracies; then a
+    ``Trainer`` of the same recipe, one epoch timed (ms per step beside
+    phase train's step-only ms and the loader's ms per batch alone), the
+    wait per staged batch, each step's launches checked."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.evaluation.classify import compute_mce
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train.trainer import Trainer
+    out_dir = os.path.join(ROOT, "chiprun_out", "trainer_imagenet")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = os.path.join(out_dir, "cli.txt")
+    over = [f"data_dir={data_dir}", "compute_dtype=bf16"]
+    common = ["--config", RECIPE, "--device", str(dev), *over]
+    cfg = load_config(RECIPE, data_dir=data_dir, compute_dtype="bf16")
+    steps = IN_CLASSES * IN_TRAIN // cfg.batch_size
+    gates = np.random.RandomState(cfg.seed).rand(steps) < cfg.cn_prob
+    eval_forwards = -(-IN_CLASSES * IN_VAL // cfg.eval_batch_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with conv3x3_mode("conv"):
+            _cli(["train", *common, "epochs=1", f"exp_dir={tmp}/exp"], log)
+        train_s = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        want = {"bn_sums": BN_LAYERS * steps, "bn_sums_bwd": BN_LAYERS * steps,
+                "ins_stats": SN_SITES * steps + int(gates.sum()),
+                "ins_stats_bwd": SN_SITES * steps,
+                K3_STAGED: SN_SITES * eval_forwards}
+        check(counts == want, f"cli train launches {counts}, expected {want}")
+        [exp_dir] = glob.glob(f"{tmp}/exp/*/*")
+        rows = open(os.path.join(exp_dir, "log.txt")).read().splitlines()
+        row = rows[-1].split("\t")
+        check(len(row) == 5 and math.isfinite(float(row[2])),
+              f"log.txt {rows}")
+        accs = []
+        restore = _spy_evaluate(accs)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        try:
+            with conv3x3_mode("conv"):
+                printed = _cli(["eval", *common,
+                                f"resume={exp_dir}/ResNet_last_ckpt",
+                                f"corrupt_data_dir={corrupt_dir}"], log)
+        finally:
+            restore()
+        eval_s = time.perf_counter() - t0
+        eval_counts = dict(LAUNCHES)
+    m = re.search(r"Test Error (\S+)", printed)
+    check(m is not None and m.group(1) == row[3],
+          f"cli eval printed {printed[:200]!r}, log.txt's row {row}")
+    from cnsn_tpu_torch.evaluation.classify import CORRUPTIONS
+    check(len(accs) == 76, f"{len(accs)} evaluations, expected 1 + 75")
+    mce, _ = compute_mce({c: accs[1 + 5 * k:6 + 5 * k]
+                          for k, c in enumerate(CORRUPTIONS)})
+    printed_mce = re.search(r"^mCE: (\S+)$", printed, re.M)
+    check(printed_mce is not None and printed_mce.group(1) == f"{mce:.2f}",
+          f"printed mCE {printed_mce}, compute_mce {mce}")
+    # ImageNet-C's folders, one eval batch each, and the clean set's
+    c_forwards = 75 * -(-IN_C_CLASSES * IN_C_PER_CLASS
+                        // cfg.eval_batch_size)
+    check(eval_counts == {K3_STAGED: SN_SITES * (eval_forwards + c_forwards)},
+          f"cli eval launches {eval_counts}")
+    # the Trainer alone: one epoch timed, each step's launches
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(RECIPE, data_dir=data_dir, compute_dtype="bf16",
+                          snapshot=False, exp_dir=tmp, print_freq=1000)
+        with conv3x3_mode("conv"):
+            trainer = Trainer(cfg, device=dev)
+        try:
+            rec = StepCounts(trainer, ("cn_image", "plain"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.train_epoch()
+            torch.cuda.synchronize()
+            epoch_ms = (time.perf_counter() - t0) * 1e3
+            wait_ms = trainer.data_wait.avg * 1e3
+        finally:
+            trainer.close()
+    plain = {"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS,
+             "ins_stats": SN_SITES, "ins_stats_bwd": SN_SITES}
+    expected = [dict(plain, ins_stats=SN_SITES + (name == "cn_image"))
+                for name in rec.names]
+    check(rec.per_step == expected and len(expected) == steps,
+          f"Trainer launches per step {rec.per_step}")
+    check(rec.names == ["cn_image" if g else "plain" for g in gates],
+          f"Trainer steps {rec.names}")
+    emit({"phase": "trainer_imagenet", "recipe": os.path.relpath(RECIPE, ROOT),
+          "dtype": "bfloat16", "batch": cfg.batch_size, "steps": steps,
+          "cn_image_steps": int(gates.sum()), "cli_train_s": train_s,
+          "cli_train_launches": counts, "log_row": row,
+          "eval_test_error": m.group(1), "cli_eval_s": eval_s,
+          "cli_eval_launches": eval_counts, "mce": mce,
+          "imagenet_c_accs": accs[1:], "trainer_epoch_ms": epoch_ms,
+          "trainer_ms_per_step": epoch_ms / steps,
+          "step_only_ms": step_ms, "trainer_over_step_only":
+              step_ms / (epoch_ms / steps),
+          "data_wait_ms_per_batch": wait_ms,
+          "loader_alone_ms_per_batch": loader_ms,
+          "trainer_loss": loss, "host_cpus": os.cpu_count(),
+          "host_loadavg": os.getloadavg(), "card": nvidia_smi_name_power()})
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_resnet_ibn_augmix(dev, data_dir):
+    """``imagenet/resnet50_ibn_b/cnsn-augmix.yaml`` (ResNet-50-IBN-b, SN
+    at pos 'residual': 16 sites, an InstanceNorm stem, so 52 BatchNorms;
+    cn_image_augmix gated at cn_prob 0.5, else augmix) at b=IBN_BATCH
+    224² bf16: TRAIN_STEPS steps of the step loop on pre-made (3, B)
+    views from seeds, timed as train_wrn (``timed_windows``), each step's
+    launches against the count (K2 52, K1 16 each way, K1 one more on the
+    gated step: the image statistics of the 3B batch), the peak memory;
+    an eval step through K3 (16); then ``cli train`` of one epoch of 2
+    steps through the host AugMix pool (os.cpu_count() − 1 processes) on
+    the first 2·B images of the fake folder."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.nn import SelfNorm
+    from cnsn_tpu_torch.nn.norm import BatchNorm
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train import (StepFns, create_train_state,
+                                      imagenet_step_lr)
+    cfg = load_config(IBN_RECIPE, compute_dtype="bf16")
+    check((cfg.regime, cfg.pos, cfg.cnsn_type, cfg.crop, cfg.model)
+          == ("cn_image_augmix", "residual", "sn", "neither",
+              "resnet50_ibn_b"), f"{IBN_RECIPE} resolves to {cfg.regime}")
+    b = IBN_BATCH
+    with conv3x3_mode("conv"):
+        model = build_model(cfg.model, cfg.num_classes,
+                            generator=torch.Generator().manual_seed(cfg.seed),
+                            pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
+                            cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16)
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    n_sn = sum(isinstance(m, SelfNorm) for m in model.modules())
+    check((n_bn, n_sn) == (BN_LAYERS - 1, SN_SITES),
+          f"IBN-b has {n_bn} BatchNorms and {n_sn} SelfNorms")
+    state = create_train_state(
+        model, imagenet_step_lr(cfg.lr, cfg.epochs, cfg.batch_size,
+                                STEPS_PER_EPOCH),
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        nesterov=cfg.nesterov, device=dev)
+    steps = StepFns(image_crop=cfg.crop, image_beta=cfg.beta)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    images3 = torch.randn(3, b, IMAGE, IMAGE, 3, generator=gen).to(dev)
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).to(dev)
+    perm_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < cfg.cn_prob
+
+    def step(i):
+        if gates[i]:
+            return steps.cn_image_augmix(state, images3, labels,
+                                         generator=perm_gen)
+        return steps.augmix(state, images3, labels)
+
+    plain = {"bn_sums": n_bn, "bn_sums_bwd": n_bn, "ins_stats": n_sn,
+             "ins_stats_bwd": n_sn}
+    want = {False: plain, True: dict(plain, ins_stats=n_sn + 1)}
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    per_step, losses, window_ms, warmup_s = timed_windows(step)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(window_ms)
+    expected = [want[bool(g)] for g in gates]
+    LAUNCHES.clear()
+    ev = steps.eval_step(state, images3[0], labels)
+    torch.cuda.synchronize()
+    k3 = dict(LAUNCHES)
+    emit({"phase": "train_resnet_ibn_augmix",
+          "recipe": os.path.relpath(IBN_RECIPE, ROOT), "regime": cfg.regime,
+          "batch": b, "recipe_batch": cfg.batch_size, "views": 3,
+          "image": IMAGE, "dtype": "bfloat16", "steps": TRAIN_STEPS,
+          "gated_steps": int(gates.sum()), "gates": [int(g) for g in gates],
+          "launches": counts, "expected_per_step": {
+              "augmix": want[False], "cn_image_augmix": want[True]},
+          "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+          "warmup_s": warmup_s, "windows_ms_per_step": window_ms,
+          "ms_per_step": med, "img_per_s": b / med * 1e3,
+          "peak_mem_gib": peak, "eval_launches": k3,
+          "host_loadavg": os.getloadavg(), "card": nvidia_smi_name_power()})
+    bad = [(i, got, w) for i, (got, w) in enumerate(zip(per_step, expected))
+           if got != w]
+    check(not bad, f"IBN-b launches per step (step, got, expected): "
+          f"{bad[:2]}")
+    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+    check(k3 == {K3_STAGED: n_sn}, f"IBN-b eval launches {k3}")
+    check(bool(torch.isfinite(ev["logits"]).all()), "finite IBN-b logits")
+    del state, images3, ev
+    torch.cuda.empty_cache()
+    # cli train through the host AugMix pool: 2 steps
+    out_dir = os.path.join(ROOT, "chiprun_out", "train_resnet_ibn_augmix")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        small = os.path.join(tmp, "data")
+        files = sorted(glob.glob(os.path.join(data_dir, "train", "*", "*")))
+        for f in files[:2 * b]:
+            d = os.path.join(small, "train", os.path.basename(
+                os.path.dirname(f)))
+            os.makedirs(d, exist_ok=True)
+            os.symlink(f, os.path.join(d, os.path.basename(f)))
+        os.symlink(os.path.join(data_dir, "validation"),
+                   os.path.join(small, "validation"))
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with conv3x3_mode("conv"):
+            _cli(["train", "--config", IBN_RECIPE, "--device", str(dev),
+                  f"data_dir={small}", "compute_dtype=bf16", "epochs=1",
+                  f"batch_size={b}", f"augmix_workers={os.cpu_count() - 1}",
+                  f"exp_dir={tmp}/exp"],
+                 os.path.join(out_dir, "cli.txt"))
+        cli_s = time.perf_counter() - t0
+        cli_counts = dict(LAUNCHES)
+        [exp_dir] = glob.glob(f"{tmp}/exp/*/*")
+        row = open(os.path.join(exp_dir, "log.txt")).read().splitlines()[-1]
+    cli_gates = np.random.RandomState(cfg.seed).rand(2) < cfg.cn_prob
+    check(cli_counts.get("bn_sums") == 2 * n_bn
+          and cli_counts.get("ins_stats") == 2 * n_sn + int(cli_gates.sum())
+          and cli_counts.get(K3_STAGED) == n_sn,
+          f"IBN-b cli train launches {cli_counts}")
+    check(math.isfinite(float(row.split("\t")[2])), f"log.txt row {row}")
+    emit({"phase": "train_resnet_ibn_augmix_cli", "batch": b, "steps": 2,
+          "augmix_workers": os.cpu_count() - 1, "cli_train_s": cli_s,
+          "launches": cli_counts, "log_row": row})
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def phase_train_cifar_augmix(dev):
+    """The CIFAR AugMix recipes (cnsn-augmix.yaml: cn_augmix, augmix_cn
+    gated at cn_prob 0.75 else augmix) of WRN-40-2 and DenseNet-40-12:
+    ``cli train`` of one synthetic epoch (4 steps at b=128, the host
+    AugMix in 4 worker processes) and ``cli eval resume=``
+    (``cli_train_eval``, CNSN_CONV3X3=pallas); then TRAIN_STEPS steps of
+    the step loop on pre-made (3, 128) views, timed, each step's launches
+    against ``expected_launches`` (a 3B forward, and two B forwards with
+    CrossNorm on a gated step); then one ``no_jsd=true`` epoch of
+    AllConvNet's (one AugMix view, the cn and plain steps)."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    out_dir = os.path.join(ROOT, "chiprun_out", "train_cifar_augmix")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = os.path.join(out_dir, "cli.txt")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for recipe in CIFAR_AUGMIX_RECIPES:
+            model = os.path.basename(os.path.dirname(recipe))
+            _, rows, _, test_error, train_s = cli_train_eval(
+                ["--config", recipe, "--device", str(dev),
+                 "synthetic_data=true", "compute_dtype=bf16",
+                 "augmix_workers=4"], 1, os.path.join(tmp, model), log)
+            check(math.isfinite(float(rows[-1][2])), f"train loss {rows}")
+            cfg, state, steps = _cifar_model(dev, recipe)
+            check(cfg.regime == "cn_augmix", f"{recipe}: {cfg.regime}")
+            b = cfg.batch_size
+            gen = torch.Generator().manual_seed(cfg.seed)
+            images3 = torch.randn(3, b, WRN_IMAGE, WRN_IMAGE, 3,
+                                  generator=gen).to(dev)
+            labels = torch.randint(0, cfg.num_classes, (b,),
+                                   generator=gen).to(dev)
+            draws = torch.Generator().manual_seed(cfg.seed)
+            gates = (np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS)
+                     < cfg.cn_prob)
+
+            def step(i):
+                if gates[i]:
+                    return steps.augmix_cn(state, images3, labels,
+                                           generator=draws)
+                return steps.augmix(state, images3, labels)
+
+            k4 = k4_paths_per_forward(state.model, dev)
+            want = {kind: expected_launches(state.model, cfg, kind, k4)
+                    for kind in ("augmix", "augmix_cn")}
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            per_step, losses, window_ms, warmup_s = timed_windows(step)
+            counts = dict(LAUNCHES)
+            med = statistics.median(window_ms)
+            expected = [want["augmix_cn" if g else "augmix"] for g in gates]
+            emit({"phase": "train_cifar_augmix",
+                  "recipe": os.path.relpath(recipe, ROOT),
+                  "regime": cfg.regime, "conv3x3": "pallas", "batch": b,
+                  "views": 3, "dtype": "bfloat16", "cli_train_s": train_s,
+                  "cli_log_rows": rows, "cli_eval_test_error": test_error,
+                  "steps": TRAIN_STEPS, "gated_steps": int(gates.sum()),
+                  "expected_per_step": want, "launches": counts,
+                  "loss_first": losses[0].item(),
+                  "loss_last": losses[-1].item(),
+                  "warmup_s": warmup_s, "windows_ms_per_step": window_ms,
+                  "ms_per_step": med, "img_per_s": b / med * 1e3,
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "card": nvidia_smi_name_power()})
+            bad = [(i, g, w) for i, (g, w) in enumerate(zip(per_step,
+                                                            expected))
+                   if g != w]
+            check(not bad, f"{recipe} launches per step: {bad[:2]}")
+            check(bool(torch.isfinite(losses).all()),
+                  f"losses {losses.tolist()}")
+            out[model] = counts
+            del state, images3
+            torch.cuda.empty_cache()
+        _, rows, _, _, train_s = cli_train_eval(
+            ["--config", ALLCONV_AUGMIX, "--device", str(dev),
+             "synthetic_data=true", "compute_dtype=bf16", "no_jsd=true"], 1,
+            os.path.join(tmp, "allconv"), log)
+        check(math.isfinite(float(rows[-1][2])), f"no_jsd train loss {rows}")
+        emit({"phase": "train_cifar_augmix_no_jsd",
+              "recipe": os.path.relpath(ALLCONV_AUGMIX, ROOT),
+              "cli_train_s": train_s, "cli_log_rows": rows})
+    return out
+
+
+def phase_augmix_card_vs_cpu(dev):
+    """One float32 ``augmix_cn`` step of a WRN of depth 10 and one
+    ``cn_image_augmix`` step of ResNet-50-IBN-b at layers (1, 1, 1, 1)
+    (``train/rounding.py::run_augmix_step``: fixed views, masks, draws and
+    permutation), card and CPU each against a float64 twin that replays
+    their ReLU masks, the card within CARD_VS_CPU_ROUNDING × the CPU's
+    error (``card_vs_cpu_step``), its launches counted: the WRN's 7
+    BatchNorms and 3 fused CNSN sites over three forwards; IBN-b's 16
+    BatchNorms and 4 SelfNorms over one 3B forward, and the image
+    statistics."""
+    from cnsn_tpu_torch.train.rounding import run_augmix_step
+    want = {"augmix_cn": {"bn_sums": 3 * CN_STEP_BN,
+                          "bn_sums_bwd": 3 * CN_STEP_BN,
+                          "ins_stats": 3 * 3, "ins_stats_bwd": 3 * 3},
+            "cn_image_augmix": {"bn_sums": 16, "bn_sums_bwd": 16,
+                                "ins_stats": 4 + 1, "ins_stats_bwd": 4}}
+    shape = {"augmix_cn": (3 * 8, 32), "cn_image_augmix": (3 * 4, 64)}
+    for kind, counts in want.items():
+        card_vs_cpu_step(
+            dev, {"phase": "augmix_card_vs_cpu", "model": kind,
+                  "batch": shape[kind][0], "image": shape[kind][1]},
+            lambda device, dtype, _k=kind, **kw: run_augmix_step(
+                device, dtype, _k, **kw), counts, seeds=range(4))
+
+
 def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
               per="main-path training step"):
     """A kernel's line: ms, plain, bound and library time per main-path
@@ -2371,6 +2893,20 @@ def main():
             "train_resnet_cn_both", phase_train_resnet_cn_both, dev)
         r50_consist = timed("train_resnet_consist",
                             phase_train_resnet_consist, dev)
+    # this slice: the ImageNet loaders and Trainer, ResNet-50-IBN-b's and
+    # the CIFAR AugMix recipes, on folders written here
+    with tempfile.TemporaryDirectory() as fake:
+        data_dir, corrupt_dir, loaders = timed(
+            "imagenet_loader", phase_imagenet_loader, fake)
+        imagenet_counts = timed(
+            "trainer_imagenet", phase_trainer_imagenet, dev, data_dir,
+            corrupt_dir, flagship_ms,
+            next(iter(loaders.values()))["ms_per_batch_mean"])
+        ibn_counts_, _ = timed("train_resnet_ibn_augmix",
+                               phase_train_resnet_ibn_augmix, dev, data_dir)
+    cifar_augmix = timed("train_cifar_augmix", phase_train_cifar_augmix, dev)
+    with conv3x3_mode("conv"):
+        timed("augmix_card_vs_cpu", phase_augmix_card_vs_cpu, dev)
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
     counts = timed("serving", phase_serving, dev)
 
@@ -2543,6 +3079,14 @@ def main():
                    "eval": run["eval"].get(k["name"], 0),
                    "steps": run["steps"]} for name, run in cifar.items()}
         k["resnet50_cnsn_consist"] = r50_consist.get(k["name"], 0)
+        # the ImageNet and AugMix paths: cli train of resnet50/cnsn.yaml on
+        # the fake folder (10 steps and an eval), the IBN-b AugMix step
+        # loop (35 steps), the CIFAR AugMix step loops (35 steps each)
+        k["imagenet_augmix_paths"] = {
+            "imagenet_cli_train": imagenet_counts.get(k["name"], 0),
+            "resnet50_ibn_b_augmix": ibn_counts_.get(k["name"], 0),
+            "cifar_augmix": {m: c.get(k["name"], 0)
+                             for m, c in cifar_augmix.items()}}
         k["new_shapes"] = [
             {key: r[key] for key in ("shape", "model", "kernel_ms",
                                      "plain_ms", "bound_ms", "library_ms",

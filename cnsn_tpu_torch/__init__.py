@@ -2,10 +2,11 @@
 
 It mirrors the JAX package's layout module for module and imports
 nothing of it (nor JAX).  It serves the ResNet-50 + SelfNorm eval forward
-and trains ResNet-50 and the four CIFAR models, WRN-40-2, AllConvNet,
-DenseNet-40-12 and ResNeXt-29 (their sn, cn, cnsn and consistency
-recipes end to end through ``cli train``), on the hand-written Hopper
-kernels of ``ops/kernels`` (``csrc/*.cu``).
+and trains every classification recipe end to end through ``cli
+train``: ResNet-50 and ResNet-50-IBN-b on ImageNet image folders, and the
+four CIFAR models, WRN-40-2, AllConvNet, DenseNet-40-12 and ResNeXt-29,
+host AugMix included, on the hand-written Hopper kernels of
+``ops/kernels`` (``csrc/*.cu``).
 """
 from .models import build_classifier, build_model
 

@@ -7,10 +7,12 @@ JAX package's deterministic fake dataset for smoke tests and benches
 where the real data is not mounted.  CIFAR-C: 50k-row <corruption>.npy +
 labels.npy (5 severities × 10k, evaluated as one pool — cifar.py:292-312).
 The loader yields the JAX loader's batches bit for bit (same seeds, same
-draws in the same order).  Its AugMix modes are not ported yet.
+draws in the same order), in every mode, its AugMix modes serially or
+through a pool of worker processes.
 """
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 from dataclasses import dataclass
@@ -18,8 +20,10 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from .augmix import augmix
 from .transforms import (cifar_eval_transform, cifar_train_geom,
-                         cifar_train_transform)
+                         cifar_train_transform, normalize)
+from .workers import PrefetchPool
 
 __all__ = ["CifarData", "load_cifar", "load_cifar_c", "CifarLoader",
            "CORRUPTIONS"]
@@ -31,7 +35,8 @@ CORRUPTIONS = (
     "jpeg_compression",
 )
 
-_MODES = ("train", "train_geom", "eval")
+_MODES = ("train", "train_geom", "train_augmix", "train_augmix_nojsd",
+          "eval")
 
 
 @dataclass
@@ -84,33 +89,61 @@ def load_cifar_c(corrupt_dir: str,
     return images, labels
 
 
+def _augmix_views(item, aug_kw, nojsd):
+    """One image's views from (uint8 image, seed): the flip/crop geometry,
+    then (clean, AugMix, AugMix), or one AugMix view under ``nojsd``.  At
+    module level, so that the serial path and the pool's workers run the
+    same function (equal bits per seed)."""
+    im, seed = item
+    rng = np.random.RandomState(seed)
+    geom = cifar_train_geom(rng, im)
+    if nojsd:
+        return augmix(rng, geom, normalize, 32, **aug_kw)
+    return (cifar_eval_transform(geom),
+            augmix(rng, geom, normalize, 32, **aug_kw),
+            augmix(rng, geom, normalize, 32, **aug_kw))
+
+
 class CifarLoader:
     """Host-side batch iterator producing NHWC arrays.
 
     mode:
       'train'      — crop/flip/normalize, float32 (cifar.py:325-330)
       'train_geom' — flip/crop only, uint8 (the input of on-device AugMix)
+      'train_augmix'       — flip/crop, then the views (clean, AugMix,
+                             AugMix), float32 (3, B, H, W, C)
+      'train_augmix_nojsd' — one AugMix view, float32 (the reference's
+                             AugMixDataset no_jsd, utils.py:112-113)
       'eval'       — normalize only, float32, in order
 
     Each pass draws from ``RandomState(seed + epoch * 1009)``, the epoch
     counting the passes made; the training modes drop the last partial
-    batch unless ``drop_last`` says otherwise.
+    batch unless ``drop_last`` says otherwise.  An AugMix mode draws one
+    seed per image, and ``workers`` > 0 builds the views in that many
+    worker processes (``PrefetchPool``), one batch ahead, with the same
+    bits as ``workers`` = 0; the pool lives until ``close()``, after which
+    the loader builds them serially.
     """
 
     def __init__(self, data: CifarData, batch_size: int, mode: str = "train",
-                 seed: int = 0, drop_last: Optional[bool] = None):
-        if mode.startswith("train_augmix"):
-            raise NotImplementedError(
-                f"CifarLoader mode {mode!r}: not yet ported (ROADMAP "
-                f"queue 1, AugMix)")
+                 seed: int = 0, aug_severity: float = 3,
+                 mixture_width: int = 3, mixture_depth: int = -1,
+                 all_ops: bool = False, drop_last: Optional[bool] = None,
+                 workers: int = 0):
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}: one of {_MODES}")
         self.data = data
         self.batch_size = batch_size
         self.mode = mode
         self.seed = seed
+        self.aug_kw = dict(aug_severity=aug_severity,
+                           mixture_width=mixture_width,
+                           mixture_depth=mixture_depth, all_ops=all_ops)
         self.drop_last = (mode != "eval") if drop_last is None else drop_last
         self.epoch = 0
+        self._pool = (PrefetchPool(workers)
+                      if workers > 0 and mode.startswith("train_augmix")
+                      else None)
 
     def __len__(self):
         n = len(self.data.images)
@@ -118,8 +151,39 @@ class CifarLoader:
         return n // b if self.drop_last else (n + b - 1) // b
 
     def close(self):
-        """Nothing to release: the AugMix worker pool that the JAX
-        loader closes here is not ported."""
+        """Stop the AugMix worker pool (idempotent)."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _augmix_batches(self, rng, idx, stop):
+        b = self.batch_size
+        nojsd = self.mode.endswith("nojsd")
+        fn = functools.partial(_augmix_views, aug_kw=self.aug_kw,
+                               nojsd=nojsd)
+
+        def items():
+            for s in range(0, stop, b):
+                sel = idx[s:s + b]
+                seeds = rng.randint(0, 2**31, len(sel))
+                yield (list(zip(self.data.images[sel], seeds)),
+                       self.data.labels[sel])
+
+        runner = (self._pool.run(fn, items()) if self._pool is not None
+                  else (([fn(it) for it in batch], lbl)
+                        for batch, lbl in items()))
+        for results, labels in runner:
+            if nojsd:
+                batch = np.stack(results)
+            else:
+                batch = np.stack([np.stack(v) for v in zip(*results)])
+            yield batch.astype(np.float32), labels
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         rng = np.random.RandomState(self.seed + self.epoch * 1009)
@@ -128,6 +192,9 @@ class CifarLoader:
         idx = rng.permutation(n) if self.mode != "eval" else np.arange(n)
         b = self.batch_size
         stop = (n // b) * b if self.drop_last else n
+        if self.mode.startswith("train_augmix"):
+            yield from self._augmix_batches(rng, idx, stop)
+            return
         for s in range(0, stop, b):
             sel = idx[s:s + b]
             imgs = self.data.images[sel]

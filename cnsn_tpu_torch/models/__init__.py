@@ -12,15 +12,16 @@ from ..utils.device import resolve_device
 from .allconv import AllConvNet
 from .densenet import DenseNet, densenet
 from .resnet import ResNet, resnet50
+from .resnet_ibn import ResNetIBN, resnet50_ibn_a, resnet50_ibn_b
 from .resnext import CifarResNeXt, resnext29
 from .wideresnet import WideResNet
 
-__all__ = ["AllConvNet", "CifarResNeXt", "DenseNet", "ResNet", "WideResNet",
-           "densenet", "resnet50", "resnext29", "build_model",
-           "build_classifier"]
+__all__ = ["AllConvNet", "CifarResNeXt", "DenseNet", "ResNet", "ResNetIBN",
+           "WideResNet", "densenet", "resnet50", "resnet50_ibn_a",
+           "resnet50_ibn_b", "resnext29", "build_model", "build_classifier"]
 
-# Models of the JAX package that this port does not have yet.
-_NOT_PORTED = ("resnet50_ibn_a", "resnet50_ibn_b")
+_RESNETS = {"resnet50": resnet50, "resnet50_ibn_a": resnet50_ibn_a,
+            "resnet50_ibn_b": resnet50_ibn_b}
 
 
 def build_model(name: str, num_classes: int,
@@ -29,10 +30,11 @@ def build_model(name: str, num_classes: int,
     """Build a model by reference-script name on the CPU.
 
     knobs: pos, crop, beta, cnsn_type, dtype, and ``layers`` for
-    resnet50; None values take the model's defaults, as in the JAX
-    registry.  ``wideresnet`` is WRN-40-2 without dropout, ``densenet``
-    DenseNet-40-12 and ``resnext`` ResNeXt-29 4×32d, as there; AllConvNet
-    takes ``pos`` as an int (the recipes write '1').
+    resnet50, resnet50_ibn_a and resnet50_ibn_b; None values take the
+    model's defaults, as in the JAX registry.  ``wideresnet`` is WRN-40-2
+    without dropout, ``densenet`` DenseNet-40-12 and ``resnext`` ResNeXt-29
+    4×32d, as there; AllConvNet takes ``pos`` as an int (the recipes write
+    '1').
     """
     knobs = {k: v for k, v in knobs.items() if v is not None}
     if name == "wideresnet":
@@ -48,11 +50,9 @@ def build_model(name: str, num_classes: int,
     if name == "resnext":
         return resnext29(num_classes=num_classes, generator=generator,
                          **knobs)
-    if name == "resnet50":
-        return resnet50(num_classes=num_classes, generator=generator, **knobs)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"model {name!r} is not yet ported to "
-                                  f"cnsn_tpu_torch")
+    if name in _RESNETS:
+        return _RESNETS[name](num_classes=num_classes, generator=generator,
+                              **knobs)
     raise ValueError(f"unknown model: {name}")
 
 

@@ -1,6 +1,6 @@
 """Layers of the port (train and eval mode)."""
 from .cnsn import CNSN, CrossNorm, SelfNorm
-from .norm import BatchNorm, BatchNorm1dStats, gelu_sig
+from .norm import IBN, BatchNorm, BatchNorm1dStats, InstanceNorm, gelu_sig
 
-__all__ = ["BatchNorm", "BatchNorm1dStats", "CNSN", "CrossNorm", "SelfNorm",
-           "gelu_sig"]
+__all__ = ["BatchNorm", "BatchNorm1dStats", "CNSN", "CrossNorm", "IBN",
+           "InstanceNorm", "SelfNorm", "gelu_sig"]

@@ -1,8 +1,10 @@
 """Normalization layers: port of ``cnsn_tpu/nn/norm.py`` (``BatchNorm``,
-``BatchNorm1dStats``, ``gelu_sig``), in train and eval mode.
+``BatchNorm1dStats``, ``InstanceNorm``, ``IBN``, ``gelu_sig``), in train
+and eval mode.
 
-Both keep the reference torch state-dict names (``weight``, ``bias``,
-``running_mean``, ``running_var``) with fp32 parameters and statistics.
+They keep the reference torch state-dict names (``weight``, ``bias``,
+``running_mean``, ``running_var``; IBN's ``IN`` and ``BN`` children) with
+fp32 parameters and statistics.
 In training the running statistics are updated in place (momentum 0.1,
 unbiased variance), where JAX returns them as a new ``batch_stats`` tree.
 """
@@ -14,7 +16,8 @@ from torch import nn
 
 from ..ops.kernels.bn_stats import BnSums
 
-__all__ = ["BatchNorm", "BatchNorm1dStats", "gelu_sig"]
+__all__ = ["BatchNorm", "BatchNorm1dStats", "IBN", "InstanceNorm",
+           "gelu_sig"]
 
 MOMENTUM = 0.1  # running ← (1−m)·running + m·batch, as torch's and JAX's
 
@@ -127,3 +130,48 @@ class BatchNorm1dStats(_NormStats):
         out = (yf - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
         return out.to(y.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """torch.nn.InstanceNorm2d(affine=True) over an NCHW (channels_last)
+    tensor (``cnsn_tpu/nn/norm.py:238-258``): per-(sample, channel)
+    statistics over H·W with the biased variance, in at least fp32, no
+    running statistics, the same in train and eval.  Plain torch, as in
+    the JAX package, where it reaches no Pallas kernel."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.features = features
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def extra_repr(self) -> str:
+        return f"{self.features}, eps={self.eps}"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_stat_dtype(x))
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+        out = (xf - mean) * torch.rsqrt(var + self.eps)
+        shape = (1, self.features, 1, 1)
+        out = out * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return out.to(x.dtype)
+
+
+class IBN(nn.Module):
+    """Instance-Batch Normalization (``cnsn_tpu/nn/norm.py:313-327``):
+    ``InstanceNorm`` on the first ``int(features · ratio)`` channels,
+    ``BatchNorm`` on the rest, concatenated.  The BatchNorm half is
+    copied into a channels_last tensor of its own, so that K2 reads it
+    NHWC-contiguous."""
+
+    def __init__(self, features: int, ratio: float = 0.5):
+        super().__init__()
+        self.half = int(features * ratio)
+        self.IN = InstanceNorm(self.half)
+        self.BN = BatchNorm(features - self.half)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_bn = x[:, self.half:].contiguous(memory_format=torch.channels_last)
+        return torch.cat([self.IN(x[:, :self.half]), self.BN(x_bn)], dim=1)

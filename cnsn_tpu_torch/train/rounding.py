@@ -65,6 +65,7 @@ import torch.nn.functional as F
 from ..models import build_model
 from ..models import densenet as _densenet
 from ..models import resnet as _resnet
+from ..models import resnet_ibn as _resnet_ibn
 from ..models import wideresnet as _wideresnet
 from ..models.densenet import DenseNet
 from ..models.wideresnet import WideResNet
@@ -78,8 +79,8 @@ from .steps import StepFns, create_train_state
 
 __all__ = ["CN_KNOBS", "CN_MASK", "CONSIST", "KINDS", "Run", "WITNESSES",
            "cn_draws", "compare_runs", "compare_traces", "exact_bn_sums",
-           "run_cn_step", "run_consist_step", "run_steps", "seed_bounds",
-           "seed_spread"]
+           "run_augmix_step", "run_cn_step", "run_consist_step", "run_steps",
+           "seed_bounds", "seed_spread"]
 
 KINDS = ("plain", "cn_image", "plain")
 BATCH, SIZE, CLASSES = 4, 64, 10  # 64² leaves layer4 at 2x2
@@ -105,6 +106,13 @@ CONSIST = {
         ((False, True, False), (True, False, False)),
         dict(momentum=0.9, weight_decay=1e-4, nesterov=True))}
 CONSIST_WT = 10.0
+# the AugMix steps: augmix_cn of a WRN of depth 10 at cifar10/wideresnet/
+# cnsn-augmix.yaml's knobs (CNSN post, crop 'style', 1 of 3 sites on a
+# CrossNorm forward), b=8 32²; cn_image_augmix of ResNet-50-IBN-b at
+# layers (1, 1, 1, 1) with the IBN-b recipe's SelfNorm at pos 'residual',
+# image CrossNorm (crop 'neither') over the 3B = 12 instances, 64²
+AUGMIX_MASKS = ((True, False, False), (False, False, True))
+AUGMIX_PERM = (5, 9, 0, 7, 11, 2, 10, 4, 1, 8, 3, 6)
 
 
 class _Tape:
@@ -195,6 +203,22 @@ def _exact(model_module, tape: _Tape):
          torch.backends.cuda.matmul.allow_tf32) = flags
 
 
+
+@contextlib.contextmanager
+def _patched_sums(sums: Optional[Callable]):
+    """Where ``sums`` is given, it takes the place of K2's forward and of
+    its plain version for the BatchNorm sums while the block runs."""
+    saved = {k: getattr(_bn_stats, k)
+             for k in ("bn_sums_reference", "bn_sums_cuda")}
+    if sums is not None:
+        for k in saved:
+            setattr(_bn_stats, k, sums)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(_bn_stats, k, fn)
+
 def exact_bn_sums(x: torch.Tensor, m0: torch.Tensor):
     """K2's sums correctly rounded: the float32 differences x − m0 and
     their rounded squares, as the kernel and the plain version form them,
@@ -228,12 +252,7 @@ def run_steps(device: str | torch.device, dtype: torch.dtype, *,
     steps, tape, traced = StepFns(), _Tape(replay), {}
     handles = _trace_hooks(state.model, traced) if trace else []
     losses, states = [], {}
-    patched = {k: getattr(_bn_stats, k)
-               for k in ("bn_sums_reference", "bn_sums_cuda")}
-    if sums is not None:
-        for k in patched:
-            setattr(_bn_stats, k, sums)
-    try:
+    with _patched_sums(sums):
         with _exact(_resnet, tape):
             for i, kind in enumerate(KINDS):
                 x = images[i].to(device, dtype)
@@ -249,9 +268,6 @@ def run_steps(device: str | torch.device, dtype: torch.dtype, *,
                 handles = []
                 if i in (0, len(KINDS) - 1):
                     states[i + 1] = _snapshot(state)
-    finally:
-        for k, fn in patched.items():
-            setattr(_bn_stats, k, fn)
     return Run(losses, states, tape.record, traced)
 
 
@@ -312,20 +328,59 @@ def run_consist_step(device: str | torch.device, dtype: torch.dtype,
     state = create_train_state(net.to(dtype), cosine_lr(0.1, 4),
                                device=device, **sgd)
     tape = _Tape(replay)
-    patched = {k: getattr(_bn_stats, k)
-               for k in ("bn_sums_reference", "bn_sums_cuda")}
-    if sums is not None:
-        for k in patched:
-            setattr(_bn_stats, k, sums)
-    try:
+    with _patched_sums(sums):
         with _exact(module, tape):
             state, metrics = StepFns(consist_wt=CONSIST_WT).cn_consistency(
                 state, images.to(device, dtype), labels.to(device),
                 masks=masks, draws=(cn_draws(0), cn_draws(1)))
             loss = float(metrics["loss"])
-    finally:
-        for k, fn in patched.items():
-            setattr(_bn_stats, k, fn)
+    return Run([loss], {1: _snapshot(state)}, tape.record)
+
+
+def run_augmix_step(device: str | torch.device, dtype: torch.dtype,
+                    kind: str, *, replay: Optional[list] = None,
+                    seed: int = 3, sums: Optional[Callable] = None) -> Run:
+    """One AugMix step of ``kind``: 'augmix_cn' (``StepFns.augmix_cn``,
+    masks ``AUGMIX_MASKS``, draws ``cn_draws(0)`` and ``cn_draws(1)``, on
+    the reduced WRN) or 'cn_image_augmix' (perm ``AUGMIX_PERM``, on the
+    reduced ResNet-50-IBN-b), on ``device`` (TF32 off) in ``dtype``, on
+    seeded views (3, B, H, W, 3) and weights; ``replay`` and ``sums`` as
+    in ``run_steps``.  The Run's state is the one after the step."""
+    device = resolve_device(device)
+    if kind == "augmix_cn":
+        module, batch, size, sgd = _wideresnet, CN_BATCH, CN_SIZE, dict(
+            momentum=0.9, weight_decay=5e-4, nesterov=True)
+        net = WideResNet(depth=10, widen_factor=2, num_classes=CLASSES,
+                         pos="post", cnsn_type="cnsn", crop="style",
+                         generator=torch.Generator().manual_seed(0))
+    elif kind == "cn_image_augmix":
+        module, batch, size, sgd = _resnet_ibn, BATCH, SIZE, dict(
+            momentum=0.9, weight_decay=1e-4, nesterov=False)
+        net = build_model("resnet50_ibn_b", CLASSES,
+                          generator=torch.Generator().manual_seed(0),
+                          layers=(1, 1, 1, 1), pos="residual",
+                          cnsn_type="sn")
+    else:
+        raise ValueError(f"unknown AugMix step {kind!r}")
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(3, batch, size, size, 3, generator=gen)
+    labels = torch.randint(0, CLASSES, (batch,), generator=gen)
+    state = create_train_state(net.to(dtype), cosine_lr(0.05, 4),
+                               device=device, **sgd)
+    steps = StepFns(active_num=1, consist_wt=CONSIST_WT)
+    x, y = images.to(device, dtype), labels.to(device)
+    tape = _Tape(replay)
+    with _patched_sums(sums):
+        with _exact(module, tape):
+            if kind == "augmix_cn":
+                state, metrics = steps.augmix_cn(
+                    state, x, y, masks=AUGMIX_MASKS,
+                    draws=(cn_draws(0), cn_draws(1)))
+            else:
+                state, metrics = steps.cn_image_augmix(
+                    state, x, y, perm=torch.tensor(AUGMIX_PERM,
+                                                   device=device))
+            loss = float(metrics["loss"])
     return Run([loss], {1: _snapshot(state)}, tape.record)
 
 
@@ -336,18 +391,36 @@ def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
             / max(float(want.abs().max()), 1e-30))
 
 
+# a reference tensor below this max-abs holds float64 rounding alone: a
+# BatchNorm bias whose output an InstanceNorm follows (IBN-b's bn3 and
+# downsample before the post-add IN) gets a zero gradient, ~1e-18 after
+# a step, so a relative error says nothing of it
+NOISE = 1e-12
+
+
 def compare_runs(run: Run, ref: Run) -> dict:
     """Errors of ``run`` against ``ref``: each step's loss (relative), and
     after steps 1 and 3 the worst tensor of the state and of the momentum
-    buffers (each over that tensor's max-abs), with its name."""
+    buffers (each over that tensor's max-abs), with its name.  Tensors of
+    ``ref`` whose max-abs is below ``NOISE`` are held apart, by their
+    largest absolute error (``step<n>_<part>_at_zero``), so that a run
+    which moves a tensor the reference leaves at zero still shows it."""
     out = {"loss_rel_err": [abs(a - b) / abs(b)
                             for a, b in zip(run.losses, ref.losses)]}
     for step, want in ref.states.items():
         got = run.states[step]
         for part, keep in (("state", lambda k: not k.startswith("momentum.")),
                            ("momentum", lambda k: k.startswith("momentum."))):
-            out[f"step{step}_{part}"] = max(
-                (_rel_max(got[k], want[k]), k) for k in want if keep(k))
+            rel, at_zero = [], []
+            for k in filter(keep, want):
+                if float(want[k].abs().max()) >= NOISE:
+                    rel.append((_rel_max(got[k], want[k]), k))
+                else:
+                    at_zero.append((float(
+                        (got[k].double() - want[k].double()).abs().max()), k))
+            out[f"step{step}_{part}"] = max(rel)
+            if at_zero:
+                out[f"step{step}_{part}_at_zero"] = max(at_zero)
     return out
 
 

@@ -2,11 +2,17 @@
 ``StepFns.plain``, ``StepFns.cn`` (in-network CrossNorm at a random
 ``active_num`` of the model's sites, the CIFAR ``cn`` regime),
 ``StepFns.cn_image`` (image-space CrossNorm at every crop mode, the
-ImageNet regime) and the consistency regimes ``StepFns.cn_consistency``
+ImageNet regime), the consistency regimes ``StepFns.cn_consistency``
 and ``StepFns.cn_image_consist`` (a clean and two CrossNorm forwards in
 one graph, cross-entropy plus ``consist_wt`` times their JSD), each
 chosen per batch against ``plain`` by the host Bernoulli gate
-``np.random.RandomState(seed).rand() < cn_prob``; and the eval steps
+``np.random.RandomState(seed).rand() < cn_prob``; the AugMix regimes
+``StepFns.augmix`` (one forward of the three views (clean, AugMix,
+AugMix) as one 3B batch, cross-entropy plus ``jsd_wt`` times their JSD)
+and, against it by the gate, ``StepFns.augmix_cn`` (two CrossNorm
+forwards of the clean view after it, their JSD with the clean one
+weighted ``consist_wt``) and ``StepFns.cn_image_augmix`` (image
+CrossNorm over the whole 3B batch first); and the eval steps
 ``eval_step`` and ``eval_sum`` (the evaluation loop's).
 
 PyTorch runs eagerly, so where JAX jits a pure function of the state, a
@@ -17,7 +23,8 @@ random draws of a CrossNorm step (the site mask, each site's partner
 permutation and boxes) are made on the host from a CPU generator, or
 passed in by the caller.  A consistency step's three forwards update the
 running statistics in turn, in place: forward k's BatchNorm shift is the
-running mean that forward k−1 left, which is JAX's s1 → s2 → s3.
+running mean that forward k−1 left, which is JAX's s1 → s2 → s3; so do
+an ``augmix_cn`` step's 3B forward and its two CrossNorm forwards.
 
 The optimizer is ``torch.optim.SGD(momentum, dampening=0, weight_decay,
 nesterov)``, which is the JAX package's ``make_sgd``
@@ -28,9 +35,6 @@ momentum buffer, and update s runs at lr = schedule(s), counted from 0.
 A parameter that no forward reaches (ResNeXt's 'identity' SelfNorm where
 a downsample overwrites its output) gets a zero gradient, so that its
 weight decay and momentum run as optax runs them on JAX's zero gradient.
-
-The other three regimes of the JAX package (augmix, augmix_cn,
-cn_image_augmix) are not ported yet (ROADMAP queue 1) and raise.
 """
 from __future__ import annotations
 
@@ -87,31 +91,24 @@ def sample_cn_mask(cn_num: int, active_num: int, *,
     return mask
 
 
-def _not_ported(regime: str):
-    def step(*args, **kwargs):
-        raise NotImplementedError(f"training regime {regime!r} is not yet "
-                                  f"ported to cnsn_tpu_torch (ROADMAP queue 1)")
-    return step
-
-
 class StepFns:
     """The step functions of one knob set (``steps.py:70-96``):
     ``active_num`` CrossNorm sites on per ``cn`` step, of the model's
-    ``cn_num``; ``consist_wt``, the JSD's weight in a consistency step;
-    ``image_crop`` and ``image_beta`` for image-space CrossNorm.  One card
-    pairs instances over the whole batch: the per-shard pairing of data
-    parallelism comes with the parallel slice (ROADMAP queue 1)."""
-
-    augmix = staticmethod(_not_ported("augmix"))
-    augmix_cn = staticmethod(_not_ported("augmix_cn"))
-    cn_image_augmix = staticmethod(_not_ported("cn_image_augmix"))
+    ``cn_num``; ``consist_wt``, the JSD's weight in a consistency step
+    and of the CrossNorm JSD in an ``augmix_cn`` step; ``image_crop`` and
+    ``image_beta`` for image-space CrossNorm; ``jsd_wt``, the AugMix JSD's
+    weight (the reference hard-codes 12: cifar.py:246, imagenet.py:373).
+    One card pairs instances over the whole batch: the per-shard pairing
+    of data parallelism comes with the parallel slice (ROADMAP queue 1)."""
 
     def __init__(self, *, active_num: int = 1, consist_wt: float = 0.0,
-                 image_crop: str = "neither", image_beta: float = 1.0):
+                 image_crop: str = "neither", image_beta: float = 1.0,
+                 jsd_wt: float = 12.0):
         self.active_num = active_num
         self.consist_wt = consist_wt
         self.image_crop = image_crop
         self.image_beta = image_beta
+        self.jsd_wt = jsd_wt
 
     @staticmethod
     def _sgd(state: TrainState, loss: torch.Tensor) -> None:
@@ -231,6 +228,76 @@ class StepFns:
                 generator=generator, **d) for d in draws]
         return self._consistency(state, labels,
                                  [(images, {})] + [(a, {}) for a in augmented])
+
+    def _augmix_update(self, state: TrainState, images_all: torch.Tensor,
+                       labels: torch.Tensor, cn_forwards: Sequence[tuple] = ()):
+        """One SGD update on ce(clean) + jsd_wt · JSD(clean, aug1, aug2)
+        from one train-mode forward of ``images_all``, the 3B batch
+        (clean, aug1, aug2) (``steps.py:181-222``), plus consist_wt · the
+        JSD of the clean logits with those of the ``cn_forwards`` (two
+        (images, model keyword arguments), run after it in order)."""
+        model = state.model.train()
+        b = labels.shape[0]
+        logits = model(images_all)
+        lc, l1, l2 = logits[:b], logits[b:2 * b], logits[2 * b:]
+        ce = cross_entropy(lc, labels)
+        p_clean = softmax_probs(lc)
+        jsd = jsd_consistency(p_clean, softmax_probs(l1), softmax_probs(l2))
+        loss = ce + self.jsd_wt * jsd
+        if cn_forwards:
+            cn = [softmax_probs(model(images, **kw))
+                  for images, kw in cn_forwards]
+            loss = loss + self.consist_wt * jsd_consistency(p_clean, *cn)
+        self._sgd(state, loss)
+        return state, {"loss": loss.detach(), "ce": ce.detach(),
+                       "jsd": jsd.detach(),
+                       "err1": error_topk(lc.detach(), labels, 1)}
+
+    def augmix(self, state: TrainState, images3: torch.Tensor,
+               labels: torch.Tensor):
+        """AugMix (``steps.py:214-215``): images3 (3, B, H, W, C), the
+        views (clean, aug1, aug2), run as one 3B batch.  Metrics: loss,
+        ce, jsd (the views'), err1 (of the clean logits)."""
+        return self._augmix_update(state, images3.flatten(0, 1), labels)
+
+    def augmix_cn(self, state: TrainState, images3: torch.Tensor,
+                  labels: torch.Tensor,
+                  masks: Optional[Sequence[Sequence[bool]]] = None,
+                  draws: Optional[Sequence[Sequence[dict]]] = None,
+                  generator: Optional[torch.Generator] = None):
+        """AugMix with in-network CrossNorm (``steps.py:181-218``): the
+        AugMix forward, then two CrossNorm forwards of the clean view
+        with ``masks[0]`` and ``masks[1]`` (``active_num`` of ``cn_num``
+        sites on each), their site draws ``draws[0]`` and ``draws[1]``;
+        what is None is drawn from ``generator`` (a CPU generator), both
+        masks first.  The running statistics thread through the three
+        forwards in place.  Metrics as ``augmix``'s."""
+        if masks is None:
+            masks = [sample_cn_mask(state.model.cn_num, self.active_num,
+                                    generator=generator) for _ in range(2)]
+        draws = draws or (None, None)
+        return self._augmix_update(
+            state, images3.flatten(0, 1), labels,
+            [(images3[0], dict(cn_active=m, cn_draws=d, generator=generator))
+             for m, d in zip(masks, draws)])
+
+    def cn_image_augmix(self, state: TrainState, images3: torch.Tensor,
+                        labels: torch.Tensor,
+                        perm: Optional[torch.Tensor] = None,
+                        style_box: Optional[Sequence[int]] = None,
+                        content_box: Optional[Sequence[int]] = None,
+                        generator: Optional[torch.Generator] = None):
+        """AugMix with image-space CrossNorm (``steps.py:264-289``): one
+        CrossNorm draw at crop ``image_crop`` over the whole 3B batch (no
+        gradient flows into it; reference imagenet.py:357-358), ``perm``
+        and the boxes as ``cn_image`` takes them, then ``augmix``'s
+        update."""
+        with torch.no_grad():
+            images_all = cross_norm_2ins(
+                images3.flatten(0, 1), crop=self.image_crop,
+                beta=self.image_beta, perm=perm, style_box=style_box,
+                content_box=content_box, generator=generator)
+        return self._augmix_update(state, images_all, labels)
 
     def eval_step(self, state: TrainState, images: torch.Tensor,
                   labels: torch.Tensor):

@@ -1,13 +1,16 @@
 """Host-side training loop: port of ``cnsn_tpu/train/trainer.py`` for
-the CIFAR datasets (reference mains: cifar.py:315-511).
+CIFAR and ImageNet (reference mains: cifar.py:315-511,
+imagenet.py:453-650).
 
-A per-epoch loop over the host loader, its batches staged onto the card
-ahead of the step (``utils/prefetch.py``); the stochastic CN gate
+A per-epoch loop over the host loader (CIFAR arrays, or an ImageNet image
+folder; host AugMix for the AugMix regimes), its batches staged onto the
+card ahead of the step (``utils/prefetch.py``); the stochastic CN gate
 (``RandomState(seed).rand() < cn_prob``, cifar.py:127-128) picks the step
-function per batch; the evaluation, ``log.txt`` and checkpoints mirror
-the JAX package's layout.  It runs on the card unless the caller asks
-for the CPU.  What the port does not have yet raises when the Trainer is
-built (``NOT_PORTED``).
+function per batch; the evaluation (CIFAR-C, or ImageNet-C and its mCE),
+``log.txt`` and checkpoints mirror the JAX package's layout.  It runs on
+the card unless the caller asks for the CPU.  The loaders' worker pools
+live until ``close()``, so a second ``fit()`` keeps them.  What the port
+does not have yet raises when the Trainer is built (``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ import torch
 
 from ..config import ExperimentConfig
 from ..data.cifar import CifarLoader, load_cifar
-from ..evaluation.classify import evaluate, evaluate_cifar_c
+from ..data.imagenet import ImageNetLoader, imagenet_c_dir, scan_image_folder
+from ..evaluation.classify import (CORRUPTIONS, compute_mce, evaluate,
+                                   evaluate_cifar_c)
 from ..models import build_model
 from ..utils.checkpoint import restore_state, save_checkpoint
 from ..utils.device import resolve_device
@@ -33,26 +38,28 @@ __all__ = ["Trainer", "NOT_PORTED"]
 
 DTYPES = {"fp32": None, "bf16": torch.bfloat16}
 
-_AUGMIX = "ROADMAP queue 1, AugMix"
 _PARALLEL = "ROADMAP queue 1, parallel"
 # (what is set, the ROADMAP item that ports it), checked in this order
 NOT_PORTED = (
-    (lambda c: c.dataset == "imagenet", "dataset: imagenet",
-     "ROADMAP queue 1, the ImageNet loaders"),
     (lambda c: c.ckpt_backend == "orbax", "ckpt_backend: orbax",
      "ROADMAP queue 1, the remaining utils"),
     (lambda c: c.fsdp, "fsdp", _PARALLEL),
     (lambda c: (c.num_devices or 1) > 1, "num_devices > 1", _PARALLEL),
     (lambda c: c.remat, "remat", _PARALLEL),
-    (lambda c: c.ondevice_augmix, "ondevice_augmix", _AUGMIX),
-    (lambda c: c.no_jsd, "no_jsd", _AUGMIX),
-    (lambda c: "augmix" in c.regime, "an augmix regime", _AUGMIX),
+    (lambda c: c.ondevice_augmix, "ondevice_augmix",
+     "ROADMAP queue 1, on-device AugMix"),
 )
 
-# the regimes whose gated step is ported: regime → the StepFns method the
-# gate picks, else plain (cnsn_tpu/train/trainer.py:259-278)
-_GATED = {"plain": None, "cn": "cn", "cn_consistency": "cn_consistency",
-          "cn_image": "cn_image", "cn_image_consist": "cn_image_consist"}
+# regime → (the StepFns method the gate picks, the one it picks
+# otherwise) (cnsn_tpu/train/trainer.py:259-283); None: no gated step
+_GATED = {"plain": (None, "plain"), "cn": ("cn", "plain"),
+          "cn_consistency": ("cn_consistency", "plain"),
+          "cn_augmix": ("augmix_cn", "augmix"),
+          "cn_image": ("cn_image", "plain"),
+          "cn_image_consist": ("cn_image_consist", "plain"),
+          "cn_image_augmix": ("cn_image_augmix", "augmix")}
+# no_jsd: the one AugMix view and plain cross-entropy (+ the CN gate)
+_NO_JSD = ("cn", "plain")
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
@@ -63,6 +70,11 @@ def _check_ported(cfg: ExperimentConfig) -> None:
                 f"cnsn_tpu_torch ({item})")
     if cfg.regime not in _GATED:
         raise ValueError(cfg.regime)
+    if cfg.dataset not in ("cifar10", "cifar100", "imagenet"):
+        raise ValueError(f"unknown dataset: {cfg.dataset}")
+    if cfg.dataset == "imagenet" and cfg.no_jsd:
+        raise ValueError("no_jsd is a CIFAR AugMix knob "
+                         "(reference utils.py:100-113)")
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
@@ -101,14 +113,35 @@ class Trainer:
             crop=cfg.crop, beta=cfg.beta, cnsn_type=cfg.cnsn_type,
             dtype=DTYPES[cfg.compute_dtype])
 
-        self.train_data = load_cifar(cfg.data_dir, cfg.dataset, True,
-                                     synthetic=cfg.synthetic_data)
-        self.test_data = load_cifar(cfg.data_dir, cfg.dataset, False,
-                                    synthetic=cfg.synthetic_data)
-        self.train_loader = CifarLoader(self.train_data, cfg.batch_size,
-                                        mode="train", seed=cfg.seed)
-        self.test_loader = CifarLoader(self.test_data, cfg.eval_batch_size,
-                                       mode="eval")
+        self.image_size = cfg.resolved_image_size
+        augmix = "augmix" in cfg.regime
+        aug_kw = dict(aug_severity=cfg.aug_severity,
+                      mixture_width=cfg.mixture_width,
+                      mixture_depth=cfg.mixture_depth, all_ops=cfg.all_ops)
+        if cfg.dataset == "imagenet":
+            self.train_loader = ImageNetLoader(
+                scan_image_folder(os.path.join(cfg.data_dir, "train")),
+                cfg.batch_size, mode="train_augmix" if augmix else "train",
+                seed=cfg.seed, workers=cfg.workers,
+                image_size=self.image_size, mp_workers=cfg.augmix_workers,
+                **aug_kw)
+            self.test_loader = ImageNetLoader(
+                scan_image_folder(os.path.join(cfg.data_dir, "validation")),
+                cfg.eval_batch_size, mode="eval", workers=cfg.workers,
+                image_size=self.image_size)
+        else:
+            mode = "train"
+            if augmix:
+                mode = "train_augmix_nojsd" if cfg.no_jsd else "train_augmix"
+            self.train_data = load_cifar(cfg.data_dir, cfg.dataset, True,
+                                         synthetic=cfg.synthetic_data)
+            self.test_data = load_cifar(cfg.data_dir, cfg.dataset, False,
+                                        synthetic=cfg.synthetic_data)
+            self.train_loader = CifarLoader(
+                self.train_data, cfg.batch_size, mode=mode, seed=cfg.seed,
+                workers=cfg.augmix_workers, **aug_kw)
+            self.test_loader = CifarLoader(self.test_data,
+                                           cfg.eval_batch_size, mode="eval")
 
         steps_per_epoch = len(self.train_loader)
         if cfg.schedule == "cosine":
@@ -131,6 +164,9 @@ class Trainer:
                              consist_wt=cfg.consist_wt or 0.0,
                              image_crop=cfg.crop or "neither",
                              image_beta=cfg.beta or 1.0)
+        self._gated, self._ungated = (
+            _NO_JSD if cfg.regime == "cn_augmix" and cfg.no_jsd
+            else _GATED[cfg.regime])
 
         self.start_epoch = 0
         self.best_acc = 0.0
@@ -183,15 +219,15 @@ class Trainer:
         pending = []
         staged = device_prefetch(self.train_loader, batch_put(self.device),
                                  depth=cfg.prefetch_depth)
-        gated = _GATED[cfg.regime]
         for i, (im, lb) in enumerate(_timed(staged, self.data_wait)):
             gate = (cfg.cn_prob is not None
                     and float(self._rng.rand(1)[0]) < cfg.cn_prob)
-            if gate and gated is not None:
-                self.state, metrics = getattr(self.steps, gated)(
+            if gate and self._gated is not None:
+                self.state, metrics = getattr(self.steps, self._gated)(
                     self.state, im, lb, generator=self._draws)
             else:
-                self.state, metrics = self.steps.plain(self.state, im, lb)
+                self.state, metrics = getattr(self.steps, self._ungated)(
+                    self.state, im, lb)
             pending.append((metrics["loss"], int(lb.shape[-1])))
             if i % cfg.print_freq == 0:
                 _resolve(pending, losses)
@@ -216,41 +252,69 @@ class Trainer:
             f.write(f"weight_decay: {cfg.weight_decay}\n")
             f.write("epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1\n")
 
-        try:
-            for epoch in range(self.start_epoch, epochs):
-                lr = float(self.schedule(self.state.step))
-                t0 = time.time()
-                train_loss = self.train_epoch()
-                test_loss, test_acc = self.evaluate_clean()
-                is_best = test_acc > self.best_acc
-                self.best_acc = max(test_acc, self.best_acc)
-                save_checkpoint(self.state, type(self.state.model).__name__,
-                                self.exp_dir, epoch + 1, self.best_acc,
-                                is_best)
-                with open(self.log_file, "a") as f:
-                    f.write(f"{epoch:d}\t{lr:g}\t{train_loss:2.2f}\t"
-                            f"{100 - 100. * test_acc:2.2f}\t"
-                            f"{100 - 100. * self.best_acc:2.2f}\n")
-                print(f"epoch {epoch}: loss {train_loss:.3f} "
-                      f"err {100 - 100. * test_acc:.2f} "
-                      f"({time.time() - t0:.1f}s)")
-        finally:
-            self.close()
+        for epoch in range(self.start_epoch, epochs):
+            lr = float(self.schedule(self.state.step))
+            t0 = time.time()
+            train_loss = self.train_epoch()
+            test_loss, test_acc = self.evaluate_clean()
+            is_best = test_acc > self.best_acc
+            self.best_acc = max(test_acc, self.best_acc)
+            save_checkpoint(self.state, type(self.state.model).__name__,
+                            self.exp_dir, epoch + 1, self.best_acc, is_best,
+                            keep_epoch_file=(cfg.dataset == "imagenet"))
+            with open(self.log_file, "a") as f:
+                f.write(f"{epoch:d}\t{lr:g}\t{train_loss:2.2f}\t"
+                        f"{100 - 100. * test_acc:2.2f}\t"
+                        f"{100 - 100. * self.best_acc:2.2f}\n")
+            print(f"epoch {epoch}: loss {train_loss:.3f} "
+                  f"err {100 - 100. * test_acc:.2f} "
+                  f"({time.time() - t0:.1f}s)")
         return self.best_acc
 
     def close(self):
-        """Tear down the loaders (idempotent)."""
+        """Stop the loaders' worker pools (idempotent).  ``fit`` leaves
+        them running, so that a second ``fit`` keeps its AugMix workers;
+        the CLI closes the Trainer when it is done."""
         for ld in (self.train_loader, self.test_loader):
             ld.close()
 
     def test_corruptions(self) -> float:
         cfg = self.cfg
+        if cfg.dataset == "imagenet":
+            return self._test_corruptions_imagenet()
         mean_acc, _ = evaluate_cifar_c(
             self.steps.eval_sum, self.state, cfg.corrupt_data_dir,
             cfg.num_classes, cfg.eval_batch_size,
             prefetch_depth=cfg.prefetch_depth)
         print(f"Mean Corruption Error: {100 - 100. * mean_acc:.3f}")
         return mean_acc
+
+    def _test_corruptions_imagenet(self) -> float:
+        """ImageNet-C: a folder per corruption and severity → the
+        AlexNet-normalized mCE (imagenet.py:426-450, 125-140).  Its
+        loaders take their default image size (224) whatever
+        ``image_size`` says, as the JAX package's do."""
+        cfg = self.cfg
+        corruption_accs = {}
+        for corruption in CORRUPTIONS:
+            accs = []
+            for severity in range(1, 6):
+                loader = ImageNetLoader(
+                    scan_image_folder(imagenet_c_dir(
+                        cfg.corrupt_data_dir, corruption, severity)),
+                    cfg.eval_batch_size, mode="eval", workers=cfg.workers)
+                _, acc = evaluate(self.steps.eval_sum, self.state, loader,
+                                  prefetch_depth=cfg.prefetch_depth)
+                accs.append(acc)
+            corruption_accs[corruption] = accs
+            print(f"{corruption}: avg err "
+                  f"{100 * (1 - float(np.mean(accs))):.2f}")
+        mce, ce_dict = compute_mce(corruption_accs)
+        print("individual CEs:")
+        for c in CORRUPTIONS:
+            print(f"{c}: {ce_dict[c]: .2f}")
+        print(f"mCE: {mce:.2f}")
+        return mce
 
 
 def _resolve(pending, meter: AverageMeter) -> None:

@@ -1,8 +1,8 @@
 """Carry weights over from the JAX package's parameter trees.
 
 ``state_dict_from_jax(params, batch_stats, key_map=None)`` is the inverse
-of ``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet, WideResNet,
-DenseNet, ResNeXt and (with ``key_map``) AllConvNet trees: it takes the
+of ``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet, ResNet-IBN,
+WideResNet, DenseNet, ResNeXt and (with ``key_map``) AllConvNet trees: it takes the
 JAX trees as nested dicts of arrays (numpy, or anything ``np.array``
 reads) and returns a torch state dict in the reference's key names and
 layouts, which the port's modules load with ``load_state_dict``:
@@ -10,7 +10,9 @@ layouts, which the port's modules load with ``load_state_dict``:
   path  layer1_0 → layer1.0;  block1_0 → block1.layer.0 (WideResNet);
         dense1_0 → dense1.0, trans1_bn/_conv → trans1.bn1/.conv1
         (DenseNet); stage1_0 → stage_1.0 (ResNeXt);
-        downsample_conv/_bn → downsample.0/.1;  a top-level name in
+        downsample_conv/_bn → downsample.0/.1;  IBN's children and the
+        post-add InstanceNorm keep their names (layer1_0/bn1/IN →
+        layer1.0.bn1.IN, layer1_2/IN → layer1.2.IN);  a top-level name in
         ``key_map``'s values → its key (AllConvNet: conv_0 → features.0
         through ``models/allconv.py::allconv_key_map(pos)``, the map
         ``convert_state_dict`` takes the other way)

@@ -10,15 +10,17 @@ difference is the device's idle share.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterator, NamedTuple
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-__all__ = ["device_time_breakdown", "kernel_family"]
+__all__ = ["Kernel", "device_time_breakdown", "kernel_family", "window",
+           "window_kernels"]
 
 # (family, substrings of the kernel name), first match wins
 _FAMILIES = (
@@ -44,8 +46,16 @@ _FAMILIES = (
 )
 
 
-# torch.cuda._sleep's kernel: the marker before a profiled window
-_MARK, _MARK_CYCLES = "spin_kernel", 1000
+# torch.cuda._sleep's kernel: the markers before a profiled window, and
+# how many: more than a profile's first records that go missing
+_MARK, _MARK_CYCLES, _MARKS = "spin_kernel", 1000, 8
+
+
+class Kernel(NamedTuple):
+    """A kernel (or copy) the card ran, on the profile's clock (µs)."""
+    name: str
+    start_us: float
+    end_us: float
 
 
 def kernel_family(name: str) -> str:
@@ -68,47 +78,65 @@ def _union_us(intervals):
     return busy
 
 
+@contextlib.contextmanager
+def window(fn: Callable[[], object]) -> Iterator[Callable[[], object]]:
+    """Inside a running profiler: one untimed call of ``fn``, then
+    ``_MARKS`` marker kernels back to back; the block runs the window (the
+    yielded ``fn``), and ``window_kernels`` counts the kernels after the
+    last marker.  A profile loses the card's records of its first one or
+    two launches, whatever the time they take (``utils/profile_probe.py``
+    shows it): the untimed call and the markers absorb them, and a
+    profile with no marker left raises."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(_MARKS):
+        torch.cuda._sleep(_MARK_CYCLES)
+    torch.cuda.synchronize()
+    yield fn
+
+
+def window_kernels(prof) -> list:
+    """The card's kernels and copies (``Kernel``) of a profile after the
+    last of ``window``'s markers; raises where no marker is left."""
+    events = [evt for evt in prof.events()
+              if evt.device_type == DeviceType.CUDA]
+    marks = [evt.time_range.end for evt in events if _MARK in evt.name]
+    if not marks:
+        raise RuntimeError(
+            f"the profile holds no window marker: the card's activity was "
+            f"not recorded ({len(events)} of its records left: "
+            f"{[evt.name[:40] for evt in events[:6]]})")
+    begin = max(marks)
+    return [Kernel(evt.name, evt.time_range.start, evt.time_range.end)
+            for evt in events
+            if evt.time_range.start >= begin and _MARK not in evt.name]
+
+
 def device_time_breakdown(fn: Callable[[], object], iters: int = 5,
                           warmup: int = 2, top: int = 10) -> Dict:
     """Per-call device milliseconds of ``fn`` by kernel family (and the
     family's launches per call) and for the ``top`` kernels by name, the
     device's busy time, the host's wall time and the idle share
     ``1 − busy/wall``, over ``iters`` calls (after ``warmup`` calls, and
-    one more inside the profile that is not counted)."""
+    one more inside the profile that is not counted: ``window``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # the card's activity is recorded from a moment after the profiler
-        # starts (the first few to ~30 kernels of a window go missing):
-        # one untimed call, then a spin kernel marks where the window
-        # begins, and only the kernels after it are counted
-        fn()
-        torch.cuda._sleep(_MARK_CYCLES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [evt for evt in prof.events()
-              if evt.device_type == DeviceType.CUDA]
-    marks = [evt.time_range.end for evt in events
-             if _MARK in evt.name]
-    if not marks:
-        raise RuntimeError("the profile holds no window marker: the card's "
-                           "activity was not recorded")
+        with window(fn) as run:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     by_name: Dict[str, float] = defaultdict(float)
     launches: Dict[str, int] = defaultdict(int)
     intervals = []
-    for evt in events:
-        s, e = evt.time_range.start, evt.time_range.end
-        if s < marks[-1]:
-            continue
-        intervals.append((s, e))
-        by_name[evt.name] += e - s
-        launches[evt.name] += 1
+    for k in window_kernels(prof):
+        intervals.append((k.start_us, k.end_us))
+        by_name[k.name] += k.end_us - k.start_us
+        launches[k.name] += 1
     by_family: Dict[str, float] = defaultdict(float)
     family_launches: Dict[str, int] = defaultdict(int)
     for name, us in by_name.items():

@@ -16,6 +16,7 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cnsn_tpu")
 def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
     code = textwrap.dedent("""
         import math, os, sys, torch
+        torch.set_num_threads(1)  # beside the other test workers
         os.environ["CNSN_CONV3X3"] = "pallas"
         import cnsn_tpu_torch
         from cnsn_tpu_torch.ops.crossnorm import cross_norm_2ins
@@ -50,6 +51,29 @@ def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
                 state, torch.randn(2, 32, 32, 3), torch.tensor([1, 2]),
                 generator=torch.Generator().manual_seed(0))
             assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+        ibn = cnsn_tpu_torch.models.build_model(
+            "resnet50_ibn_b", 10, layers=(1, 1, 1, 1), pos="residual",
+            cnsn_type="sn")
+        state = create_train_state(ibn, lambda step: 0.01, device="cpu")
+        state, metrics = StepFns().cn_image_augmix(
+            state, torch.randn(3, 2, 64, 64, 3), torch.tensor([1, 2]),
+            generator=torch.Generator().manual_seed(0))
+        assert bool(torch.isfinite(metrics["jsd"])) and state.step == 1
+        import numpy as np
+        from PIL import Image
+        from cnsn_tpu_torch.data import (ImageNetLoader, augmix,
+                                         imagenet_normalize, normalize,
+                                         scan_image_folder, workers)
+        from cnsn_tpu_torch.nn import IBN, InstanceNorm
+        for c in ("a", "b"):
+            os.makedirs(os.path.join(sys.argv[1], "img", c))
+            Image.fromarray(np.zeros((40, 50, 3), np.uint8)).save(
+                os.path.join(sys.argv[1], "img", c, "0.jpeg"))
+        views, labels = next(iter(ImageNetLoader(
+            scan_image_folder(os.path.join(sys.argv[1], "img")), 2,
+            mode="train_augmix", image_size=32, workers=1)))
+        assert views.shape == (3, 2, 32, 32, 3)
+        assert sorted(labels.tolist()) == [0, 1]
         import cnsn_tpu_torch.train.trainer as trainer_mod
         from cnsn_tpu_torch import cli, data, evaluation
         from cnsn_tpu_torch.config import load_config

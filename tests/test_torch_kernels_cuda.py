@@ -722,16 +722,16 @@ def test_bn_sums_is_one_launch_per_call():
     """The profiler sees one K2 forward kernel per call, clusters and
     all."""
     from torch.profiler import ProfilerActivity, profile
+
+    from cnsn_tpu_torch.utils.profiling import window, window_kernels
     x = _x((128, 56, 56, 64), 124, torch.bfloat16)
     m0 = _vec((64,), 125)
-    bn_sums_cuda(x, m0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            bn_sums_cuda(x, m0)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with window(lambda: bn_sums_cuda(x, m0)) as run:
+            for _ in range(3):
+                run()
+    names = [e.name for e in window_kernels(prof)]
     k2 = [n for n in names if "bn_sums" in n]
     assert len(k2) == 3 and all("bn_sums_persistent_kernel" in n
                                 for n in k2), names
@@ -1548,3 +1548,86 @@ def test_cifar_models_take_a_consistency_step_on_the_card(name, kw,
     # one K3 launch per SelfNorm site, one site per CrossNorm site here
     assert sum(LAUNCHES[key] for _, key in SN_PATHS.values()) == \
         model.cn_num
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ibn_launches_k2_on_its_batchnorm_half(dtype):
+    """IBN-a's bn1 (64 channels: InstanceNorm on 0–31 in plain torch,
+    BatchNorm on 32–63 through K2): the BatchNorm half reaches K2 as an
+    NHWC-contiguous copy, one launch each way; output, input gradient
+    and running statistics against the same layer on the CPU (K2's plain
+    version)."""
+    from cnsn_tpu_torch.nn import IBN
+    torch.manual_seed(0)
+    cpu = IBN(64)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.uniform_(0.5, 1.5)
+    card = IBN(64).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = _x((16, 28, 28, 64), 300, dtype).permute(0, 3, 1, 2)
+    xc = x.detach().cpu().requires_grad_()
+    xg = x.detach().clone().requires_grad_()
+    g = _x((16, 28, 28, 64), 301, dtype).permute(0, 3, 1, 2)
+    LAUNCHES.clear()
+    y = card.train()(xg)
+    (y.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"bn_sums": 1, "bn_sums_bwd": 1}
+    want = cpu.train()(xc)
+    (want.float() * g.cpu().float()).sum().backward()
+    assert y.dtype == dtype and y.is_contiguous(
+        memory_format=torch.channels_last)
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    _close_to_scale(y.float().cpu(), want.float(), rtol)
+    _close_to_scale(xg.grad.float().cpu(), xc.grad.float(), rtol)
+    for name in ("running_mean", "running_var"):
+        _close_to_scale(getattr(card.BN, name).cpu(),
+                        getattr(cpu.BN, name), 1e-4)
+
+
+@pytest.mark.parametrize("variant", ["a", "b"])
+def test_resnet_ibn_takes_its_steps_on_the_card(variant, monkeypatch):
+    """ResNet-50-IBN at layers (1, 1, 1, 1), SelfNorm at pos 'residual',
+    64², float32 with TF32 off, the same weights on the card and on the
+    CPU (the kernels' plain versions): one ``cn_image_augmix`` step with
+    a fixed permutation, its loss and the logits of an eval forward after
+    it against the CPU's, K1 and K2 launched once per site and layer each
+    way (K1 once more for the image statistics), K3 once per site."""
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.nn import SelfNorm
+    from cnsn_tpu_torch.nn.norm import BatchNorm
+    from cnsn_tpu_torch.train import StepFns, create_train_state
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = build_model(f"resnet50_ibn_{variant}", 10,
+                            generator=torch.Generator().manual_seed(0),
+                            layers=(1, 1, 1, 1), pos="residual",
+                            cnsn_type="sn")
+        n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+        n_sn = sum(isinstance(m, SelfNorm) for m in model.modules())
+        state = create_train_state(model, lambda s: 0.05, device=device)
+        gen = torch.Generator().manual_seed(1)
+        images = torch.randn(3, 4, 64, 64, 3, generator=gen).to(device)
+        labels = torch.randint(0, 10, (4,), generator=gen).to(device)
+        LAUNCHES.clear()
+        state, metrics = StepFns().cn_image_augmix(
+            state, images, labels,
+            perm=torch.tensor([5, 9, 0, 7, 11, 2, 10, 4, 1, 8, 3, 6],
+                              device=device))
+        with torch.no_grad():
+            logits = state.model.eval()(images[0])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = (float(metrics["loss"]), logits.cpu(),
+                        dict(LAUNCHES))
+    assert runs["cpu"][2] == {}
+    assert runs["cuda"][2] == {
+        "bn_sums": n_bn, "bn_sums_bwd": n_bn, "ins_stats": n_sn + 1,
+        "ins_stats_bwd": n_sn, "selfnorm_infer_staged": n_sn}
+    assert n_bn == {"a": 17, "b": 16}[variant] and n_sn == 4
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-4 * abs(
+        runs["cpu"][0])
+    _close_to_scale(runs["cuda"][1], runs["cpu"][1], 1e-3)

@@ -1,7 +1,11 @@
 """Port profiling helpers (cnsn_tpu_torch.utils.profiling) that need no
-card: kernel-name families and the busy-time union."""
+card: kernel-name families, the busy-time union, and a profile without a
+window marker."""
 import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
 
+from cnsn_tpu_torch.utils import profiling
 from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
 
 
@@ -84,3 +88,13 @@ def test_union_of_overlapping_intervals():
     assert _union_us([]) == 0
     assert _union_us([(0, 10), (5, 15), (20, 25)]) == 20
     assert _union_us([(0, 10), (2, 3)]) == 10
+
+
+def test_window_kernels_raise_without_a_marker():
+    """A profile that holds none of ``window``'s markers (here: no card
+    activity at all) has no window to count."""
+    x = torch.ones(8)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        x.add_(1)
+    with pytest.raises(RuntimeError, match="no window marker"):
+        profiling.window_kernels(prof)

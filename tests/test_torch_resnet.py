@@ -173,8 +173,9 @@ def test_resnet50_state_dict_keys_and_shapes_match_jax():
 
 def test_build_model_names():
     assert isinstance(build_model("resnet50", 10, layers=None), ResNet)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model("resnet50_ibn_b", 10)
+    ibn = build_model("resnet50_ibn_b", 10, layers=(1, 1, 1, 1))
+    assert type(ibn).__name__ == "ResNetIBN"
+    assert ibn.ibn_cfg == ("b", "b", None, None)
     with pytest.raises(ValueError, match="unknown model"):
         build_model("vgg", 10)
 

@@ -7,8 +7,8 @@ import pytest
 import torch
 
 from cnsn_tpu_torch.train.rounding import (WITNESSES, compare_runs,
-                                           compare_traces, run_steps,
-                                           seed_bounds)
+                                           compare_traces, run_augmix_step,
+                                           run_steps, seed_bounds)
 
 
 @pytest.fixture(scope="module")
@@ -156,3 +156,25 @@ def test_seed_bounds_name_what_lies_beyond(card, over):
                       exact=([1e-8, 1e-6, 7e-6], 3e-4))
     assert {q for q, e, b in seed_bounds(row, 8, 1e-6)
             if not e <= b} == over
+
+
+def test_compare_runs_holds_the_tensors_a_reference_leaves_at_zero():
+    """IBN-b's BatchNorm biases before an InstanceNorm get a zero
+    gradient, which leaves them at ~1e-18 in float64, where a relative
+    error says nothing.  ``compare_runs`` holds them apart by their
+    absolute error: float32 rounding alone in a ``cn_image_augmix`` step
+    (measured 1.4e-9 state, 2.7e-8 momentum), and a run that moves one of
+    them shows it."""
+    run = run_augmix_step("cpu", torch.float32, "cn_image_augmix")
+    ref = run_augmix_step("cpu", torch.float64, "cn_image_augmix",
+                          replay=run.tape)
+    errs = compare_runs(run, ref)
+    err, name = errs["step1_state_at_zero"]
+    assert name.endswith(("bn3.bias", "downsample.1.bias")), errs
+    assert 0 < err <= 1e-8, errs
+    assert 0 < errs["step1_momentum_at_zero"][0] <= 1e-7, errs
+    assert errs["step1_state"][0] <= 1e-4, errs
+    moved = copy.copy(run)
+    moved.states = {1: dict(run.states[1])}
+    moved.states[1][name] = run.states[1][name] + 1e-3
+    assert compare_runs(moved, ref)["step1_state_at_zero"][0] > 9e-4

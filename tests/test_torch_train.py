@@ -352,12 +352,14 @@ def test_the_cn_recipes_resolve_as_jax_does():
 
 
 def test_other_regimes_are_not_ported_and_cn_num():
-    """The three regimes still to port raise; cn_num is one site per
-    bottleneck where cnsn_type has CrossNorm, as in JAX."""
+    """The three AugMix regimes, the last JAX regimes to port, are the
+    port's own step methods now (their parity with JAX:
+    test_torch_augmix_steps.py) with JAX's AugMix JSD weight, 12; cn_num
+    is one site per bottleneck where cnsn_type has CrossNorm, as in JAX."""
     steps = StepFns()
     for name in ("augmix", "augmix_cn", "cn_image_augmix"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            getattr(steps, name)(None, None, None)
+        assert getattr(StepFns, name).__qualname__ == f"StepFns.{name}"
+    assert steps.jsd_wt == JaxStepFns(JaxResNet(num_classes=10)).jsd_wt == 12
     for cnsn_type, want in (("sn", 0), ("cnsn", 4), ("cn", 4), (None, 0)):
         kw = dict(layers=(1, 1, 1, 1), pos="post", cnsn_type=cnsn_type)
         assert build_model("resnet50", 10, **kw).cn_num == want

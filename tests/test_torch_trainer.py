@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import cnsn_tpu.train.trainer as jax_trainer_mod
 import cnsn_tpu_torch.models as port_models
@@ -304,22 +305,68 @@ def test_resume_restores_weights_momentum_and_step(small, tmp_path):
 
 
 @pytest.mark.parametrize("recipe,over,match", [
-    (CNSN, dict(dataset="imagenet"), "imagenet"),
+    (CNSN, dict(dataset="imagenet", ondevice_augmix=True), "ondevice_augmix"),
     (CNSN, dict(ckpt_backend="orbax"), "orbax"),
     (CNSN, dict(fsdp=True), "fsdp"),
     (CNSN, dict(num_devices=2), "num_devices"),
     (CNSN, dict(remat=True), "remat"),
     (CNSN, dict(ondevice_augmix=True), "ondevice_augmix"),
-    (CNSN, dict(no_jsd=True), "no_jsd"),
-    ("cnsn-augmix.yaml", {}, "augmix"),
-    (CNSN, dict(regime="cn_image_augmix"), "augmix"),
+    (CNSN, dict(dataset="imagenet", remat=True), "remat"),
+    ("cnsn-augmix.yaml", dict(ondevice_augmix=True), "ondevice_augmix"),
+    ("cnsn-augmix.yaml", dict(fsdp=True), "fsdp"),
 ])
 def test_unported_knobs_raise_at_construction(recipe, over, match,
                                               tmp_path):
-    """Each names its ROADMAP item, before anything is built or written."""
+    """Each names its ROADMAP item, before anything is built or written,
+    on CIFAR, ImageNet and an AugMix recipe alike."""
     cfg = load_config(os.path.join(_WRN, recipe), exp_dir=str(tmp_path),
                       **over)
     with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
+        Trainer(cfg, device="cpu")
+    assert os.listdir(tmp_path) == []
+
+
+def _image_folder(root):
+    """train/ and validation/ of two classes, one JPEG each."""
+    rng = np.random.RandomState(4)
+    for split in ("train", "validation"):
+        for c in range(2):
+            os.makedirs(root / split / f"c{c}")
+            Image.fromarray(rng.randint(0, 256, (40, 48, 3), np.uint8)).save(
+                root / split / f"c{c}" / "0.jpeg")
+    return str(root)
+
+
+@pytest.mark.parametrize("recipe,over,mode,steps", [
+    (CNSN, dict(dataset="imagenet", cnsn_type="sn", image_size=32,
+                batch_size=2),
+     "train", ("cn_image", "plain")),
+    (CNSN, dict(no_jsd=True, regime="cn_augmix"), "train_augmix_nojsd",
+     ("cn", "plain")),
+    ("cnsn-augmix.yaml", {}, "train_augmix", ("augmix_cn", "augmix")),
+    (CNSN, dict(regime="cn_image_augmix"), "train_augmix",
+     ("cn_image_augmix", "augmix")),
+], ids=["imagenet", "no_jsd", "cnsn-augmix.yaml", "cn_image_augmix"])
+def test_knobs_ported_since_build_at_construction(small, recipe, over, mode,
+                                                  steps, tmp_path):
+    """ImageNet, no_jsd and the AugMix regimes, which raised before this
+    slice, build: the loader's mode and the gate's (gated, otherwise)
+    step functions, JAX's (cnsn_tpu/train/trainer.py:259-283)."""
+    data = (dict(data_dir=_image_folder(tmp_path / "data"))
+            if over.get("dataset") == "imagenet"
+            else dict(synthetic_data=True))
+    cfg = load_config(os.path.join(_WRN, recipe), snapshot=False,
+                      exp_dir=str(tmp_path / "exp"), **data, **over)
+    t = Trainer(cfg, device="cpu")
+    assert t.train_loader.mode == mode
+    assert (t._gated, t._ungated) == steps
+    t.close()
+
+
+def test_no_jsd_on_imagenet_raises(tmp_path):
+    cfg = load_config(CNSN, dataset="imagenet", no_jsd=True,
+                      exp_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="no_jsd is a CIFAR AugMix knob"):
         Trainer(cfg, device="cpu")
     assert os.listdir(tmp_path) == []
 
