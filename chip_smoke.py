@@ -76,6 +76,18 @@ BatchNorm2d layer, K1 once per SelfNorm site and image statistics):
     train`` and the step loop, AllConvNet's with ``no_jsd``; one float32
     ``augmix_cn`` and ``cn_image_augmix`` step each, card and CPU against
     float64 twins;
+  * GTAV → Cityscapes segmentation (``cnsn_tpu/configs/segmentation/
+    gtav_fcn50_cnsn.yaml``: FCN-ResNet50, SelfNorm at 'residual' and
+    CrossNorm 'style' at 'post' in all 16 bottlenecks, output stride 8,
+    713² crops, b=16 float32): K1, K2 and K3 held against their plain
+    versions at every shape of its step and eval (read from a forward's
+    hooks); 12 steps through ``SegTrainer.train_epoch`` on a synthetic
+    set, the mix_prob gate opening both steps, every step's K1 and K2
+    launches checked, beside each step alone, the loader alone and the
+    peak memory; the recipe under compute_dtype=bfloat16 and
+    ``gtav_fcn50.yaml`` (no CNSN); ``validate`` at batch 8 through K3; a
+    reduced FCN-CNSN aug step, card and CPU against float64 twins; ``cli
+    seg-train`` then ``seg-eval resume=`` of both recipes at 713²;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -93,6 +105,7 @@ import contextlib
 import dataclasses
 import glob
 import io
+import itertools
 import json
 import math
 import os
@@ -270,6 +283,21 @@ CIFAR_AUGMIX_RECIPES = tuple(
 ALLCONV_AUGMIX = os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
                               "allconv", "cnsn-augmix.yaml")
 
+# the segmentation slice: gtav_fcn50_cnsn.yaml (FCN-ResNet50, SelfNorm at
+# 'residual' and CrossNorm 'style' at 'post' in all 16 bottlenecks, 713²
+# crops, b=16, float32: 59.9 GiB at its peak, so the recipe's batch fits)
+# and gtav_fcn50.yaml (no CNSN); 55 BatchNorm2d layers (53 in the
+# backbone, one in each head) and 16 SelfNorm sites; train_seg's steps
+# through SegTrainer.train_epoch on a synthetic set of 729² images (the
+# CLI's train_h + 16), the recipe's gate (seed 1) opening the aug step at
+# steps 4, 9 and 10 of 12; the eval batch (batch_size_val) is 8
+SEG_DIR = os.path.join(ROOT, "cnsn_tpu", "configs", "segmentation")
+SEG_RECIPE = os.path.join(SEG_DIR, "gtav_fcn50_cnsn.yaml")
+SEG_BASE_RECIPE = os.path.join(SEG_DIR, "gtav_fcn50.yaml")
+SEG_BN, SEG_SN = 55, 16
+SEG_STEPS, SEG_BASE_STEPS, SEG_BF16_STEPS = 12, 4, 6
+SEG_VAL_IMAGES = 16
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -358,7 +386,7 @@ def phase_build():
 
 def _row(kernel, shape, dtype, sites, err, tol, flush, run, plain,
          library, library_call, nbytes, flops, cn_sites=0, peak=FP32_FLOPS,
-         **extra):
+         phase="kernel_vs_plain", **extra):
     """One kernel_vs_plain line: the error, then times on the card.
     ``sites``: launches at this shape per training step (K3: per serving
     forward); ``cn_sites``: launches added on a cn_image step."""
@@ -366,7 +394,7 @@ def _row(kernel, shape, dtype, sites, err, tol, flush, run, plain,
     p_ms = time_ms(plain, 10, flush)
     lib_ms = time_ms(library, 10, flush) if library is not None else None
     b_ms, b_by = bound(nbytes, flops, peak)
-    row = {"phase": "kernel_vs_plain", "kernel": kernel,
+    row = {"phase": phase, "kernel": kernel,
            "shape": list(shape), "dtype": str(dtype).split(".")[1],
            "sites": sites, "cn_sites": cn_sites, "max_abs_err": err,
            "tol": tol,
@@ -2811,6 +2839,461 @@ def phase_augmix_card_vs_cpu(dev):
                 device, dtype, _k, **kw), counts, seeds=range(4))
 
 
+def seg_config(recipe, **over):
+    """A segmentation recipe's ``SegConfig``, as ``cli seg-train`` reads
+    it: the YAML, then ``over``."""
+    import yaml
+    from cnsn_tpu_torch.segmentation.trainer import SegConfig
+    with open(recipe) as f:
+        data = yaml.safe_load(f) or {}
+    data.update(over)
+    return SegConfig(**data)
+
+
+def seg_site_shapes(model, dev, size):
+    """(H, W, C) of every BatchNorm2d's and SelfNorm's input in a forward
+    of ``model`` at ``size``², counted: its K2 and K1/K3 shapes."""
+    from cnsn_tpu_torch.nn.cnsn import SelfNorm
+    from cnsn_tpu_torch.nn.norm import BatchNorm
+    bn, sn = collections.Counter(), collections.Counter()
+
+    def record(counter):
+        return lambda mod, inp: counter.update(
+            [(inp[0].shape[2], inp[0].shape[3], inp[0].shape[1])])
+
+    hooks = [m.register_forward_pre_hook(record(bn if isinstance(
+        m, BatchNorm) else sn)) for m in model.modules()
+        if isinstance(m, (BatchNorm, SelfNorm))]
+    with torch.no_grad():
+        model.eval()(torch.zeros(1, size, size, 3, device=dev))
+    for h in hooks:
+        h.remove()
+    return bn, sn
+
+
+def phase_seg_kernels_vs_plain(dev, flush):
+    """K1 (forward at SelfNorm's eps, and backward), K2 (forward and
+    backward) at every distinct shape of gtav_fcn50_cnsn.yaml's training
+    step (b=16 713², float32: its 16 SelfNorm sites at 179² and 90², its
+    55 BatchNorm2d inputs from the stem's 357² × 64 down), and K3 at the
+    SelfNorm sites at the eval batch of 8, each against its plain version
+    with times, bound and library call, after a clean-L2 flush.  The
+    shapes are read from a forward of the recipe's model; the aug step's
+    CrossNorm takes one more K1 call at its active site's (SelfNorm's)
+    shape, at eps 1e-5."""
+    from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
+                                    bn_sums_cuda, bn_sums_reference,
+                                    ins_stats_bwd_cuda,
+                                    ins_stats_bwd_reference, ins_stats_cuda,
+                                    ins_stats_reference, selfnorm_infer_cuda,
+                                    selfnorm_infer_reference, selfnorm_path)
+    from cnsn_tpu_torch.ops.kernels.bn_stats import (bn_bwd_plan_of,
+                                                     bn_sums_plan)
+    from cnsn_tpu_torch.ops.kernels.ins_stats import (ins_bwd_plan_of,
+                                                      ins_stats_plan_of)
+    from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS, selfnorm_plan
+    from cnsn_tpu_torch.segmentation import fcn_cnsn
+    cfg = seg_config(SEG_RECIPE)
+    model = fcn_cnsn(cfg.classes, generator=torch.Generator()).to(dev)
+    bn, sn = seg_site_shapes(model, dev, cfg.train_h)
+    del model
+    check(sum(bn.values()) == SEG_BN and sum(sn.values()) == SEG_SN,
+          f"seg BN shapes {dict(bn)}, SelfNorm shapes {dict(sn)}")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, bval, f32 = cfg.batch_size, cfg.batch_size_val, torch.float32
+    tag = dict(phase="seg_kernels_vs_plain", model="fcn50_cnsn")
+    rows = []
+    for (h, w, c), sites in sorted(sn.items()):
+        x = torch.randn(b, h, w, c, generator=gen, device=dev) * 1.5 + 0.3
+        elems, stats = x.numel(), b * c * 4
+        got, want = ins_stats_cuda(x, 1e-12), ins_stats_reference(x, 1e-12)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, want))
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+        rows.append(_row(
+            "ins_stats", x.shape, f32, sites, err,
+            {"rtol": 1e-5, "atol": 1e-5}, flush,
+            lambda: ins_stats_cuda(x, 1e-12),
+            lambda: ins_stats_reference(x, 1e-12),
+            lambda: torch.std_mean(x, dim=(1, 2)), "torch.std_mean",
+            elems * 4 + 2 * stats, 3 * elems, plan=ins_stats_plan_of(x),
+            **tag))
+        mean, std = want
+        gm = torch.randn(b, c, generator=gen, device=dev)
+        gs = torch.randn(b, c, generator=gen, device=dev)
+        got = ins_stats_bwd_cuda(x, mean, std, gm, gs)
+        want = ins_stats_bwd_reference(x, mean, std, gm, gs)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= 1e-6 * want.abs().max().item(),
+              f"K1 backward {tuple(x.shape)}: {err}")
+        rows.append(_row(
+            "ins_stats_bwd", x.shape, f32, sites, err, {"of_max_abs": 1e-6},
+            flush, lambda: ins_stats_bwd_cuda(x, mean, std, gm, gs),
+            lambda: ins_stats_bwd_reference(x, mean, std, gm, gs), None,
+            "null: no single PyTorch call computes this backward",
+            2 * elems * 4 + 4 * stats, 4 * elems, plan=ins_bwd_plan_of(x),
+            equal_to_plain=torch.equal(got, want), **tag))
+        del x, got, want, mean, std
+        xe = torch.randn(bval, h, w, c, generator=gen, device=dev) + 0.3
+        wf = torch.randn(c, 2, generator=gen, device=dev) * 0.3
+        a = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+        bb = torch.randn(c, generator=gen, device=dev) * 0.1
+        path = selfnorm_path(xe)
+        got = selfnorm_infer_cuda(xe, wf, a, bb)
+        want = selfnorm_infer_reference(xe, wf, a, bb)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL[f32])
+        rows.append(_row(
+            PATHS[path][1], xe.shape, f32, sites,
+            (got - want).abs().max().item(), TOL[f32], flush,
+            lambda: selfnorm_infer_cuda(xe, wf, a, bb),
+            lambda: selfnorm_infer_reference(xe, wf, a, bb), None,
+            "null: no single PyTorch call computes the fused SelfNorm",
+            2 * xe.numel() * 4 + 4 * c * 4, 5 * xe.numel(), path=path,
+            plan=selfnorm_plan(xe), **tag))
+        del xe, got, want
+    for (h, w, c), sites in sorted(bn.items(), key=lambda kv: -kv[0][0]):
+        x = torch.randn(b, h, w, c, generator=gen, device=dev) * 1.5 + 0.5
+        m0 = torch.randn(c, generator=gen, device=dev) * 0.3
+        elems = x.numel()
+        s1, s2 = bn_sums_cuda(x, m0)
+        a1, a2 = bn_sums_cuda(x, m0)
+        w1, w2 = bn_sums_reference(x, m0)
+        torch.cuda.synchronize()
+        check(torch.equal(s1, a1) and torch.equal(s2, a2),
+              f"K2 forward {tuple(x.shape)} run to run")
+        d_abs = (x - m0).abs().sum(dim=(0, 1, 2))
+        err = max((s1 - w1).abs().max().item(), (s2 - w2).abs().max().item())
+        check(bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
+              and bool(((s2 - w2).abs() <= 1e-5 * w2).all()),
+              f"K2 forward {tuple(x.shape)}: {err}")
+        rows.append(_row(
+            "bn_sums", x.shape, f32, sites, err,
+            {"s1_of_sum_abs": 1e-5, "s2_rtol": 1e-5}, flush,
+            lambda: bn_sums_cuda(x, m0), lambda: bn_sums_reference(x, m0),
+            lambda: torch.var_mean(x, dim=(0, 1, 2)), "torch.var_mean",
+            elems * 4 + 3 * c * 4, 4 * elems, plan=bn_sums_plan(x), **tag))
+        g1 = torch.randn(c, generator=gen, device=dev)
+        g2 = torch.randn(c, generator=gen, device=dev) * 1e-3
+        got = bn_sums_bwd_cuda(x, m0, g1, g2)
+        want = bn_sums_bwd_reference(x, m0, g1, g2)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= 1e-6 * want.abs().max().item(),
+              f"K2 backward {tuple(x.shape)}: {err}")
+        rows.append(_row(
+            "bn_sums_bwd", x.shape, f32, sites, err, {"of_max_abs": 1e-6},
+            flush, lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
+            lambda: bn_sums_bwd_reference(x, m0, g1, g2), None,
+            "null: no single PyTorch call computes this backward",
+            2 * elems * 4 + 3 * c * 4, 4 * elems, plan=bn_bwd_plan_of(x),
+            equal_to_plain=torch.equal(got, want), **tag))
+        del x, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# K1 and K2 launches per step of the GTAV FCN-CNSN recipe: each SelfNorm
+# site's statistics and each BatchNorm2d's sums, forward and backward,
+# and on an aug step the active CrossNorm site's content statistics
+SEG_WANT = {
+    "plain": {"bn_sums": SEG_BN, "bn_sums_bwd": SEG_BN,
+              "ins_stats": SEG_SN, "ins_stats_bwd": SEG_SN},
+    "aug": {"bn_sums": SEG_BN, "bn_sums_bwd": SEG_BN,
+            "ins_stats": SEG_SN + 1, "ins_stats_bwd": SEG_SN + 1},
+    "base": {"bn_sums": SEG_BN, "bn_sums_bwd": SEG_BN}}
+
+
+def _seg_trainer(dev, recipe, steps, save_path, **over):
+    """A SegTrainer of ``recipe`` on a synthetic set of ``steps`` batches
+    of (train_h + 16)² images and SEG_VAL_IMAGES eval images, its steps
+    recorded: (trainer, [(kind, launches, step)])."""
+    from cnsn_tpu_torch.segmentation.data import synthetic_seg_dataset
+    from cnsn_tpu_torch.segmentation.trainer import SegTrainer
+    cfg = seg_config(recipe, save_path=save_path, snapshot=False, **over)
+    hw = (cfg.train_h + 16, cfg.train_w + 16)
+    trainer = SegTrainer(
+        cfg, synthetic_seg_dataset(steps * cfg.batch_size, hw=hw,
+                                   classes=cfg.classes),
+        synthetic_seg_dataset(SEG_VAL_IMAGES, hw=(cfg.train_h, cfg.train_w),
+                              classes=cfg.classes, seed=7), device=dev)
+    record = []
+    for kind in ("plain", "aug"):
+        fn = getattr(trainer.steps, kind)
+
+        def step(*a, _fn=fn, _kind=kind, **kw):
+            per = []
+            out = step_launches(lambda: _fn(*a, **kw), per)
+            record.append((_kind, per[0]))
+            return out
+
+        setattr(trainer.steps, kind, step)
+    return trainer, record
+
+
+def _time_steps(trainer, kinds):
+    """ms of each step ``kinds`` on one staged batch of the trainer's
+    loader, after a warm step of each kind; the host waits for each."""
+    it = iter(trainer.train_loader)
+    images, labels = next(it)
+    im = torch.from_numpy(images).to(trainer.device)
+    lb = torch.from_numpy(labels).long().to(trainer.device)
+    gen = torch.Generator().manual_seed(0)
+    out = {k: [] for k in set(kinds)}
+    for i, kind in enumerate(tuple(sorted(set(kinds))) + tuple(kinds)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "aug":
+            _, m = trainer.steps.aug(trainer.state, im, lb, generator=gen)
+        else:
+            _, m = trainer.steps.plain(trainer.state, im, lb)
+        float(m["loss"])
+        if i >= len(set(kinds)):
+            out[kind].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def phase_train_seg(dev):
+    """gtav_fcn50_cnsn.yaml at its batch (b=16) and shapes (713² crops,
+    float32) through ``SegTrainer.train_epoch`` for SEG_STEPS steps on a
+    synthetic set, the recipe's mix_prob gate opening both steps: every
+    step's K1 and K2 launches against SEG_WANT; the epoch's ms a step
+    (the host pipeline included), each step alone on a staged batch, the
+    loader alone, img/s and the peak memory; then the same recipe under
+    compute_dtype=bfloat16 at b=16 (SEG_BF16_STEPS steps alone), and
+    gtav_fcn50.yaml (no CNSN: K2 alone) for SEG_BASE_STEPS trainer steps.
+    Returns the recipe's trainer (for seg_eval) and its launches per
+    step kind."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    tmp = tempfile.mkdtemp(prefix="seg_")
+    trainer, record = _seg_trainer(dev, SEG_RECIPE, SEG_STEPS,
+                                   os.path.join(tmp, "cnsn"))
+    cfg = trainer.cfg
+    check((cfg.arch, cfg.train_h, cfg.batch_size, cfg.compute_dtype,
+           cfg.cnsn_type, cfg.pos, cfg.cn_pos, cfg.crop, cfg.block_idxs,
+           cfg.mix_prob, cfg.classes)
+          == ("fcn_cnsn", 713, 16, None, "cnsn", "residual", "post", "style",
+              "1_2_3_4", 0.5, 19), f"{SEG_RECIPE} resolves to {cfg}")
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    main_loss, miou, macc, aacc = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    run = dict(LAUNCHES)  # the epoch alone: the timing steps below add more
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kinds = [k for k, _ in record]
+    # the launches of the epoch's first plain and first aug step
+    per_step = {k: next(got for kind, got in record if kind == k)
+                for k in ("plain", "aug")}
+    bad = [(i, k, got) for i, (k, got) in enumerate(record)
+           if got != SEG_WANT[k]]
+    check(len(record) == SEG_STEPS and "aug" in kinds and "plain" in kinds,
+          f"seg steps {kinds}")
+    check(kinds == ["aug" if g else "plain" for g in trainer.gates],
+          f"seg steps {kinds}, gates {trainer.gates}")
+    check(not bad, f"seg launches per step: {bad[:2]}")
+    check(math.isfinite(main_loss) and 0.0 <= miou <= 1.0,
+          f"seg epoch: loss {main_loss}, mIoU {miou}")
+    check(sum(run.values()) == sum(sum(got.values()) for _, got in record),
+          f"seg epoch launches {run} against its steps' {record}")
+    alone = _time_steps(trainer, ("plain", "aug", "plain", "aug"))
+    loader_ms, _ = time_loader(itertools.islice(trainer.train_loader, 3))
+    b = cfg.batch_size
+    step_ms = epoch_ms / SEG_STEPS
+    emit({"phase": "train_seg", "recipe": os.path.relpath(SEG_RECIPE, ROOT),
+          "batch": b, "image": cfg.train_h, "compute_dtype": "float32",
+          "steps": SEG_STEPS, "kinds": kinds, "per_step": per_step,
+          "expected_per_step": SEG_WANT, "launches": run,
+          "main_loss": main_loss, "mIoU": miou,
+          "epoch_ms_per_step": step_ms, "epoch_img_per_s": b / step_ms * 1e3,
+          "step_alone_ms": alone,
+          "step_alone_img_per_s": {k: b / v * 1e3 for k, v in alone.items()},
+          "loader_ms_per_batch": loader_ms,
+          "loader_ms_per_batch_mean": statistics.mean(loader_ms),
+          "host_threads": torch.get_num_threads(), "peak_mem_gib": peak,
+          "host_loadavg": os.getloadavg(), "card": nvidia_smi_name_power()})
+    counts = dict(per_step)
+    counts["run"] = run
+    counts["steps"] = SEG_STEPS
+    counts["alone_ms"] = alone
+
+    # the recipe under compute_dtype=bfloat16 at its batch: the steps alone
+    del trainer
+    torch.cuda.empty_cache()
+    bf16, record16 = _seg_trainer(dev, SEG_RECIPE, 1,
+                                  os.path.join(tmp, "bf16"),
+                                  compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    kinds16 = ("plain", "aug") * (SEG_BF16_STEPS // 2)
+    alone16 = _time_steps(bf16, kinds16)
+    peak16 = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [(k, got) for k, got in record16 if got != SEG_WANT[k]]
+    check(not bad, f"seg bf16 launches per step: {bad[:2]}")
+    emit({"phase": "train_seg_bf16", "recipe": os.path.relpath(SEG_RECIPE,
+                                                                ROOT),
+          "batch": bf16.cfg.batch_size, "compute_dtype": "bfloat16",
+          "steps": len(record16), "step_alone_ms": alone16,
+          "step_alone_img_per_s": {k: bf16.cfg.batch_size / v * 1e3
+                                   for k, v in alone16.items()},
+          "peak_mem_gib": peak16, "card": nvidia_smi_name_power()})
+    del bf16
+    torch.cuda.empty_cache()
+
+    base, record_b = _seg_trainer(dev, SEG_BASE_RECIPE, SEG_BASE_STEPS,
+                                  os.path.join(tmp, "base"))
+    check((base.cfg.arch, base.cfg.cnsn_type, base.model.cn_num)
+          == ("fcn", None, 0), f"{SEG_BASE_RECIPE}: {base.cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base_loss, base_miou, _, _ = base.train_epoch(0)
+    torch.cuda.synchronize()
+    base_ms = (time.perf_counter() - t0) * 1e3 / SEG_BASE_STEPS
+    peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [(k, got) for k, got in record_b if got != SEG_WANT["base"]]
+    check(len(record_b) == SEG_BASE_STEPS and not bad
+          and all(k == "plain" for k, _ in record_b),
+          f"gtav_fcn50 steps and launches: {record_b[:2]}")
+    check(math.isfinite(base_loss), f"gtav_fcn50 loss {base_loss}")
+    base_alone = _time_steps(base, ("plain", "plain"))
+    emit({"phase": "train_seg_baseline",
+          "recipe": os.path.relpath(SEG_BASE_RECIPE, ROOT),
+          "batch": base.cfg.batch_size, "compute_dtype": "float32",
+          "steps": SEG_BASE_STEPS, "expected_per_step": SEG_WANT["base"],
+          "main_loss": base_loss, "mIoU": base_miou,
+          "epoch_ms_per_step": base_ms, "step_alone_ms": base_alone,
+          "step_alone_img_per_s": {
+              k: base.cfg.batch_size / v * 1e3
+              for k, v in base_alone.items()},
+          "peak_mem_gib": peak_b, "card": nvidia_smi_name_power()})
+    counts["base"] = record_b[0][1]
+    del base
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def phase_seg_eval(dev):
+    """``SegTrainer.validate`` of gtav_fcn50_cnsn.yaml at batch_size_val 8
+    over SEG_VAL_IMAGES synthetic 713² images, through K3: ms a batch
+    (the whole validation over its batches, and ``eval_sum`` alone), K3's
+    launches a batch by kernel, and which kernel each SelfNorm site
+    takes (``selfnorm_path`` of its input)."""
+    from cnsn_tpu_torch.nn.cnsn import SelfNorm
+    from cnsn_tpu_torch.ops import selfnorm_path
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, _ = _seg_trainer(dev, SEG_RECIPE, 1, tmp)
+        bval = trainer.cfg.batch_size_val
+        batches = len(trainer.val_loader)
+        paths = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, inp: paths.append(
+                (list(inp[0].shape), selfnorm_path(inp[0].permute(
+                    0, 2, 3, 1))))) for m in trainer.model.modules()
+            if isinstance(m, SelfNorm)]
+        trainer.validate()
+        for h in hooks:
+            h.remove()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = trainer.validate()
+        val_ms = (time.perf_counter() - t0) * 1e3 / batches
+        launches = dict(LAUNCHES)
+        images, labels = next(iter(trainer.val_loader))
+        im = torch.from_numpy(images).to(dev)
+        lb = torch.from_numpy(labels).long().to(dev)
+        trainer.steps.eval_sum(trainer.state, im, lb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = trainer.steps.eval_sum(trainer.state, im, lb)
+        float(out["nll_sum"])
+        alone_ms = (time.perf_counter() - t0) * 1e3 / 3
+    sites = paths[:SEG_SN]
+    emit({"phase": "seg_eval", "recipe": os.path.relpath(SEG_RECIPE, ROOT),
+          "batch": bval, "batches": batches, "ms_per_batch": val_ms,
+          "eval_sum_alone_ms": alone_ms, "img_per_s": bval / alone_ms * 1e3,
+          "launches": launches, "sites": sites, "mIoU": res["mIoU"],
+          "loss": res["loss"], "card": nvidia_smi_name_power()})
+    check(len(paths) == batches * SEG_SN, f"seg eval sites {len(paths)}")
+    check(launches == {K3_STAGED: SEG_SN * batches}
+          and all(p == "staged" for _, p in sites),
+          f"seg eval launches {launches}, sites {sites}")
+    check(math.isfinite(res["loss"]) and 0.0 <= res["mIoU"] <= 1.0,
+          f"seg validate {res}")
+    return {"launches_per_batch": {k: v / batches
+                                   for k, v in launches.items()},
+            "ms_per_batch": val_ms, "alone_ms": alone_ms,
+            "paths": [p for _, p in sites]}
+
+
+def phase_seg_card_vs_cpu(dev):
+    """One float32 aug step of the reduced FCN-CNSN
+    (``train/rounding.py::run_seg_step``: layers (1, 1, 1, 1), b=4 65²,
+    one CrossNorm site on, its draws fixed, the fused class-major CE),
+    card and CPU each against a float64 twin that replays their ReLU
+    masks, the card within CARD_VS_CPU_ROUNDING × the CPU's error
+    (``card_vs_cpu_step``), its launches counted: 19 BatchNorms (17 in
+    the backbone, 2 heads), 4 SelfNorms and the active CrossNorm site's
+    content statistics."""
+    from cnsn_tpu_torch.train.rounding import (SEG_BATCH, SEG_SIZE,
+                                               run_seg_step)
+    card_vs_cpu_step(
+        dev, {"phase": "seg_card_vs_cpu", "model": "fcn_cnsn (1,1,1,1)",
+              "batch": SEG_BATCH, "image": SEG_SIZE},
+        lambda device, dtype, **kw: run_seg_step(device, dtype, **kw),
+        {"bn_sums": 19, "bn_sums_bwd": 19, "ins_stats": 5,
+         "ins_stats_bwd": 5}, seeds=range(4))
+
+
+def phase_seg_cli(dev):
+    """``cli seg-train`` of gtav_fcn50_cnsn.yaml and gtav_fcn50.yaml on the
+    card at the recipes' 713² and b=16, one epoch of the CLI's synthetic
+    set (32 images: 2 steps; 8 eval images: one batch of 8), then ``cli
+    seg-eval resume=<seg_ckpt_1>``: the mIoU line seg-eval prints is the
+    last one training logged, and the tee log holds it."""
+    out_dir = os.path.join(ROOT, "chiprun_out", "seg_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = os.path.join(out_dir, "cli.txt")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for recipe in (SEG_RECIPE, SEG_BASE_RECIPE):
+            save = os.path.join(tmp, os.path.basename(recipe))
+            common = ["--config", recipe, "--device", str(dev),
+                      "synthetic_data=true", "epochs=1", "print_freq=1",
+                      f"save_path={save}"]
+            t0 = time.perf_counter()
+            printed = _cli(["seg-train", *common], log)
+            train_s = time.perf_counter() - t0
+            lines = re.findall(r"val result: mIoU/mAcc/allAcc (\S+)",
+                               printed)
+            files = sorted(os.listdir(save))
+            check(len(lines) == 1 and {"seg_ckpt_1", "seg_last_ckpt"}
+                  <= set(files), f"seg-train printed {lines}, wrote {files}")
+            tees = [f for f in files if f.startswith("train-")]
+            check(tees and lines[0] in open(os.path.join(save,
+                                                         tees[0])).read(),
+                  f"seg-train tee log {tees}")
+            printed = _cli(["seg-eval", *common,
+                            f"resume={os.path.join(save, 'seg_ckpt_1')}"],
+                           log)
+            again = re.findall(r"val result: mIoU/mAcc/allAcc (\S+)",
+                               printed)
+            check(again == lines,
+                  f"{recipe}: seg-eval printed {again}, training logged "
+                  f"{lines}")
+            out[os.path.relpath(recipe, ROOT)] = {
+                "seg_train_s": train_s, "val_line": lines[0]}
+            torch.cuda.empty_cache()
+    emit({"phase": "seg_cli", "image": 713, "batch": 16, "recipes": out})
+
+
 def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
               per="main-path training step"):
     """A kernel's line: ms, plain, bound and library time per main-path
@@ -2869,6 +3352,8 @@ def main():
                        dev, flush)
     densenet_k4 = timed("densenet_k4_vs_cudnn", phase_densenet_k4_vs_cudnn,
                         dev, flush)
+    seg_rows = timed("seg_kernels_vs_plain", phase_seg_kernels_vs_plain,
+                     dev, flush)
     del flush
     torch.cuda.empty_cache()
     with conv3x3_mode("conv"):
@@ -2907,6 +3392,12 @@ def main():
     cifar_augmix = timed("train_cifar_augmix", phase_train_cifar_augmix, dev)
     with conv3x3_mode("conv"):
         timed("augmix_card_vs_cpu", phase_augmix_card_vs_cpu, dev)
+    # this slice: GTAV -> Cityscapes segmentation, FCN-ResNet50 (+ CNSN)
+    seg_counts = timed("train_seg", phase_train_seg, dev)
+    seg_eval = timed("seg_eval", phase_seg_eval, dev)
+    with conv3x3_mode("conv"):
+        timed("seg_card_vs_cpu", phase_seg_card_vs_cpu, dev)
+    timed("seg_cli", phase_seg_cli, dev)
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
     counts = timed("serving", phase_serving, dev)
 
@@ -3092,9 +3583,39 @@ def main():
                                      "plain_ms", "bound_ms", "library_ms",
                                      "max_abs_err")}
             for r in cifar_rows if r["kernel"] == k["name"]]
+    # each kernel on the segmentation path (gtav_fcn50_cnsn.yaml, b=16 713²
+    # float32): its time per plain training step from its rows at the
+    # recipe's shapes by their sites (K3: per eval batch of 8), its
+    # launches per plain and aug step (per eval batch), and in this run
+    for k in [k3, k3_v1] + kernels:
+        part = [r for r in seg_rows if r["kernel"] == k["name"]]
+        seg = {key: (None if not part or part[0][key] is None else
+                     sum(r[key] * r["sites"] for r in part))
+               for key in ("kernel_ms", "plain_ms", "bound_ms",
+                           "library_ms")}
+        if k["name"] in (K3_STAGED, K3_V1):
+            seg["launches_per_eval_batch"] = seg_eval[
+                "launches_per_batch"].get(k["name"], 0)
+            seg["per"] = "gtav_fcn50_cnsn.yaml eval batch of 8, float32"
+        else:
+            seg.update({kind: seg_counts[kind].get(k["name"], 0)
+                        for kind in ("plain", "aug", "base")})
+            seg["run_launches"] = seg_counts["run"].get(k["name"], 0)
+            seg["run_steps"] = seg_counts["steps"]
+            seg["per"] = ("gtav_fcn50_cnsn.yaml plain training step, b=16 "
+                          "713² float32 (aug: + one K1 call at a SelfNorm "
+                          "site's shape; base: gtav_fcn50.yaml)")
+            if part and k["name"].startswith("ins_stats"):
+                seg["aug_extra_mean_ms"] = (
+                    sum(r["kernel_ms"] * r["sites"] for r in part)
+                    / sum(r["sites"] for r in part))
+        seg["shapes"] = len(part)  # each a seg_kernels_vs_plain line
+        k["seg"] = seg
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
-    emit({"kernels": [k3, k3_v1] + kernels})
+    # compact: the line carries every kernel's paths and stays one line
+    print(json.dumps({"kernels": [k3, k3_v1] + kernels},
+                     separators=(",", ":")), flush=True)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

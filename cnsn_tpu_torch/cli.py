@@ -6,11 +6,14 @@ Usage:
   python -m cnsn_tpu_torch.cli eval  --config ... resume=<ckpt> [key=value ...]
   python -m cnsn_tpu_torch.cli export --config ... --out model.pt2 \
       [resume=<ckpt>] [--seed 0] [key=value ...]
+  python -m cnsn_tpu_torch.cli seg-train --config cnsn_tpu/configs/segmentation/gtav_fcn50_cnsn.yaml \
+      [synthetic_data=true | data_root=... train_list=... val_list=... cross_val_list=...] [key=value ...]
+  python -m cnsn_tpu_torch.cli seg-eval --config ... resume=<seg_ckpt> [key=value ...]
 
 Everything runs on the card unless ``--device cpu`` asks for the CPU.
 ``export`` takes the weights of a checkpoint (``resume=``), or random ones
-drawn from ``--seed``.  The segmentation subcommands and the pipelined
-export (``--pipeline-stages``) are not ported.
+drawn from ``--seed``.  ``seg-export`` and the pipelined export
+(``--pipeline-stages``) are not ported.
 """
 from __future__ import annotations
 
@@ -71,9 +74,62 @@ def _export_main(cfg, args):
           f"{image_size}, 3))")
 
 
+def _seg_main(args):
+    """Segmentation training and validation (reference tool/
+    train_cnsn.sh flow): the YAML, then the ``key=value`` overrides; the
+    data from ``synthetic_data`` or the list files under ``data_root``;
+    unknown keys raise."""
+    import yaml
+
+    from .segmentation.data import make_list_dataset, synthetic_seg_dataset
+    from .segmentation.trainer import SegConfig, SegTrainer, config_fields
+
+    data = {}
+    if args.config:
+        with open(args.config) as f:
+            data = yaml.safe_load(f) or {}
+    for pair in args.overrides:
+        k, _, raw = pair.partition("=")
+        data[k] = yaml.safe_load(raw)
+    data_root = data.pop("data_root", None)
+    train_list = data.pop("train_list", None)
+    val_list = data.pop("val_list", None)
+    cross_list = data.pop("cross_val_list", None)
+    synthetic = data.pop("synthetic_data", False)
+    unknown = set(data) - config_fields()
+    if unknown:
+        raise ValueError(f"unknown seg config keys: {sorted(unknown)}")
+    cfg = SegConfig(**data)
+    if synthetic:
+        train_ds = synthetic_seg_dataset(32, hw=(cfg.train_h + 16,
+                                                 cfg.train_w + 16),
+                                         classes=cfg.classes)
+        val_ds = synthetic_seg_dataset(8, hw=(cfg.train_h, cfg.train_w),
+                                       classes=cfg.classes, seed=7)
+        cross_ds = None
+    else:
+        train_ds = make_list_dataset(data_root, train_list)
+        val_ds = make_list_dataset(data_root, val_list) if val_list else None
+        cross_ds = (make_list_dataset(data_root, cross_list)
+                    if cross_list else None)
+    trainer = SegTrainer(cfg, train_ds, val_ds, cross_ds, device=args.device)
+    restore = _install_tee(cfg.save_path) if cfg.snapshot else None
+    try:
+        if args.command == "seg-train":
+            trainer.fit()
+        else:
+            trainer.validate()
+    finally:
+        trainer.close()
+        if restore is not None:
+            restore()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="cnsn_tpu_torch")
-    parser.add_argument("command", choices=["train", "eval", "export"])
+    parser.add_argument("command", choices=["train", "eval", "export",
+                                            "seg-train", "seg-eval",
+                                            "seg-export"])
     parser.add_argument("--config", default=None)
     parser.add_argument("--out", default="model.pt2",
                         help="output path for export")
@@ -88,6 +144,12 @@ def main(argv=None):
     # them in one parse_args)
     args = parser.parse_intermixed_args(argv)
 
+    if args.command == "seg-export":
+        raise NotImplementedError(
+            "seg-export is not yet ported to cnsn_tpu_torch (ROADMAP queue "
+            "1, segmentation: seg-export and export_segmenter)")
+    if args.command.startswith("seg-"):
+        return _seg_main(args)
     cfg = load_config(args.config)
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)

@@ -45,10 +45,11 @@ def selfnorm_infer_reference(x, w, a, b, eps: float = 1e-12, ddof: int = 1):
     Rounds as the Pallas kernel does: x·g is taken in fp32 and then cast
     to x's type.  (The JAX jnp eval path casts g to bf16 before the
     product, so in bf16 the two JAX paths differ by up to 1 ulp; the port
-    follows the kernel.)
+    follows the kernel.)  A float64 x (the CPU parity tests) is taken in
+    float64 throughout.
     """
     n, _, _, c = x.shape
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean, std = ins_stats_reference(xf, eps=eps, ddof=ddof)
     y = w[:, 0] * mean + w[:, 1] * std
     g = torch.sigmoid(a * y + b).reshape(n, 1, 1, c)

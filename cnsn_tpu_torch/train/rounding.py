@@ -39,7 +39,10 @@ their ReLU masks in the same way (``chip_smoke.py``'s ``cn_card_vs_cpu``).
 graph) with fixed masks and draws, of the reduced WRN at
 ``cifar10/wideresnet/cnsn-consist.yaml``'s knobs and of a DenseNet of
 depth 7 at ``cifar10/densenet/cnsn-consist.yaml``'s (``CONSIST``;
-``chip_smoke.py``'s ``consist_card_vs_cpu``).
+``chip_smoke.py``'s ``consist_card_vs_cpu``).  ``run_seg_step`` is one
+segmentation aug step of an FCN-CNSN of layers (1, 1, 1, 1) at the GTAV
+recipe's knobs, with fixed draws (``chip_smoke.py``'s
+``seg_card_vs_cpu``).
 
 The first prints one JSON line: for the float32 run on ``--device`` and
 for the CPU's, the error against its replaying float64 twin, and, for
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -73,14 +77,18 @@ from ..ops.bbox import sample_bbox
 from ..ops.crossnorm import grouped_permutation
 from ..ops.kernels import bn_stats as _bn_stats
 from ..ops.kernels.bn_stats import bn_sums_reference as _plain_sums
+from ..segmentation import backbone as _seg_backbone
+from ..segmentation import fcn as _seg_fcn
+from ..segmentation.fcn import fcn_cnsn
+from ..segmentation.train_seg import SegStepFns, create_seg_train_state
 from ..utils.device import resolve_device
 from .schedules import cosine_lr
 from .steps import StepFns, create_train_state
 
 __all__ = ["CN_KNOBS", "CN_MASK", "CONSIST", "KINDS", "Run", "WITNESSES",
            "cn_draws", "compare_runs", "compare_traces", "exact_bn_sums",
-           "run_augmix_step", "run_cn_step", "run_consist_step", "run_steps",
-           "seed_bounds", "seed_spread"]
+           "run_augmix_step", "run_cn_step", "run_consist_step",
+           "run_seg_step", "run_steps", "seed_bounds", "seed_spread"]
 
 KINDS = ("plain", "cn_image", "plain")
 BATCH, SIZE, CLASSES = 4, 64, 10  # 64² leaves layer4 at 2x2
@@ -113,6 +121,11 @@ CONSIST_WT = 10.0
 # image CrossNorm (crop 'neither') over the 3B = 12 instances, 64²
 AUGMIX_MASKS = ((True, False, False), (False, False, True))
 AUGMIX_PERM = (5, 9, 0, 7, 11, 2, 10, 4, 1, 8, 3, 6)
+# the seg aug step: an FCN-CNSN of layers (1, 1, 1, 1) at the GTAV
+# recipe's knobs (SelfNorm at 'residual', CrossNorm 'style' at 'post'),
+# heads' dropout 0, 5 classes, b=4 at 65² (layer4 at 9²), site 2 of 4 on
+SEG_BATCH, SEG_SIZE, SEG_CLASSES = 4, 65, 5
+SEG_MASK = (False, True, False, False)
 
 
 class _Tape:
@@ -380,6 +393,55 @@ def run_augmix_step(device: str | torch.device, dtype: torch.dtype,
                 state, metrics = steps.cn_image_augmix(
                     state, x, y, perm=torch.tensor(AUGMIX_PERM,
                                                    device=device))
+            loss = float(metrics["loss"])
+    return Run([loss], {1: _snapshot(state)}, tape.record)
+
+
+@contextlib.contextmanager
+def _exact_seg(tape: _Tape):
+    """``_exact`` over both modules of the FCN (backbone and heads)."""
+    with _exact(_seg_backbone, tape):
+        _seg_fcn.F = tape
+        try:
+            yield
+        finally:
+            _seg_fcn.F = F
+
+
+def run_seg_step(device: str | torch.device, dtype: torch.dtype, *,
+                 replay: Optional[list] = None, seed: int = 3,
+                 sums: Optional[Callable] = None) -> Run:
+    """One segmentation aug step (``SegStepFns.aug``: site ``SEG_MASK``
+    on, its partner permutation and style box fixed, the class-major
+    fused CE, poly LR with 10× heads) of the reduced FCN-CNSN on
+    ``device`` (TF32 off) in ``dtype``, on seeded images (labels with an
+    ignored band) and weights; ``replay`` and ``sums`` as in
+    ``run_steps``.  The Run's state is the one after the step."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(SEG_BATCH, SEG_SIZE, SEG_SIZE, 3, generator=gen)
+    labels = torch.randint(0, SEG_CLASSES, (SEG_BATCH, SEG_SIZE, SEG_SIZE),
+                           generator=gen)
+    labels[:, :3] = 255
+    full = _seg_fcn.seg_resnet50
+    _seg_fcn.seg_resnet50 = functools.partial(_seg_backbone.SegResNet,
+                                              layers=(1, 1, 1, 1))
+    try:
+        net = fcn_cnsn(SEG_CLASSES, dropout=0.0,
+                       generator=torch.Generator().manual_seed(0))
+    finally:
+        _seg_fcn.seg_resnet50 = full
+    state = create_seg_train_state(net.to(dtype), 0.01, 4, device=device)
+    draws = [{"perm": grouped_permutation(SEG_BATCH, 1, gen),
+              "style_box": sample_bbox(side, side, generator=gen)}
+             for side in (33, 17, 9, 9)]
+    steps = SegStepFns(net, num_classes=SEG_CLASSES)
+    tape = _Tape(replay)
+    with _patched_sums(sums):
+        with _exact_seg(tape):
+            state, metrics = steps.aug(
+                state, images.to(device, dtype), labels.to(device),
+                mask=SEG_MASK, draws=draws)
             loss = float(metrics["loss"])
     return Run([loss], {1: _snapshot(state)}, tape.record)
 

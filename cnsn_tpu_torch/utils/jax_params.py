@@ -2,7 +2,8 @@
 
 ``state_dict_from_jax(params, batch_stats, key_map=None)`` is the inverse
 of ``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet, ResNet-IBN,
-WideResNet, DenseNet, ResNeXt and (with ``key_map``) AllConvNet trees: it takes the
+WideResNet, DenseNet, ResNeXt and (with ``key_map``) AllConvNet and
+FCN segmentation trees: it takes the
 JAX trees as nested dicts of arrays (numpy, or anything ``np.array``
 reads) and returns a torch state dict in the reference's key names and
 layouts, which the port's modules load with ``load_state_dict``:
@@ -30,7 +31,14 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["SEG_KEY_MAP", "state_dict_from_jax"]
+
+# the FCN heads: torchvision FCNHead's Sequential indices → the JAX
+# FCNHead's names (cnsn_tpu/segmentation/fcn.py:27-41)
+SEG_KEY_MAP = {f"{head}.{idx}": f"{head}.{name}"
+               for head in ("classifier", "aux_classifier")
+               for idx, name in (("0", "conv1"), ("1", "bn1"),
+                                 ("4", "conv2"))}
 
 # JAX module name → torch path, by pattern (first match wins)
 _PATHS = ((re.compile(r"^(layer\d+|dense\d+)_(\d+)$"), r"\1.\2"),
@@ -44,10 +52,13 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 
 def _module_key(path, top: Mapping[str, str]) -> str:
     parts = []
-    for i, p in enumerate(path):
-        if i == 0 and p in top:
-            parts.append(top[p])
-            continue
+    for n in range(len(path), 0, -1):  # the longest mapped leading path
+        lead = ".".join(path[:n])
+        if lead in top:
+            parts.append(top[lead])
+            path = path[n:]
+            break
+    for p in path:
         for pattern, repl in _PATHS:
             if pattern.match(p):
                 parts.append(pattern.sub(repl, p))
@@ -73,8 +84,9 @@ def state_dict_from_jax(params: Mapping[str, Any],
                         batch_stats: Mapping[str, Any],
                         key_map: Optional[Mapping[str, str]] = None
                         ) -> Dict[str, torch.Tensor]:
-    """``key_map``: torch prefix → JAX top-level module name, the map
-    ``convert_state_dict`` takes (AllConvNet's ``allconv_key_map(pos)``)."""
+    """``key_map``: torch prefix → JAX module path (dotted), the map
+    ``convert_state_dict`` takes (AllConvNet's ``allconv_key_map(pos)``,
+    the FCN's ``SEG_KEY_MAP``)."""
     top = {jax_name: prefix for prefix, jax_name in (key_map or {}).items()}
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, v in _leaves(params):

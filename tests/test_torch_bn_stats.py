@@ -20,6 +20,8 @@ from cnsn_tpu.ops.pallas.bn_stats import bn_sums, bn_sums_pallas
 from cnsn_tpu_torch.ops import (BnSums, bn_sums_bwd_cuda,
                                 bn_sums_bwd_reference, bn_sums_cuda,
                                 bn_sums_reference)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 # C=64 takes the JAX kernel's lane-fold branch; 105 and 63 rows are
 # ragged against its chunks (and 63 does not fold); C=3 is the image

@@ -55,6 +55,8 @@ from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
 from test_torch_cnsn_sites import JaxDraws
 from test_torch_wideresnet import _find_trace, _np64, _perturb, _same_tree, \
     _worst
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 _CIFAR10 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "cnsn_tpu", "configs", "cifar10")

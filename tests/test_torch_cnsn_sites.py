@@ -25,6 +25,8 @@ from cnsn_tpu.train import steps as jax_steps
 from cnsn_tpu_torch.nn import CNSN, CrossNorm
 from cnsn_tpu_torch.ops.crossnorm import CROP_MODES
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 SHAPE = (4, 7, 6, 16)  # N, H, W, C
 TOL = 1e-10  # float64, the same operations: of each tensor's max-abs

@@ -38,6 +38,8 @@ from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
 from test_torch_cnsn_sites import JaxDraws
 from test_torch_trainer import _configs, small  # noqa: F401 (fixture)
 from test_torch_wideresnet import _find_trace, _np64, _worst
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "cnsn_tpu", "configs")

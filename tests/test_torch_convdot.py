@@ -22,6 +22,8 @@ from cnsn_tpu_torch.models.common import Conv2d, ConvCustomBwd
 from cnsn_tpu_torch.models.wideresnet import WideResNet
 from cnsn_tpu_torch.ops.convdot import conv2d_custom_bwd, routes_to_k4
 from cnsn_tpu_torch.ops.kernels import wgrad3x3_reference
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 REL = 1e-5
 

@@ -22,6 +22,8 @@ from cnsn_tpu_torch.ops.crossnorm import (CROP_MODES, cross_norm_2ins,
                                           cross_norm_fma)
 from cnsn_tpu_torch.ops.kernels import InsStats
 from cnsn_tpu_torch.ops.stats import masked_instance_mean_std, region_mask
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 DRAWS = 4000
 SHAPE = (4, 9, 11, 6)  # N, H, W, C: a ragged plane, boxes well inside it

@@ -21,6 +21,8 @@ from cnsn_tpu_torch.models.wideresnet import WideResNet
 from cnsn_tpu_torch.train import StepFns, create_train_state
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
 from test_torch_wideresnet import _perturb
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 KW = dict(depth=10, widen_factor=2, num_classes=10, pos="post",
           cnsn_type="cnsn", crop="both")

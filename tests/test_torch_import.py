@@ -10,6 +10,7 @@ from flax import linen as nn
 from cnsn_tpu.models import build_model
 from cnsn_tpu.nn.norm import BatchNorm
 from cnsn_tpu.utils.torch_import import convert_state_dict
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 class MiniTorch(tnn.Module):

@@ -20,6 +20,8 @@ from cnsn_tpu.ops.pallas.ins_stats import (ins_stats_diff, ins_stats_pallas,
 from cnsn_tpu_torch.ops import (InsStats, ins_stats_bwd_reference,
                                 ins_stats_reference, instance_mean_std)
 from cnsn_tpu_torch.ops.kernels import LAUNCHES
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 # (H, W): one row, a 7x7 plane, and an odd ragged 5x7

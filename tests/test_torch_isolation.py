@@ -1,5 +1,5 @@
-"""The port stands alone: it runs with neither JAX nor the JAX package
-imported, and its entry points do not fall back to the CPU."""
+"""The port stands alone: it runs with neither JAX, the JAX package nor
+OpenCV imported, and its entry points do not fall back to the CPU."""
 import ast
 import os
 import subprocess
@@ -8,9 +8,10 @@ import textwrap
 
 import pytest
 import torch
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cnsn_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cnsn_tpu", "cv2")
 
 
 def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
@@ -91,9 +92,29 @@ def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
             data.load_cifar("", synthetic=True, synthetic_size=32), 16)
         assert math.isfinite(t.train_epoch())
         assert t.state.step == 2
+        from cnsn_tpu_torch.segmentation import SegResNet, SegStepFns
+        from cnsn_tpu_torch.segmentation import data as seg_data
+        from cnsn_tpu_torch.segmentation import fcn as seg_fcn
+        from cnsn_tpu_torch.segmentation.train_seg import (
+            create_seg_train_state)
+        from cnsn_tpu_torch.segmentation.trainer import (
+            SegConfig, default_train_transform)
+        seg_fcn.seg_resnet50 = lambda **kw: SegResNet(layers=(1, 1, 1, 1),
+                                                      **kw)
+        seg = seg_fcn.fcn_cnsn(5)
+        state = create_seg_train_state(seg, 0.01, 10, device="cpu")
+        image, label = seg_data.synthetic_seg_dataset(
+            1, hw=(49, 49), classes=5).load(0)
+        image, label = default_train_transform(SegConfig(
+            train_h=41, train_w=41))(np.random.RandomState(0), image, label)
+        state, metrics = SegStepFns(seg, num_classes=5).aug(
+            state, torch.from_numpy(image)[None].repeat(2, 1, 1, 1),
+            torch.from_numpy(label)[None].repeat(2, 1, 1),
+            generator=torch.Generator().manual_seed(0))
+        assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
-                                            "optax", "cnsn_tpu"))
+                                            "optax", "cnsn_tpu", "cv2"))
         assert not bad, bad
         print("ok")
     """)
@@ -121,6 +142,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(_ROOT, "chip_smoke.py"))
     assert len(files) > 15
+    assert any(os.sep + "segmentation" + os.sep in f for f in files)
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in _FORBIDDEN, (path, mod)

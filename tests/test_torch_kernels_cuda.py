@@ -1631,3 +1631,89 @@ def test_resnet_ibn_takes_its_steps_on_the_card(variant, monkeypatch):
     assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-4 * abs(
         runs["cpu"][0])
     _close_to_scale(runs["cuda"][1], runs["cpu"][1], 1e-3)
+
+
+# The GTAV FCN's shapes (gtav_fcn50_cnsn.yaml: 713² crops, b=16, output
+# stride 8): K1 at its longest SelfNorm plane (179², 32,041 rows) and its
+# widest (90² × 2048), K2 at the stem's 2,039,184 rows × 64 and layer4's
+# 129,600 × 2048, K3 at those two planes at the eval batch of 8
+SEG_K1 = [(16, 179, 179, 256), (16, 90, 90, 2048)]
+SEG_K2 = [(16, 357, 357, 64), (16, 90, 90, 2048)]
+SEG_K3 = [(8, 179, 179, 256), (8, 90, 90, 2048)]
+
+
+def _big(shape, seed, dtype, scale=1.5, offset=0.3):
+    """A large input drawn on the card (the host would take seconds)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda") * scale + offset
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("shape", SEG_K1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ins_stats_at_the_seg_shapes(shape, dtype):
+    """K1 forward (SelfNorm's eps) and backward against the plain
+    versions at the bounds of the tests above."""
+    n, _, _, c = shape
+    x = _big(shape, 31, dtype)
+    got = ins_stats_cuda(x, eps=1e-12)
+    want = ins_stats_reference(x, eps=1e-12)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (n, c)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    mean, std = want
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    gm = torch.randn(n, c, generator=gen, device="cuda")
+    gs = torch.randn(n, c, generator=gen, device="cuda")
+    dx = ins_stats_bwd_cuda(x, mean, std, gm, gs)
+    want_dx = ins_stats_bwd_reference(x, mean, std, gm, gs)
+    torch.cuda.synchronize()
+    assert dx.shape == shape and dx.dtype == dtype
+    _close_to_scale(dx, want_dx, 1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("shape", SEG_K2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_at_the_seg_shapes(shape, dtype):
+    """K2 forward (up to 2M rows a channel: the kernel's fp64 sums
+    against the plain version's fp32 ones, 1e-5 of Σ|x−m0| and of s2)
+    and backward, run to run bit for bit."""
+    c = shape[-1]
+    x = _big(shape, 33, dtype, offset=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    m0 = torch.randn(c, generator=gen, device="cuda") * 0.5
+    s1, s2 = bn_sums_cuda(x, m0)
+    a1, a2 = bn_sums_cuda(x, m0)
+    w1, w2 = bn_sums_reference(x, m0)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, a1) and torch.equal(s2, a2)
+    d_abs = (x.float() - m0).abs().sum(dim=(0, 1, 2))
+    assert bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
+    assert bool(((s2 - w2).abs() <= 1e-5 * w2).all())
+    g1 = torch.randn(c, generator=gen, device="cuda")
+    g2 = torch.randn(c, generator=gen, device="cuda") * 1e-3
+    got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    want = bn_sums_bwd_reference(x, m0, g1, g2)
+    torch.cuda.synchronize()
+    assert got.shape == shape and got.dtype == dtype
+    _close_to_scale(got, want, 1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("shape", SEG_K3)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selfnorm_at_the_seg_shapes(shape, dtype):
+    """K3 through the kernel its rule picks at the seg eval planes (and
+    the v1 kernel forced), against the plain version."""
+    c = shape[-1]
+    x = _big(shape, 35, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    w = torch.randn(c, 2, generator=gen, device="cuda") * 0.3
+    a = torch.rand(c, generator=gen, device="cuda") * 1.5 + 0.5
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    want = selfnorm_infer_reference(x, w, a, b)
+    for path in (None, "v1"):
+        got = selfnorm_infer_cuda(x, w, a, b, path=path)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == shape
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])

@@ -20,6 +20,8 @@ from cnsn_tpu.ops import crossnorm as jax_cn
 from cnsn_tpu_torch.nn import (CNSN, BatchNorm, BatchNorm1dStats, CrossNorm,
                                SelfNorm)
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 # fp32 layers: identical math, other summation and fma order; the
 # SelfNorm statistics reduce over H·W (~1e-6 relative).

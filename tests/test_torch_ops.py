@@ -18,6 +18,8 @@ from cnsn_tpu_torch.ops import (instance_mean_std, selfnorm_infer,
                                 selfnorm_infer_cuda,
                                 selfnorm_infer_reference)
 from cnsn_tpu_torch.ops.kernels import LAUNCHES
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 # fp32 ops: the two frameworks sum in other orders, ~1e-6 relative per
 # reduction over a few hundred elements; 1e-5 leaves headroom.

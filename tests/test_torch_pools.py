@@ -20,6 +20,8 @@ from cnsn_tpu_torch.data import cifar, imagenet
 from cnsn_tpu_torch.data.workers import PrefetchPool
 from cnsn_tpu_torch.models.wideresnet import WideResNet
 from test_torch_imagenet_data import write_folder
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 _WRN_AUGMIX = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "cnsn_tpu", "configs", "cifar10", "wideresnet",

@@ -7,6 +7,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from cnsn_tpu_torch.utils import profiling
 from cnsn_tpu_torch.utils.profiling import _union_us, kernel_family
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name,family", [

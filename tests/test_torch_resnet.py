@@ -24,6 +24,7 @@ from cnsn_tpu.utils.torch_import import convert_state_dict
 from cnsn_tpu_torch.models import build_model
 from cnsn_tpu_torch.models.resnet import Bottleneck, ResNet, resnet50
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _perturb(tree, rng, stats):

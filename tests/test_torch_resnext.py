@@ -9,6 +9,7 @@ position, shared by the two tests).
 import pytest
 
 from test_torch_cifar_models import check_sgd_step, check_train_forward
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 POSITIONS = ["residual", "identity", "pre", "post"]
 

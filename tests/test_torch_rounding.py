@@ -1,14 +1,16 @@
 """cnsn_tpu_torch.train.rounding on the CPU: a float64 run that replays a
 run's ReLU masks and max-pool choices, and the step-1 trace comparison
-that locates where two runs part."""
+that locates where two runs part (the runs with other sums and seeds, of
+the AugMix and the segmentation step: tests/test_torch_rounding_runs.py)."""
 import copy
 
 import pytest
 import torch
 
 from cnsn_tpu_torch.train.rounding import (WITNESSES, compare_runs,
-                                           compare_traces, run_augmix_step,
-                                           run_steps, seed_bounds)
+                                           compare_traces, run_steps,
+                                           seed_bounds)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -84,29 +86,6 @@ def test_exact_bn_sums_are_the_float64_sums_rounded_once():
                        .float())
 
 
-def test_run_with_other_sums_and_seed_puts_the_plain_version_back():
-    """``sums`` takes the place of the BatchNorm sums for one run only;
-    ``seed`` draws other inputs (seed 3 is the default)."""
-    from cnsn_tpu_torch.ops.kernels import bn_stats
-    from cnsn_tpu_torch.train.rounding import exact_bn_sums
-    plain = (bn_stats.bn_sums_reference, bn_stats.bn_sums_cuda)
-    calls = []
-
-    def sums(x, m0):
-        calls.append(x.shape[-1])
-        return exact_bn_sums(x, m0)
-
-    run = run_steps("cpu", torch.float32, sums=sums)
-    assert (bn_stats.bn_sums_reference, bn_stats.bn_sums_cuda) == plain
-    # 17 BatchNorm2d layers of layers (1, 1, 1, 1), three steps
-    assert len(calls) == 3 * 17
-    assert all(map(torch.isfinite, map(torch.tensor, run.losses)))
-    other = run_steps("cpu", torch.float32, seed=4, sums=sums)
-    assert other.losses != run.losses
-    assert run_steps("cpu", torch.float32, seed=3).losses[0] == \
-        run_steps("cpu", torch.float32).losses[0]
-
-
 def _spread_row(card, cpu, torch_sums, exact):
     """A made-up ``seed_spread`` row: per run, three losses and one
     (error, tensor name) per step and part, as ``compare_runs`` gives
@@ -156,25 +135,3 @@ def test_seed_bounds_name_what_lies_beyond(card, over):
                       exact=([1e-8, 1e-6, 7e-6], 3e-4))
     assert {q for q, e, b in seed_bounds(row, 8, 1e-6)
             if not e <= b} == over
-
-
-def test_compare_runs_holds_the_tensors_a_reference_leaves_at_zero():
-    """IBN-b's BatchNorm biases before an InstanceNorm get a zero
-    gradient, which leaves them at ~1e-18 in float64, where a relative
-    error says nothing.  ``compare_runs`` holds them apart by their
-    absolute error: float32 rounding alone in a ``cn_image_augmix`` step
-    (measured 1.4e-9 state, 2.7e-8 momentum), and a run that moves one of
-    them shows it."""
-    run = run_augmix_step("cpu", torch.float32, "cn_image_augmix")
-    ref = run_augmix_step("cpu", torch.float64, "cn_image_augmix",
-                          replay=run.tape)
-    errs = compare_runs(run, ref)
-    err, name = errs["step1_state_at_zero"]
-    assert name.endswith(("bn3.bias", "downsample.1.bias")), errs
-    assert 0 < err <= 1e-8, errs
-    assert 0 < errs["step1_momentum_at_zero"][0] <= 1e-7, errs
-    assert errs["step1_state"][0] <= 1e-4, errs
-    moved = copy.copy(run)
-    moved.states = {1: dict(run.states[1])}
-    moved.states[1][name] = run.states[1][name] + 1e-3
-    assert compare_runs(moved, ref)["step1_state_at_zero"][0] > 9e-4

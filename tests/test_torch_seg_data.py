@@ -1,0 +1,229 @@
+"""The port's segmentation data (cnsn_tpu_torch.segmentation.data: the
+paired transforms, the list-file and synthetic datasets, SegLoader)
+against the JAX package's, which calls OpenCV, on the CPU.
+
+Flips, crops, the constant-border padding, Normalize, the
+nearest-neighbour label maps and the synthetic set's batches through the
+exact transforms are held bit for bit.  The linear resize and the blur
+images are held within 1e-3 on the 0–255 scale.  The rotation image is
+held within 1e-3 plus what two float32 roundings of a source coordinate
+move a pixel: OpenCV 5's ``warpAffine`` takes its coordinates in float32
+in an operation order its binary does not show, which the port
+reproduces on 88-98% of the coordinates' bits; a coordinate one float32
+step off moves a pixel by that step times the image's difference between
+neighbours (up to 255 on the synthetic set's noise images), and 89-93% of
+the rotated pixels here lie within 1e-3.
+"""
+import os
+
+import numpy as np
+import pytest
+from PIL import Image
+
+import cnsn_tpu.segmentation.data as J
+import cnsn_tpu.segmentation.trainer as jax_trainer
+from cnsn_tpu_torch.segmentation import data as P
+from cnsn_tpu_torch.segmentation import trainer as port_trainer
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
+PAD = (123.675, 116.28, 103.53)
+STD = (58.395, 57.12, 57.375)
+LINEAR_TOL = 1e-3  # on the 0-255 scale
+SEEDS = range(12)
+
+
+def _sample(seed):
+    """A synthetic image and label of a size that varies with the seed."""
+    ds = J.synthetic_seg_dataset(1, hw=(61 + 9 * seed, 83 + 5 * seed),
+                                 classes=19, seed=seed)
+    return ds.load(0)
+
+
+def _both(make, seed):
+    img, lab = _sample(seed)
+    want = make(J)(np.random.RandomState(seed), img.copy(), lab.copy())
+    got = make(P)(np.random.RandomState(seed), img.copy(), lab.copy())
+    assert got[0].dtype == np.float32 and got[1].dtype == want[1].dtype
+    assert got[0].shape == want[0].shape
+    return got, want
+
+
+EXACT = {
+    "hflip": lambda M: M.RandomHorizontalFlip(p=1.0),
+    "vflip": lambda M: M.RandomVerticalFlip(p=1.0),
+    "flip_maybe": lambda M: M.RandomHorizontalFlip(),
+    "crop_rand": lambda M: M.Crop((57, 71), "rand", padding=PAD),
+    "crop_center": lambda M: M.Crop((64, 64), "center", padding=PAD),
+    "crop_pad": lambda M: M.Crop((200, 150), "rand", padding=PAD,
+                                 ignore_label=254),
+    "normalize": lambda M: M.Normalize(PAD, STD),
+    "normalize_mean": lambda M: M.Normalize(PAD),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXACT))
+def test_exact_transforms_bit_for_bit(name):
+    for seed in SEEDS:
+        got, want = _both(EXACT[name], seed)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+LINEAR = {
+    "resize_up": lambda M: M.Resize((150, 171)),
+    "resize_down": lambda M: M.Resize((41, 37)),
+    "randscale": lambda M: M.RandScale((0.5, 2.0)),
+    "randscale_aspect": lambda M: M.RandScale((0.5, 2.0), (0.7, 1.4)),
+    "blur": lambda M: M.RandomGaussianBlur(p=1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LINEAR))
+def test_linear_transforms_within_1e3_labels_equal(name):
+    for seed in SEEDS:
+        got, want = _both(LINEAR[name], seed)
+        np.testing.assert_array_equal(got[1], want[1])
+        assert float(np.abs(got[0] - want[0]).max()) <= LINEAR_TOL, seed
+
+
+def _rotation_bound(shape):
+    """What one float32 step of a coordinate below max(h, w) moves a
+    pixel of a 0–255 image by, doubled."""
+    step = 2.0 ** (np.ceil(np.log2(max(shape[:2]))) - 23)
+    return LINEAR_TOL + 2 * 255 * step
+
+
+def _check_rotated(got, want):
+    np.testing.assert_array_equal(got[1], want[1])
+    err = np.abs(got[0] - want[0]).max(axis=-1)
+    assert float(err.max()) <= _rotation_bound(got[0].shape)
+
+
+@pytest.mark.parametrize("p", [1.0, 0.5])
+def test_rotation_labels_equal_images_within_coordinate_rounding(p):
+    for seed in SEEDS:
+        got, want = _both(lambda M: M.RandRotate((-10, 10), padding=PAD,
+                                                 ignore_label=255, p=p), seed)
+        _check_rotated(got, want)
+
+
+def test_rotation_matrix_is_opencvs():
+    import cv2
+    for angle, center in ((7.3, (20.5, 31.0)), (-9.9, (356.5, 356.5))):
+        np.testing.assert_allclose(P.rotation_matrix(center, angle),
+                                   cv2.getRotationMatrix2D(center, angle, 1),
+                                   rtol=0, atol=1e-12)
+
+
+def test_wider_blur_is_not_ported():
+    with pytest.raises(NotImplementedError, match="5-tap"):
+        P.RandomGaussianBlur(radius=7)
+
+
+def _cfg(**kw):
+    over = dict(train_h=65, train_w=65, classes=19)
+    over.update(kw)
+    return (port_trainer.SegConfig(**over), jax_trainer.SegConfig(**over))
+
+
+def test_default_train_transform_matches_jax():
+    """The recipe's pipeline (RandScale, RandRotate, blur, flip, rand crop
+    with padding, Normalize): labels equal, images within the bounds of
+    its linear steps, in units of the normalised image (÷ std)."""
+    pcfg, jcfg = _cfg()
+    for seed in SEEDS:
+        got, want = _both(
+            lambda M: (port_trainer if M is P else jax_trainer)
+            .default_train_transform(pcfg if M is P else jcfg), seed)
+        np.testing.assert_array_equal(got[1], want[1])
+        err = np.abs(got[0] - want[0]).max(axis=-1) * max(STD)
+        assert float(err.max()) <= _rotation_bound((2 * 150, 2 * 150))
+
+
+@pytest.mark.parametrize("n,hw,seed", [(8, (97, 113), 0), (5, (40, 52), 3)])
+def test_synthetic_dataset_loads_equal(n, hw, seed):
+    got = P.synthetic_seg_dataset(n, hw=hw, classes=7, seed=seed)
+    want = J.synthetic_seg_dataset(n, hw=hw, classes=7, seed=seed)
+    assert len(got) == len(want) == n
+    for i in range(n):
+        for g, w in zip(got.load(i), want.load(i)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
+def _val_transform(M):
+    return M.Compose([M.Crop((33, 33), "center", padding=PAD,
+                             ignore_label=255), M.Normalize(PAD, STD)])
+
+
+def _exact_train(M):
+    return M.Compose([M.RandomHorizontalFlip(), M.RandomVerticalFlip(),
+                      M.Crop((33, 41), "rand", padding=PAD),
+                      M.Normalize(PAD, STD)])
+
+
+@pytest.mark.parametrize("make,shuffle,drop_last,batch", [
+    (_val_transform, False, False, 3), (_exact_train, True, True, 2),
+    (_exact_train, True, False, 3)])
+def test_loader_batches_bit_for_bit(make, shuffle, drop_last, batch):
+    """Whole SegLoader batches of the synthetic set through exact
+    transforms, over two epochs (the shuffle reseeds per epoch)."""
+    kw = dict(seed=5, shuffle=shuffle, drop_last=drop_last)
+    got = P.SegLoader(P.synthetic_seg_dataset(7, hw=(37, 45), classes=5),
+                      batch, make(P), **kw)
+    want = J.SegLoader(J.synthetic_seg_dataset(7, hw=(37, 45), classes=5),
+                       batch, make(J), **kw)
+    assert len(got) == len(want)
+    for _ in range(2):
+        pairs = list(zip(got, want))
+        assert len(pairs) == len(want)
+        for (gi, gl), (wi, wl) in pairs:
+            assert gi.dtype == wi.dtype and gl.dtype == wl.dtype
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gl, wl)
+
+
+def test_loader_batches_of_the_recipe_pipeline():
+    """The recipe's train transform over a loader: labels bit for bit,
+    images within the rotation bound."""
+    pcfg, jcfg = _cfg(train_h=41, train_w=41)
+    kw = dict(seed=1)
+    got = P.SegLoader(P.synthetic_seg_dataset(6, hw=(57, 57), classes=19),
+                      2, port_trainer.default_train_transform(pcfg), **kw)
+    want = J.SegLoader(J.synthetic_seg_dataset(6, hw=(57, 57), classes=19),
+                       2, jax_trainer.default_train_transform(jcfg), **kw)
+    for (gi, gl), (wi, wl) in zip(got, want):
+        np.testing.assert_array_equal(gl, wl)
+        err = np.abs(gi - wi).max(axis=-1) * max(STD)
+        assert float(err.max()) <= _rotation_bound((114, 114))
+
+
+def test_list_dataset_reads_as_opencv(tmp_path):
+    """make_list_dataset over PNGs written by PIL (RGB images, 8-bit grey
+    label maps, and one palette label): PIL's decode equals JAX's
+    cv2.imread, and malformed lines are skipped as JAX skips them."""
+    rng = np.random.RandomState(0)
+    lines = []
+    for i in range(3):
+        img = rng.randint(0, 256, (23 + i, 31, 3)).astype(np.uint8)
+        lab = rng.randint(0, 19, (23 + i, 31)).astype(np.uint8)
+        lab[0, :4] = 255
+        os.makedirs(tmp_path / "images", exist_ok=True)
+        os.makedirs(tmp_path / "labels", exist_ok=True)
+        Image.fromarray(img).save(tmp_path / "images" / f"{i:05d}.png")
+        Image.fromarray(lab, mode="L").save(tmp_path / "labels" / f"{i}.png")
+        lines.append(f"images/{i:05d}.png labels/{i}.png")
+    lines.append("just_one_field")
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(lines) + "\n")
+    got = P.make_list_dataset(str(tmp_path), str(lst))
+    want = J.make_list_dataset(str(tmp_path), str(lst))
+    assert len(got) == len(want) == 3
+    for i in range(3):
+        for g, w in zip(got.load(i), want.load(i)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    empty = tmp_path / "empty.txt"
+    empty.write_text("\n")
+    with pytest.raises(RuntimeError, match="no samples"):
+        P.make_list_dataset(str(tmp_path), str(empty))

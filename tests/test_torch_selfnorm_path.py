@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from cnsn_tpu_torch.ops import selfnorm_path
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 # (H = W, C, sites) of the SelfNorm sites: ResNet-50 at 224² (16) and
 # WRN-40-2 at 32² (18: the first block of each group sizes its SelfNorm to

@@ -16,6 +16,8 @@ from cnsn_tpu_torch.cli import main as cli_main
 from cnsn_tpu_torch.config import apply_overrides, load_config
 from cnsn_tpu_torch.serving import (export_classifier, load_artifact,
                                     save_artifact)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "cnsn_tpu", "configs")

@@ -22,6 +22,8 @@ from cnsn_tpu_torch.ops.kernels.ins_stats import (BWD_UNROLL as K1_UNROLL,
                                                  THREADS, ins_bwd_plan,
                                                  ins_stats_plan)
 from cnsn_tpu_torch.utils.stats_sweep import SN_R50, SN_WRN, bn_shapes
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 H100 = dict(sms=132, smem_per_sm=233472)
 BF16, F32 = torch.bfloat16, torch.float32

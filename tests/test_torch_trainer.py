@@ -3,16 +3,15 @@ package's on the CPU, at a reduced WRN (the model factories patched in
 this file only) on the loaders' synthetic set: a plain epoch in float64
 from the same weights, the sequence of CN gates and step functions, the
 log.txt layout, the checkpoint (resume, and the interchange into the JAX
-Trainer through ``pretrained=``), the CLI, and what raises.
+Trainer through ``pretrained=``) and what raises (the CLI and the
+CIFAR-C evaluation: tests/test_torch_trainer_cli.py).
 
 The JAX Trainer runs at ``num_devices=1``: the conftest gives it 8 CPU
 devices, and with more than one its models take per-shard BN statistics
 (``num_groups``), which the port does not have yet.
 """
 import dataclasses
-import glob
 import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -27,15 +26,15 @@ import cnsn_tpu_torch.train.trainer as trainer_mod
 from cnsn_tpu.config import load_config as jax_load_config
 from cnsn_tpu.data import cifar as jax_cifar
 from cnsn_tpu.models.wideresnet import WideResNet as JaxWideResNet
-from cnsn_tpu_torch import cli
 from cnsn_tpu_torch.config import load_config
 from cnsn_tpu_torch.data import cifar
 from cnsn_tpu_torch.models.wideresnet import WideResNet
-from cnsn_tpu_torch.serving import load_artifact
 from cnsn_tpu_torch.train.trainer import Trainer
 from cnsn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
 from test_torch_wideresnet import _find_trace, _np64, _worst
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 _WRN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "cnsn_tpu", "configs", "cifar10", "wideresnet")
@@ -378,56 +377,3 @@ def test_trainer_defaults_to_cuda_and_does_not_fall_back(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg)
     assert os.listdir(tmp_path) == []
-
-
-def test_cli_train_eval_export_on_the_cpu(small, tmp_path, capsys):
-    """cli train (two epochs, b=64 on the synthetic set), then eval
-    resume=<last> prints the last row's Test Error, and export resume=
-    serves the checkpoint's eager logits."""
-    common = ["--config", CNSN, "--device", "cpu", "synthetic_data=true",
-              "batch_size=64", "eval_batch_size=200"]
-    cli.main(["train", *common, "epochs=2", f"exp_dir={tmp_path}/exp"])
-    [exp_dir] = glob.glob(f"{tmp_path}/exp/*/*")
-    files = os.listdir(exp_dir)
-    assert {"log.txt", "WideResNet_last_ckpt", "WideResNet_best_ckpt",
-            "config.yaml"} <= set(files)
-    assert any(f.startswith("code-") for f in files)
-    [tee] = [f for f in files if f.startswith("train-")]
-    assert "Train Loss" in open(os.path.join(exp_dir, tee)).read()
-    rows = open(os.path.join(exp_dir, "log.txt")).read().splitlines()[6:]
-    assert len(rows) == 2
-    last = os.path.join(exp_dir, "WideResNet_last_ckpt")
-    capsys.readouterr()
-    cli.main(["eval", *common, f"resume={last}"])
-    out = capsys.readouterr().out
-    assert re.search(r"Test Error (\S+)", out).group(1) == \
-        rows[-1].split("\t")[3]
-    art = str(tmp_path / "m.pt2")
-    cli.main(["export", *common, f"resume={last}", "--out", art])
-    model = small("wideresnet", 10, pos="post", crop="both", beta=1,
-                  cnsn_type="cnsn")
-    model.load_state_dict(load_checkpoint(last)["state_dict"])
-    x = torch.from_numpy(np.random.RandomState(3).randn(
-        5, 32, 32, 3).astype(np.float32))
-    with torch.no_grad():
-        want = model.eval()(x)
-    torch.testing.assert_close(load_artifact(art, device="cpu")(x), want,
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_test_corruptions_over_cifar_c(small, tmp_path, capsys):
-    """The Trainer's CIFAR-C evaluation: the 15 corruptions of fake .npy
-    files, each printed with its error, and the mean corruption error."""
-    rng = np.random.RandomState(11)
-    np.save(tmp_path / "labels.npy", rng.randint(0, 10, 20))
-    for c in cifar.CORRUPTIONS:
-        np.save(tmp_path / f"{c}.npy",
-                rng.randint(0, 256, (20, 32, 32, 3), np.uint8))
-    cfg, _ = _configs(CNSN, tmp_path, corrupt_data_dir=str(tmp_path))
-    t = Trainer(cfg, device="cpu")
-    capsys.readouterr()
-    acc = t.test_corruptions()
-    out = capsys.readouterr().out
-    assert 0.0 <= acc <= 1.0
-    assert all(c in out for c in cifar.CORRUPTIONS)
-    assert f"Mean Corruption Error: {100 - 100. * acc:.3f}" in out

@@ -22,6 +22,8 @@ from cnsn_tpu.utils import prefetch as jax_prefetch
 from cnsn_tpu.utils import provenance as jax_provenance
 from cnsn_tpu_torch.config import ExperimentConfig
 from cnsn_tpu_torch.utils import meters, metrics_io, prefetch, provenance
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 PACKAGES = {"jax": (jax_meters, jax_metrics_io, jax_prefetch),
             "port": (meters, metrics_io, prefetch)}

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from cnsn_tpu_torch.ops import wgrad3x3_path
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -29,6 +29,8 @@ from cnsn_tpu_torch.models.wideresnet import WideResNet
 from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
 from cnsn_tpu_torch.utils.jax_params import state_dict_from_jax
 from test_torch_cnsn_sites import JaxDraws
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 DEPTH, WIDEN = 16, 2
 RECIPE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
