@@ -290,13 +290,26 @@ ALLCONV_AUGMIX = os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10",
 # backbone, one in each head) and 16 SelfNorm sites; train_seg's steps
 # through SegTrainer.train_epoch on a synthetic set of 729² images (the
 # CLI's train_h + 16), the recipe's gate (seed 1) opening the aug step at
-# steps 4, 9 and 10 of 12; the eval batch (batch_size_val) is 8
+# step 4 of 8; the eval batch (batch_size_val) is 8
 SEG_DIR = os.path.join(ROOT, "cnsn_tpu", "configs", "segmentation")
 SEG_RECIPE = os.path.join(SEG_DIR, "gtav_fcn50_cnsn.yaml")
 SEG_BASE_RECIPE = os.path.join(SEG_DIR, "gtav_fcn50.yaml")
 SEG_BN, SEG_SN = 55, 16
-SEG_STEPS, SEG_BASE_STEPS, SEG_BF16_STEPS = 12, 4, 6
+SEG_STEPS, SEG_BASE_STEPS, SEG_BF16_STEPS = 8, 4, 6
 SEG_VAL_IMAGES = 16
+# PSPNet, PSANet and PSALite on the same recipe (arch=psp, psa, psa_lite):
+# the 'psp' dilation leaves every plane's size, so PSPNet's BatchNorm2d
+# inputs are the FCN's 55 and the PPM's four bins (16, 64, 144 and 576
+# rows x 512 at b=16); PSANet runs at 705² (PSA_IMAGE: at 713² layer4 is
+# 90², and (90 - 1) % 2 != 0 refuses its shrink factor of 2, in both
+# packages; 705² gives 89², shrunk to 45², a mask of 89 x 89): 53
+# backbone BNs, 5 in PSA (reduce, attention and their distribute twins,
+# proj) and the two heads; PSALite (713²) 53 + 1 + 2
+PSP_BN, PSA_BN, PSA_LITE_BN = SEG_BN + 4, 60, 56
+PSA_IMAGE = 705
+PSP_STEPS = 4  # the recipe's gate (seed 1) opens the aug step at step 4
+PSP_REQUESTS = 20  # timed requests of the exported PSPNet a batch
+PSP_SERVED = (1, 4)  # the batches the exported PSPNet serves
 
 
 def emit(obj):
@@ -2850,9 +2863,10 @@ def seg_config(recipe, **over):
     return SegConfig(**data)
 
 
-def seg_site_shapes(model, dev, size):
-    """(H, W, C) of every BatchNorm2d's and SelfNorm's input in a forward
-    of ``model`` at ``size``², counted: its K2 and K1/K3 shapes."""
+def seg_site_shapes(model, dev, size, modules=None):
+    """(H, W, C) of every BatchNorm2d's and SelfNorm's input (of those in
+    ``modules``, default all) in a forward of ``model`` at ``size``²,
+    counted: its K2 and K1/K3 shapes."""
     from cnsn_tpu_torch.nn.cnsn import SelfNorm
     from cnsn_tpu_torch.nn.norm import BatchNorm
     bn, sn = collections.Counter(), collections.Counter()
@@ -2862,13 +2876,65 @@ def seg_site_shapes(model, dev, size):
             [(inp[0].shape[2], inp[0].shape[3], inp[0].shape[1])])
 
     hooks = [m.register_forward_pre_hook(record(bn if isinstance(
-        m, BatchNorm) else sn)) for m in model.modules()
+        m, BatchNorm) else sn)) for m in (modules or model.modules())
         if isinstance(m, (BatchNorm, SelfNorm))]
     with torch.no_grad():
         model.eval()(torch.zeros(1, size, size, 3, device=dev))
     for h in hooks:
         h.remove()
     return bn, sn
+
+
+def _k2_rows(shape, dtype, sites, flush, gen, **tag):
+    """K2 forward and backward at ``shape`` in ``dtype`` against their
+    plain versions (forward: 1e-5 of Σ|x−m0| and of s2; backward: 1e-6
+    of max|dx| in fp32, 2^-7 in bf16), each bit for bit run to run: its
+    two ``_row`` lines, with times, bound and ``torch.var_mean``."""
+    from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
+                                    bn_sums_cuda, bn_sums_reference)
+    from cnsn_tpu_torch.ops.kernels.bn_stats import (bn_bwd_plan_of,
+                                                     bn_sums_plan)
+    dev, c = gen.device, shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * 1.5
+         + 0.5).to(dtype)
+    m0 = torch.randn(c, generator=gen, device=dev) * 0.3
+    elems, size = x.numel(), x.element_size()
+    s1, s2 = bn_sums_cuda(x, m0)
+    a1, a2 = bn_sums_cuda(x, m0)
+    w1, w2 = bn_sums_reference(x, m0)
+    torch.cuda.synchronize()
+    check(torch.equal(s1, a1) and torch.equal(s2, a2),
+          f"K2 forward {shape} {dtype} run to run")
+    d_abs = (x.float() - m0).abs().sum(dim=(0, 1, 2))
+    err = max((s1 - w1).abs().max().item(), (s2 - w2).abs().max().item())
+    check(bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
+          and bool(((s2 - w2).abs() <= 1e-5 * w2).all()),
+          f"K2 forward {shape} {dtype}: {err}")
+    rows = [_row(
+        "bn_sums", x.shape, dtype, sites, err,
+        {"s1_of_sum_abs": 1e-5, "s2_rtol": 1e-5}, flush,
+        lambda: bn_sums_cuda(x, m0), lambda: bn_sums_reference(x, m0),
+        lambda: torch.var_mean(x, dim=(0, 1, 2)), "torch.var_mean",
+        elems * size + 3 * c * 4, 4 * elems, plan=bn_sums_plan(x), **tag)]
+    g1 = torch.randn(c, generator=gen, device=dev)
+    g2 = torch.randn(c, generator=gen, device=dev) * 1e-3
+    got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    again = bn_sums_bwd_cuda(x, m0, g1, g2)
+    want = bn_sums_bwd_reference(x, m0, g1, g2)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"K2 backward {shape} {dtype} run to run")
+    err = (got.float() - want.float()).abs().max().item()
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    check(err <= rtol * want.float().abs().max().item(),
+          f"K2 backward {shape} {dtype}: {err}")
+    rows.append(_row(
+        "bn_sums_bwd", x.shape, dtype, sites, err, {"of_max_abs": rtol},
+        flush, lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
+        lambda: bn_sums_bwd_reference(x, m0, g1, g2), None,
+        "null: no single PyTorch call computes this backward",
+        2 * elems * size + 3 * c * 4, 4 * elems, plan=bn_bwd_plan_of(x),
+        equal_to_plain=torch.equal(got, want), **tag))
+    return rows
 
 
 def phase_seg_kernels_vs_plain(dev, flush):
@@ -2881,14 +2947,10 @@ def phase_seg_kernels_vs_plain(dev, flush):
     shapes are read from a forward of the recipe's model; the aug step's
     CrossNorm takes one more K1 call at its active site's (SelfNorm's)
     shape, at eps 1e-5."""
-    from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
-                                    bn_sums_cuda, bn_sums_reference,
-                                    ins_stats_bwd_cuda,
+    from cnsn_tpu_torch.ops import (ins_stats_bwd_cuda,
                                     ins_stats_bwd_reference, ins_stats_cuda,
                                     ins_stats_reference, selfnorm_infer_cuda,
                                     selfnorm_infer_reference, selfnorm_path)
-    from cnsn_tpu_torch.ops.kernels.bn_stats import (bn_bwd_plan_of,
-                                                     bn_sums_plan)
     from cnsn_tpu_torch.ops.kernels.ins_stats import (ins_bwd_plan_of,
                                                       ins_stats_plan_of)
     from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS, selfnorm_plan
@@ -2955,55 +3017,25 @@ def phase_seg_kernels_vs_plain(dev, flush):
             plan=selfnorm_plan(xe), **tag))
         del xe, got, want
     for (h, w, c), sites in sorted(bn.items(), key=lambda kv: -kv[0][0]):
-        x = torch.randn(b, h, w, c, generator=gen, device=dev) * 1.5 + 0.5
-        m0 = torch.randn(c, generator=gen, device=dev) * 0.3
-        elems = x.numel()
-        s1, s2 = bn_sums_cuda(x, m0)
-        a1, a2 = bn_sums_cuda(x, m0)
-        w1, w2 = bn_sums_reference(x, m0)
-        torch.cuda.synchronize()
-        check(torch.equal(s1, a1) and torch.equal(s2, a2),
-              f"K2 forward {tuple(x.shape)} run to run")
-        d_abs = (x - m0).abs().sum(dim=(0, 1, 2))
-        err = max((s1 - w1).abs().max().item(), (s2 - w2).abs().max().item())
-        check(bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
-              and bool(((s2 - w2).abs() <= 1e-5 * w2).all()),
-              f"K2 forward {tuple(x.shape)}: {err}")
-        rows.append(_row(
-            "bn_sums", x.shape, f32, sites, err,
-            {"s1_of_sum_abs": 1e-5, "s2_rtol": 1e-5}, flush,
-            lambda: bn_sums_cuda(x, m0), lambda: bn_sums_reference(x, m0),
-            lambda: torch.var_mean(x, dim=(0, 1, 2)), "torch.var_mean",
-            elems * 4 + 3 * c * 4, 4 * elems, plan=bn_sums_plan(x), **tag))
-        g1 = torch.randn(c, generator=gen, device=dev)
-        g2 = torch.randn(c, generator=gen, device=dev) * 1e-3
-        got = bn_sums_bwd_cuda(x, m0, g1, g2)
-        want = bn_sums_bwd_reference(x, m0, g1, g2)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        check(err <= 1e-6 * want.abs().max().item(),
-              f"K2 backward {tuple(x.shape)}: {err}")
-        rows.append(_row(
-            "bn_sums_bwd", x.shape, f32, sites, err, {"of_max_abs": 1e-6},
-            flush, lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
-            lambda: bn_sums_bwd_reference(x, m0, g1, g2), None,
-            "null: no single PyTorch call computes this backward",
-            2 * elems * 4 + 3 * c * 4, 4 * elems, plan=bn_bwd_plan_of(x),
-            equal_to_plain=torch.equal(got, want), **tag))
-        del x, got, want
+        rows += _k2_rows((b, h, w, c), f32, sites, flush, gen, **tag)
     torch.cuda.empty_cache()
     return rows
 
 
-# K1 and K2 launches per step of the GTAV FCN-CNSN recipe: each SelfNorm
-# site's statistics and each BatchNorm2d's sums, forward and backward,
-# and on an aug step the active CrossNorm site's content statistics
-SEG_WANT = {
-    "plain": {"bn_sums": SEG_BN, "bn_sums_bwd": SEG_BN,
-              "ins_stats": SEG_SN, "ins_stats_bwd": SEG_SN},
-    "aug": {"bn_sums": SEG_BN, "bn_sums_bwd": SEG_BN,
-            "ins_stats": SEG_SN + 1, "ins_stats_bwd": SEG_SN + 1},
-    "base": {"bn_sums": SEG_BN, "bn_sums_bwd": SEG_BN}}
+def seg_want(bn):
+    """K1 and K2 launches per plain and aug step of a GTAV model with
+    ``bn`` BatchNorm2d layers and the recipe's 16 SelfNorm sites: each
+    site's statistics and each BatchNorm's sums, forward and backward,
+    and on an aug step the active CrossNorm site's content statistics."""
+    return {"plain": {"bn_sums": bn, "bn_sums_bwd": bn, "ins_stats": SEG_SN,
+                      "ins_stats_bwd": SEG_SN},
+            "aug": {"bn_sums": bn, "bn_sums_bwd": bn,
+                    "ins_stats": SEG_SN + 1, "ins_stats_bwd": SEG_SN + 1}}
+
+
+# the FCN-CNSN recipe's, and gtav_fcn50.yaml's (no CNSN: K2 alone)
+SEG_WANT = {**seg_want(SEG_BN),
+            "base": {"bn_sums": SEG_BN, "bn_sums_bwd": SEG_BN}}
 
 
 def _seg_trainer(dev, recipe, steps, save_path, **over):
@@ -3233,41 +3265,52 @@ def phase_seg_eval(dev):
 
 
 def phase_seg_card_vs_cpu(dev):
-    """One float32 aug step of the reduced FCN-CNSN
-    (``train/rounding.py::run_seg_step``: layers (1, 1, 1, 1), b=4 65²,
-    one CrossNorm site on, its draws fixed, the fused class-major CE),
-    card and CPU each against a float64 twin that replays their ReLU
-    masks, the card within CARD_VS_CPU_ROUNDING × the CPU's error
-    (``card_vs_cpu_step``), its launches counted: 19 BatchNorms (17 in
-    the backbone, 2 heads), 4 SelfNorms and the active CrossNorm site's
-    content statistics."""
+    """One float32 aug step of the reduced FCN-CNSN and of the reduced
+    PSPNet (``train/rounding.py::run_seg_step``: layers (1, 1, 1, 1), b=4
+    65², one CrossNorm site on, its draws fixed, the fused class-major CE,
+    the heads' dropout 0), card and CPU each against a float64 twin that
+    replays their ReLU masks, the card within CARD_VS_CPU_ROUNDING × the
+    CPU's error (``card_vs_cpu_step``), its launches counted: 19
+    BatchNorms for the FCN (17 in the backbone, 2 heads), 23 for PSPNet
+    (+ the PPM's 4), 4 SelfNorms and the active CrossNorm site's content
+    statistics."""
     from cnsn_tpu_torch.train.rounding import (SEG_BATCH, SEG_SIZE,
                                                run_seg_step)
-    card_vs_cpu_step(
-        dev, {"phase": "seg_card_vs_cpu", "model": "fcn_cnsn (1,1,1,1)",
-              "batch": SEG_BATCH, "image": SEG_SIZE},
-        lambda device, dtype, **kw: run_seg_step(device, dtype, **kw),
-        {"bn_sums": 19, "bn_sums_bwd": 19, "ins_stats": 5,
-         "ins_stats_bwd": 5}, seeds=range(4))
+    for arch, bn in (("fcn_cnsn", 19), ("psp", 23)):
+        card_vs_cpu_step(
+            dev, {"phase": "seg_card_vs_cpu", "model": f"{arch} (1,1,1,1)",
+                  "batch": SEG_BATCH, "image": SEG_SIZE},
+            lambda device, dtype, _arch=arch, **kw: run_seg_step(
+                device, dtype, arch=_arch, **kw),
+            {"bn_sums": bn, "bn_sums_bwd": bn, "ins_stats": 5,
+             "ins_stats_bwd": 5}, seeds=range(4))
 
 
 def phase_seg_cli(dev):
-    """``cli seg-train`` of gtav_fcn50_cnsn.yaml and gtav_fcn50.yaml on the
-    card at the recipes' 713² and b=16, one epoch of the CLI's synthetic
-    set (32 images: 2 steps; 8 eval images: one batch of 8), then ``cli
-    seg-eval resume=<seg_ckpt_1>``: the mIoU line seg-eval prints is the
-    last one training logged, and the tee log holds it."""
+    """``cli seg-train`` of gtav_fcn50_cnsn.yaml, of gtav_fcn50.yaml and of
+    gtav_fcn50_cnsn.yaml with arch=psp on the card at the recipes' 713²
+    and b=16, one epoch of the CLI's synthetic set (32 images: 2 steps; 8
+    eval images: one batch of 8), then ``cli seg-eval
+    resume=<seg_ckpt_1>``: the mIoU line seg-eval prints is the last one
+    training logged, and the tee log holds it; for arch=psp then ``cli
+    seg-export resume=<seg_ckpt_1>``, whose artifact serves the
+    checkpoint's eager forward within ARTIFACT_TOL."""
+    from cnsn_tpu_torch.segmentation.trainer import build_seg_model
+    from cnsn_tpu_torch.serving import load_artifact
+    from cnsn_tpu_torch.utils.checkpoint import load_checkpoint
     out_dir = os.path.join(ROOT, "chiprun_out", "seg_cli")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     log = os.path.join(out_dir, "cli.txt")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for recipe in (SEG_RECIPE, SEG_BASE_RECIPE):
-            save = os.path.join(tmp, os.path.basename(recipe))
+        for recipe, over in ((SEG_RECIPE, []), (SEG_BASE_RECIPE, []),
+                             (SEG_RECIPE, ["arch=psp"])):
+            name = os.path.basename(recipe) + "".join(f" {o}" for o in over)
+            save = os.path.join(tmp, name.replace(" ", "_"))
             common = ["--config", recipe, "--device", str(dev),
                       "synthetic_data=true", "epochs=1", "print_freq=1",
-                      f"save_path={save}"]
+                      f"save_path={save}", *over]
             t0 = time.perf_counter()
             printed = _cli(["seg-train", *common], log)
             train_s = time.perf_counter() - t0
@@ -3286,12 +3329,285 @@ def phase_seg_cli(dev):
             again = re.findall(r"val result: mIoU/mAcc/allAcc (\S+)",
                                printed)
             check(again == lines,
-                  f"{recipe}: seg-eval printed {again}, training logged "
+                  f"{name}: seg-eval printed {again}, training logged "
                   f"{lines}")
-            out[os.path.relpath(recipe, ROOT)] = {
-                "seg_train_s": train_s, "val_line": lines[0]}
+            out[name] = {"seg_train_s": train_s, "val_line": lines[0]}
+            if over:
+                ckpt = os.path.join(save, "seg_ckpt_1")
+                art = os.path.join(tmp, "seg.pt2")
+                printed = _cli(["seg-export", *common, "--out", art,
+                                f"resume={ckpt}"], log)
+                check("exported" in printed and "arch=psp" in printed,
+                      f"seg-export printed {printed!r}")
+                cfg = seg_config(recipe, arch="psp")
+                model = build_seg_model(cfg).to(dev).eval()
+                model.load_state_dict(load_checkpoint(ckpt)["state_dict"])
+                x = torch.randn(1, cfg.train_h, cfg.train_w, 3, device=dev)
+                with torch.no_grad():
+                    want = model(x)[0]
+                err = (load_artifact(art, dev)(x) - want).abs().max().item()
+                scale = want.abs().max().item()
+                check(err <= ARTIFACT_TOL * scale,
+                      f"seg-export artifact vs eager {err} of {scale}")
+                out[name].update(export_max_abs_err=err,
+                                 export_max_abs_logit=scale)
+                del model
             torch.cuda.empty_cache()
     emit({"phase": "seg_cli", "image": 713, "batch": 16, "recipes": out})
+
+
+def phase_psp_kernels_vs_plain(dev, flush):
+    """K2 forward and backward at the BatchNorm2d shapes the PSP and PSA
+    heads add to the FCN's (gtav_fcn50_cnsn.yaml, b=16, fp32 and bf16):
+    PSPNet's PPM bins at 713² (16, 64, 144 and 576 rows x 512: the fewest
+    rows K2 takes), PSANet's heads at PSA_IMAGE (89² x 512: reduce,
+    reduce_p and cls; 45² x 512: attention and attention_p; 45² x 2048:
+    proj) and its stem (353² x 64), each through ``_k2_rows``; and K3 at
+    the 16 SelfNorm sites of the served PSPNet-CNSN (179² x 256, 90² x
+    512/1024/2048) at b=1 and b=4, float32, the kernel its rule picks
+    (the staged one, as in the artifact) against the plain version and
+    bit for bit run to run, with its plan.  The shapes are read from
+    forwards of the recipe's models; times after a clean-L2 flush."""
+    from cnsn_tpu_torch.nn.norm import BatchNorm
+    from cnsn_tpu_torch.ops import (selfnorm_infer_cuda,
+                                    selfnorm_infer_reference, selfnorm_path)
+    from cnsn_tpu_torch.ops.kernels.selfnorm import PATHS, selfnorm_plan
+    from cnsn_tpu_torch.segmentation import fcn_cnsn
+    from cnsn_tpu_torch.segmentation.trainer import build_seg_model
+    cfg = seg_config(SEG_RECIPE)
+    gen = torch.Generator().manual_seed(0)
+    fcn, _ = seg_site_shapes(fcn_cnsn(cfg.classes, generator=gen).to(dev),
+                             dev, cfg.train_h)
+    psp, psp_sn = seg_site_shapes(build_seg_model(seg_config(
+        SEG_RECIPE, arch="psp"), gen).to(dev), dev, cfg.train_h)
+    check(sum(psp.values()) == PSP_BN and psp - fcn == collections.Counter(
+        {(b, b, 512): 1 for b in (1, 2, 3, 6)}),
+        f"PSPNet's BN shapes {dict(psp)} against the FCN's {dict(fcn)}")
+    check(sum(psp_sn.values()) == SEG_SN, f"PSPNet's SelfNorm shapes "
+          f"{dict(psp_sn)}")
+    psa_model = build_seg_model(seg_config(
+        SEG_RECIPE, arch="psa", train_h=PSA_IMAGE, train_w=PSA_IMAGE),
+        gen).to(dev)
+    heads = [m for name, m in psa_model.named_modules()
+             if isinstance(m, BatchNorm) and not name.startswith(
+                 "backbone.layer")]
+    psa, _ = seg_site_shapes(psa_model, dev, PSA_IMAGE, heads)
+    check(sum(seg_site_shapes(psa_model, dev, PSA_IMAGE)[0].values())
+          == PSA_BN, "PSANet's BN count")
+    del psa_model
+    cases = [("psp_ppm", shape, n) for shape, n in sorted((psp - fcn).items())]
+    cases += [("psa_705", shape, n) for shape, n in sorted(
+        psa.items(), key=lambda kv: -kv[0][0] * kv[0][2])]
+    b = cfg.batch_size
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for model, (h, w, c), sites in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            rows += _k2_rows((b, h, w, c), dtype, sites, flush, gen,
+                             phase="psp_kernels_vs_plain", model=model)
+    f32 = torch.float32
+    tag = dict(phase="psp_kernels_vs_plain", model="psp_served")
+    for batch in PSP_SERVED:
+        for (h, w, c), sites in sorted(psp_sn.items()):
+            x = torch.randn(batch, h, w, c, generator=gen, device=dev) + 0.3
+            wf = torch.randn(c, 2, generator=gen, device=dev) * 0.3
+            a = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+            bb = torch.randn(c, generator=gen, device=dev) * 0.1
+            path = selfnorm_path(x)
+            check(path == "staged", f"K3 {tuple(x.shape)} takes {path}")
+            got = selfnorm_infer_cuda(x, wf, a, bb)
+            again = selfnorm_infer_cuda(x, wf, a, bb)
+            want = selfnorm_infer_reference(x, wf, a, bb)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"K3 {tuple(x.shape)} run to run")
+            torch.testing.assert_close(got, want, **TOL[f32])
+            rows.append(_row(
+                PATHS[path][1], x.shape, f32, sites,
+                (got - want).abs().max().item(), TOL[f32], flush,
+                lambda: selfnorm_infer_cuda(x, wf, a, bb),
+                lambda: selfnorm_infer_reference(x, wf, a, bb), None,
+                "null: no single PyTorch call computes the fused SelfNorm",
+                2 * x.numel() * 4 + 4 * c * 4, 5 * x.numel(), path=path,
+                plan=selfnorm_plan(x), **tag))
+            del x, got, again, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_psp(dev):
+    """gtav_fcn50_cnsn.yaml with arch=psp at the recipe's b=16 713²
+    float32 through ``SegTrainer.train_epoch`` for PSP_STEPS steps (the
+    gate opens the aug step at step 4): every step's K1 and K2 launches
+    (K2 59: 53 backbone, 4 PPM, cls, aux), the epoch's ms a step, each
+    step alone on a staged batch (plain and aug), img/s and the peak
+    memory.  Returns the launches of the epoch's first plain and first
+    aug step, and the epoch's (the sum of its steps')."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    want = seg_want(PSP_BN)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, record = _seg_trainer(dev, SEG_RECIPE, PSP_STEPS, tmp,
+                                       arch="psp")
+        cfg = trainer.cfg
+        check((cfg.arch, cfg.train_h, cfg.batch_size, cfg.compute_dtype,
+               type(trainer.model).__name__) == ("psp", 713, 16, None,
+                                                 "PSPNet"),
+              f"arch=psp resolves to {cfg}")
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        main_loss, miou, _, _ = trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        run = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kinds = [k for k, _ in record]
+        bad = [(i, k, got) for i, (k, got) in enumerate(record)
+               if got != want[k]]
+        check(kinds == ["aug" if g else "plain" for g in trainer.gates]
+              and set(kinds) == {"plain", "aug"}, f"psp steps {kinds}")
+        check(not bad, f"psp launches per step: {bad[:2]}")
+        check(sum(run.values()) == sum(sum(got.values())
+                                       for _, got in record),
+              f"psp epoch launches {run} against its steps' {record}")
+        per_step = {k: next(got for kind, got in record if kind == k)
+                    for k in ("plain", "aug")}
+        check(math.isfinite(main_loss) and 0.0 <= miou <= 1.0,
+              f"psp epoch: loss {main_loss}, mIoU {miou}")
+        alone = _time_steps(trainer, ("plain", "aug", "plain", "aug"))
+        b = cfg.batch_size
+        step_ms = epoch_ms / PSP_STEPS
+        emit({"phase": "train_psp", "recipe": os.path.relpath(SEG_RECIPE,
+                                                              ROOT),
+              "arch": "psp", "batch": b, "image": cfg.train_h,
+              "compute_dtype": "float32", "steps": PSP_STEPS, "kinds": kinds,
+              "per_step": per_step, "expected_per_step": want,
+              "launches": run,
+              "main_loss": main_loss, "mIoU": miou,
+              "epoch_ms_per_step": step_ms,
+              "epoch_img_per_s": b / step_ms * 1e3, "step_alone_ms": alone,
+              "step_alone_img_per_s": {k: b / v * 1e3
+                                       for k, v in alone.items()},
+              "peak_mem_gib": peak, "card": nvidia_smi_name_power()})
+        del trainer
+    torch.cuda.empty_cache()
+    return {**per_step, "run": run, "steps": PSP_STEPS, "alone_ms": alone,
+            "peak_mem_gib": peak}
+
+
+def phase_train_psa(dev):
+    """arch=psa (psa_type 2, the gathered over-complete map) at PSA_IMAGE
+    and arch=psa_lite at 713², the recipe's b=16 float32: a plain and an
+    aug step alone on a staged batch, after a warm step of each (each
+    step's K1 and K2 launches checked, and their sum against the run's),
+    ms a step and the peak memory.  Returns, for each arch, the launches
+    of its first plain and first aug step and of its four steps."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    out = {}
+    for arch, image, bn in (("psa", PSA_IMAGE, PSA_BN),
+                            ("psa_lite", 713, PSA_LITE_BN)):
+        want = seg_want(bn)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, record = _seg_trainer(dev, SEG_RECIPE, 1, tmp, arch=arch,
+                                           train_h=image, train_w=image)
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            torch.cuda.reset_peak_memory_stats()
+            alone = _time_steps(trainer, ("plain", "aug"))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            run = dict(LAUNCHES)
+            bad = [(k, got) for k, got in record if got != want[k]]
+            check(len(record) == 4 and not bad,
+                  f"{arch} launches per step: {bad[:2]} of {len(record)}")
+            check(sum(run.values()) == sum(sum(got.values())
+                                           for _, got in record),
+                  f"{arch} launches {run} against its steps' {record}")
+            per_step = {k: next(got for kind, got in record if kind == k)
+                        for k in ("plain", "aug")}
+            b = trainer.cfg.batch_size
+            emit({"phase": "train_psa", "recipe": os.path.relpath(
+                SEG_RECIPE, ROOT), "arch": arch, "batch": b, "image": image,
+                "compute_dtype": "float32", "psa_type": trainer.cfg.psa_type,
+                "per_step": per_step, "expected_per_step": want,
+                "launches": run, "step_alone_ms": alone,
+                "step_alone_img_per_s": {k: b / v * 1e3
+                                         for k, v in alone.items()},
+                "peak_mem_gib": peak, "card": nvidia_smi_name_power()})
+            out[arch] = {**per_step, "run": run, "alone_ms": alone,
+                         "peak_mem_gib": peak}
+            del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_seg_export(dev):
+    """PSPNet-CNSN (gtav_fcn50_cnsn.yaml arch=psp, random weights from a
+    seed) exported at 713² (``serving.export_segmenter``), saved, loaded
+    and served at b=1 and b=4: the main head's logits within ARTIFACT_TOL
+    of max|logit| of the eager forward, K3's 16 staged launches a served
+    forward, the latency (b=1) and ms a batch (b=4), median of
+    PSP_REQUESTS after warm-up, eager beside."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.segmentation.trainer import build_seg_model
+    from cnsn_tpu_torch.serving import (export_segmenter, load_artifact,
+                                        save_artifact)
+    cfg = seg_config(SEG_RECIPE, arch="psp")
+    hw = (cfg.train_h, cfg.train_w)
+    model = build_seg_model(cfg, torch.Generator().manual_seed(0)).to(dev)
+    model.eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pspnet_cnsn.pt2")
+        t0 = time.perf_counter()
+        save_artifact(export_segmenter(model, hw), path)
+        serve = load_artifact(path, device=dev)
+        export_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"export_save_load_s": export_s, "artifact_bytes": nbytes}
+    for b in PSP_SERVED:
+        x = torch.randn(b, *hw, 3, generator=gen, device=dev)
+        with torch.no_grad():
+            want = model(x)[0]
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        got = serve(x)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(got.shape == (b, *hw, cfg.classes)
+              and bool(torch.isfinite(got).all()),
+              f"served PSPNet logits {tuple(got.shape)}")
+        check(err <= ARTIFACT_TOL * scale,
+              f"PSPNet artifact vs eager {err} > {ARTIFACT_TOL} * {scale}")
+        check(launches == {K3_STAGED: SEG_SN},
+              f"PSPNet artifact launches {launches}")
+        times = {}
+        for name, fn in (("artifact", serve), ("eager", model)):
+            with torch.no_grad():
+                for _ in range(3):
+                    fn(x)
+                lat = []
+                for _ in range(PSP_REQUESTS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(x)
+                    torch.cuda.synchronize()
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            times[name] = statistics.median(lat)
+        out[b] = {"max_abs_err": err, "max_abs_logit": scale,
+                  "launches": launches, "median_ms": times}
+        emit({"phase": "seg_export", "arch": "psp", "image": hw[0],
+              "batch": b, "max_abs_err": err, "max_abs_logit": scale,
+              "tol": f"{ARTIFACT_TOL} x max|logit|", "launches": launches,
+              "requests": PSP_REQUESTS, "median_ms": times,
+              "img_per_s": {k: b / v * 1e3 for k, v in times.items()},
+              "export_save_load_s": export_s, "artifact_bytes": nbytes,
+              "card": nvidia_smi_name_power()})
+    del model, serve
+    torch.cuda.empty_cache()
+    return out
 
 
 def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
@@ -3354,6 +3670,8 @@ def main():
                         dev, flush)
     seg_rows = timed("seg_kernels_vs_plain", phase_seg_kernels_vs_plain,
                      dev, flush)
+    psp_rows = timed("psp_kernels_vs_plain", phase_psp_kernels_vs_plain,
+                     dev, flush)
     del flush
     torch.cuda.empty_cache()
     with conv3x3_mode("conv"):
@@ -3395,6 +3713,10 @@ def main():
     # this slice: GTAV -> Cityscapes segmentation, FCN-ResNet50 (+ CNSN)
     seg_counts = timed("train_seg", phase_train_seg, dev)
     seg_eval = timed("seg_eval", phase_seg_eval, dev)
+    # this slice: PSPNet, PSANet and PSALite on the same recipe, served
+    psp_counts = timed("train_psp", phase_train_psp, dev)
+    psa_counts = timed("train_psa", phase_train_psa, dev)
+    psp_export = timed("seg_export", phase_seg_export, dev)
     with conv3x3_mode("conv"):
         timed("seg_card_vs_cpu", phase_seg_card_vs_cpu, dev)
     timed("seg_cli", phase_seg_cli, dev)
@@ -3611,6 +3933,50 @@ def main():
                     / sum(r["sites"] for r in part))
         seg["shapes"] = len(part)  # each a seg_kernels_vs_plain line
         k["seg"] = seg
+        # the PSP family on the same recipe: PSPNet's step is the FCN's
+        # shapes and the PPM's bins (K2; K1 and K3 as the FCN's), each
+        # timed at its sites in fp32; launches per step and in this run
+        # (train_psp's epoch; train_psa's two steps alone and two warm);
+        # K3 in the exported PSPNet's forward at each served batch: its
+        # launches, and its rows at the 16 sites' shapes by their sites
+        if k["name"] in (K3_STAGED, K3_V1):
+            served = [r for r in psp_rows if r["kernel"] == k["name"]
+                      and r["model"] == "psp_served"]
+            k["seg_psp"] = {
+                b: {"launches": psp_export[b]["launches"].get(k["name"], 0),
+                    **{key: sum(r[key] * r["sites"] for r in served
+                                if r["shape"][0] == b)
+                       for key in ("kernel_ms", "plain_ms", "bound_ms")
+                       if served},
+                    "max_abs_err": max((r["max_abs_err"] for r in served
+                                        if r["shape"][0] == b),
+                                       default=None)}
+                for b in PSP_SERVED}
+            k["seg_psp"]["per"] = ("exported PSPNet-CNSN forward at b, 713², "
+                                   "float32 (times: psp_kernels_vs_plain)")
+            continue
+        ppm = [r for r in psp_rows if r["kernel"] == k["name"]
+               and r["model"] == "psp_ppm" and r["dtype"] == "float32"]
+        psp = {key: (None if seg[key] is None else seg[key] + sum(
+            r[key] * r["sites"] for r in ppm)) for key in (
+                "kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+        psp.update({kind: psp_counts[kind].get(k["name"], 0)
+                    for kind in ("plain", "aug")})
+        psp["run_launches"] = psp_counts["run"].get(k["name"], 0)
+        psp["run_steps"] = psp_counts["steps"]
+        psp["psa_launches"] = {
+            a: {"plain": c["plain"].get(k["name"], 0),
+                "aug": c["aug"].get(k["name"], 0),
+                "run": c["run"].get(k["name"], 0)}
+            for a, c in psa_counts.items()}
+        psp["per"] = ("gtav_fcn50_cnsn.yaml arch=psp plain training step, "
+                      "b=16 713² float32")
+        psp["new_shapes"] = [
+            {key: r[key] for key in ("shape", "dtype", "model", "sites",
+                                     "kernel_ms", "plain_ms", "bound_ms",
+                                     "library_ms", "max_abs_err")}
+            for r in psp_rows if r["kernel"] == k["name"]]
+        k["seg_psp"] = psp
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
     # compact: the line carries every kernel's paths and stays one line

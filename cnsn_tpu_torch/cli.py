@@ -9,11 +9,14 @@ Usage:
   python -m cnsn_tpu_torch.cli seg-train --config cnsn_tpu/configs/segmentation/gtav_fcn50_cnsn.yaml \
       [synthetic_data=true | data_root=... train_list=... val_list=... cross_val_list=...] [key=value ...]
   python -m cnsn_tpu_torch.cli seg-eval --config ... resume=<seg_ckpt> [key=value ...]
+  python -m cnsn_tpu_torch.cli seg-export --config ... --out seg.pt2 \
+      [resume=<seg_ckpt> | weight=<seg_ckpt>] [--seed 0] [arch=psp ...]
 
 Everything runs on the card unless ``--device cpu`` asks for the CPU.
-``export`` takes the weights of a checkpoint (``resume=``), or random ones
-drawn from ``--seed``.  ``seg-export`` and the pipelined export
-(``--pipeline-stages``) are not ported.
+``export`` and ``seg-export`` take the weights of a checkpoint
+(``resume=``, or ``weight=`` for ``seg-export``), or random ones drawn
+from ``--seed``.  The pipelined export (``--pipeline-stages``) is not
+ported.
 """
 from __future__ import annotations
 
@@ -74,15 +77,9 @@ def _export_main(cfg, args):
           f"{image_size}, 3))")
 
 
-def _seg_main(args):
-    """Segmentation training and validation (reference tool/
-    train_cnsn.sh flow): the YAML, then the ``key=value`` overrides; the
-    data from ``synthetic_data`` or the list files under ``data_root``;
-    unknown keys raise."""
+def _seg_data(args) -> dict:
+    """The segmentation YAML, then the ``key=value`` overrides."""
     import yaml
-
-    from .segmentation.data import make_list_dataset, synthetic_seg_dataset
-    from .segmentation.trainer import SegConfig, SegTrainer, config_fields
 
     data = {}
     if args.config:
@@ -91,6 +88,48 @@ def _seg_main(args):
     for pair in args.overrides:
         k, _, raw = pair.partition("=")
         data[k] = yaml.safe_load(raw)
+    return data
+
+
+def _seg_export_main(args):
+    """Export a segmenter's eval forward (JAX ``cli.py:98-130``): the
+    config's keys that ``SegConfig`` has (data keys are dropped), the
+    weights of ``weight=`` or ``resume=`` (else random ones from
+    ``--seed``), exported at (train_h, train_w) on ``--device``."""
+    import torch
+
+    from .segmentation.trainer import (SegConfig, build_seg_model,
+                                       config_fields)
+    from .serving import export_segmenter, save_artifact
+    from .utils.device import resolve_device
+
+    fields = config_fields()
+    cfg = SegConfig(**{k: v for k, v in _seg_data(args).items()
+                       if k in fields})
+    model = build_seg_model(
+        cfg, generator=torch.Generator().manual_seed(args.seed))
+    path = cfg.weight or cfg.resume
+    if path:
+        from .utils.checkpoint import load_checkpoint
+        model.load_state_dict(load_checkpoint(path)["state_dict"],
+                              strict=True)
+    model = model.to(resolve_device(args.device))
+    hw = (cfg.train_h, cfg.train_w)
+    save_artifact(export_segmenter(model, hw), args.out)
+    print(f"exported {args.out} ({os.path.getsize(args.out)} bytes, "
+          f"arch={cfg.arch}, device={args.device}, in_shape=(batch, "
+          f"{hw[0]}, {hw[1]}, 3))")
+
+
+def _seg_main(args):
+    """Segmentation training and validation (reference tool/
+    train_cnsn.sh flow): the YAML, then the ``key=value`` overrides; the
+    data from ``synthetic_data`` or the list files under ``data_root``;
+    unknown keys raise."""
+    from .segmentation.data import make_list_dataset, synthetic_seg_dataset
+    from .segmentation.trainer import SegConfig, SegTrainer, config_fields
+
+    data = _seg_data(args)
     data_root = data.pop("data_root", None)
     train_list = data.pop("train_list", None)
     val_list = data.pop("val_list", None)
@@ -132,12 +171,12 @@ def main(argv=None):
                                             "seg-export"])
     parser.add_argument("--config", default=None)
     parser.add_argument("--out", default="model.pt2",
-                        help="output path for export")
+                        help="output path for export and seg-export")
     parser.add_argument("--device", default="cuda",
                         help="device to run on (export: the artifact's)")
     parser.add_argument("--seed", type=int, default=0,
-                        help="export: seed of the random weights when no "
-                             "checkpoint is given")
+                        help="export, seg-export: seed of the random "
+                             "weights when no checkpoint is given")
     parser.add_argument("overrides", nargs="*",
                         help="key=value config overrides")
     # positional overrides may follow options (older argparse cannot mix
@@ -145,9 +184,7 @@ def main(argv=None):
     args = parser.parse_intermixed_args(argv)
 
     if args.command == "seg-export":
-        raise NotImplementedError(
-            "seg-export is not yet ported to cnsn_tpu_torch (ROADMAP queue "
-            "1, segmentation: seg-export and export_segmenter)")
+        return _seg_export_main(args)
     if args.command.startswith("seg-"):
         return _seg_main(args)
     cfg = load_config(args.config)

@@ -23,7 +23,7 @@ from ..models.common import Conv2d
 from ..nn.norm import BatchNorm
 from .backbone import DilatedConv, seg_resnet50
 
-__all__ = ["FCNHead", "FCNCNSN", "fcn_cnsn", "fcn_baseline"]
+__all__ = ["ClsHead", "FCNHead", "FCNCNSN", "fcn_cnsn", "fcn_baseline"]
 
 
 def _lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -45,19 +45,30 @@ class _ReLU(nn.Module):
         return F.relu(x)
 
 
-class FCNHead(nn.Sequential):
+class ClsHead(nn.Sequential):
+    """3×3 conv (in_channels → width, no bias) → BN → ReLU → Dropout → 1×1
+    conv (width → classes, with bias): the FCN heads' and the PSP/PSA
+    heads' ``cls`` and ``aux`` (JAX ``pspnet.py:_ClsHead``)."""
+
+    def __init__(self, in_channels: int, width: int, classes: int,
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        g = generator or torch.Generator()
+        cls = Conv2d(width, classes, 1, dtype=dtype, generator=g, bias=True)
+        with torch.no_grad():
+            cls.weight.copy_(_lecun_normal(tuple(cls.weight.shape), g))
+        super().__init__(DilatedConv(in_channels, width, 3, dtype=dtype,
+                                     generator=g),
+                         BatchNorm(width), _ReLU(), nn.Dropout(dropout),
+                         cls)
+
+
+class FCNHead(ClsHead):
     def __init__(self, in_channels: int, classes: int, dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
-        g = generator or torch.Generator()
-        inter = in_channels // 4
-        cls = Conv2d(inter, classes, 1, dtype=dtype, generator=g, bias=True)
-        with torch.no_grad():
-            cls.weight.copy_(_lecun_normal(tuple(cls.weight.shape), g))
-        super().__init__(DilatedConv(in_channels, inter, 3, dtype=dtype,
-                                     generator=g),
-                         BatchNorm(inter), _ReLU(), nn.Dropout(dropout),
-                         cls)
+        super().__init__(in_channels, in_channels // 4, classes, dropout,
+                         dtype, generator)
 
 
 class FCNCNSN(nn.Module):

@@ -35,17 +35,16 @@ from ..utils.prefetch import batch_put, device_prefetch
 from .data import (Compose, Crop, Normalize, RandRotate, RandScale,
                    RandomGaussianBlur, RandomHorizontalFlip, SegLoader)
 from .fcn import fcn_baseline, fcn_cnsn
+from .pspnet import PSALite, PSANet, PSPNet
 from .train_seg import SegStepFns, create_seg_train_state
 
 __all__ = ["SegConfig", "SegTrainer", "build_seg_model",
            "default_train_transform", "NOT_PORTED"]
 
 _PARALLEL = "ROADMAP queue 1, parallel"
-_PSP = "ROADMAP queue 1, segmentation: pspnet.py"
+ARCHS = ("fcn", "fcn_cnsn", "psp", "psa", "psa_lite")
 # (what is set, the ROADMAP item that ports it), checked in this order
 NOT_PORTED = (
-    (lambda c: c.arch in ("psp", "psa", "psa_lite"), "arch psp/psa/psa_lite",
-     _PSP),
     (lambda c: c.ckpt_backend == "orbax", "ckpt_backend: orbax",
      "ROADMAP queue 1, the remaining utils"),
     (lambda c: c.fsdp, "fsdp", _PARALLEL),
@@ -124,7 +123,7 @@ def _check_ported(cfg: SegConfig) -> None:
         if is_set(cfg):
             raise NotImplementedError(
                 f"{what} is not yet ported to cnsn_tpu_torch ({item})")
-    if cfg.arch not in ("fcn", "fcn_cnsn"):
+    if cfg.arch not in ARCHS:
         raise ValueError(f"unknown arch {cfg.arch}")
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: None, "
@@ -133,17 +132,31 @@ def _check_ported(cfg: SegConfig) -> None:
 
 def build_seg_model(cfg: SegConfig,
                     generator: Optional[torch.Generator] = None):
-    """The FCN of ``cfg.arch`` ('fcn_cnsn' or 'fcn'), its initializers
-    drawn from ``generator``."""
+    """The model of ``cfg.arch`` (JAX ``trainer.py:109-130``), its
+    initializers drawn from ``generator``: 'fcn', 'fcn_cnsn', 'psp',
+    'psa' (with the PSA knobs) or 'psa_lite'; PSANet and PSALite are
+    built for (train_h, train_w) images."""
     _check_ported(cfg)
     dtype = DTYPES[cfg.compute_dtype]
     if cfg.arch == "fcn":
         return fcn_baseline(classes=cfg.classes, dtype=dtype,
                             remat=cfg.remat, generator=generator)
-    return fcn_cnsn(classes=cfg.classes, block_idxs=cfg.block_idxs,
-                    pos=cfg.pos, cn_pos=cfg.cn_pos, cnsn_type=cfg.cnsn_type,
-                    crop=cfg.crop, beta=cfg.beta, dtype=dtype,
-                    remat=cfg.remat, generator=generator)
+    kw = dict(classes=cfg.classes, block_idxs=cfg.block_idxs, pos=cfg.pos,
+              cn_pos=cfg.cn_pos, cnsn_type=cfg.cnsn_type, crop=cfg.crop,
+              beta=cfg.beta, dtype=dtype, remat=cfg.remat,
+              generator=generator)
+    if cfg.arch == "fcn_cnsn":
+        return fcn_cnsn(**kw)
+    if cfg.arch == "psp":
+        return PSPNet(**kw)
+    image_hw = (cfg.train_h, cfg.train_w)
+    if cfg.arch == "psa":
+        return PSANet(image_hw=image_hw, psa_type=cfg.psa_type,
+                      compact=cfg.compact, shrink_factor=cfg.shrink_factor,
+                      mask_h=cfg.mask_h, mask_w=cfg.mask_w,
+                      normalization_factor=cfg.normalization_factor,
+                      psa_softmax=cfg.psa_softmax, **kw)
+    return PSALite(image_hw=image_hw, **kw)
 
 
 def default_train_transform(cfg: SegConfig) -> Compose:

@@ -1,6 +1,6 @@
 """Serving: portable artifacts of the eval forward.  Port of
-``cnsn_tpu/serving.py`` (``export_classifier``, ``save_artifact``,
-``load_artifact``).
+``cnsn_tpu/serving.py`` (``export_classifier``, ``export_segmenter``,
+``save_artifact``, ``load_artifact``).
 
 The eval forward is exported ONCE with ``torch.export``: a symbolic batch
 dimension, the weights inside the artifact, one ``.pt2`` file.  Serving
@@ -25,10 +25,22 @@ import torch
 from . import ops  # noqa: F401  (registers the custom op for load/export)
 from .utils.device import resolve_device
 
-__all__ = ["export_classifier", "save_artifact", "load_artifact"]
+__all__ = ["export_classifier", "export_segmenter", "save_artifact",
+           "load_artifact"]
 
 # Largest batch a symbolic-batch artifact accepts.
 MAX_BATCH = 4096
+
+
+def _export(module: torch.nn.Module, hw) -> torch.export.ExportedProgram:
+    """``module``'s eval forward on NHWC float32 images of ``hw``, on the
+    device its weights are on, the batch symbolic (1 to ``MAX_BATCH``)."""
+    device = next(module.parameters()).device
+    example = torch.zeros(2, hw[0], hw[1], 3, device=device)
+    dynamic = ({0: torch.export.Dim("batch", min=1, max=MAX_BATCH)},)
+    with torch.no_grad():
+        return torch.export.export(module.eval(), (example,),
+                                   dynamic_shapes=dynamic)
 
 
 def export_classifier(model: torch.nn.Module, image_size: int
@@ -40,12 +52,28 @@ def export_classifier(model: torch.nn.Module, image_size: int
     serves every batch size.  Parameters and running statistics are
     carried inside the program.
     """
-    device = next(model.parameters()).device
-    model = model.eval()
-    example = torch.zeros(2, image_size, image_size, 3, device=device)
-    dynamic = ({0: torch.export.Dim("batch", min=1, max=MAX_BATCH)},)
-    with torch.no_grad():
-        return torch.export.export(model, (example,), dynamic_shapes=dynamic)
+    return _export(model, (image_size, image_size))
+
+
+class _MainLogits(torch.nn.Module):
+    """A segmenter's eval forward with its main head's logits alone."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.model(images)[0]
+
+
+def export_segmenter(model: torch.nn.Module, hw
+                     ) -> torch.export.ExportedProgram:
+    """Export a segmenter's eval forward (JAX ``serving.py:98-108``): NHWC
+    float32 images of ``hw`` = (H, W) → the main head's per-pixel logits
+    at input resolution (the reference's eval contract, segmentation/
+    model/fcn.py:120-126), on the device its weights are on.  The batch
+    is symbolic (1 to ``MAX_BATCH``), the weights are inside."""
+    return _export(_MainLogits(model), hw)
 
 
 def save_artifact(exported: torch.export.ExportedProgram, path: str) -> None:

@@ -40,9 +40,10 @@ graph) with fixed masks and draws, of the reduced WRN at
 ``cifar10/wideresnet/cnsn-consist.yaml``'s knobs and of a DenseNet of
 depth 7 at ``cifar10/densenet/cnsn-consist.yaml``'s (``CONSIST``;
 ``chip_smoke.py``'s ``consist_card_vs_cpu``).  ``run_seg_step`` is one
-segmentation aug step of an FCN-CNSN of layers (1, 1, 1, 1) at the GTAV
-recipe's knobs, with fixed draws (``chip_smoke.py``'s
-``seg_card_vs_cpu``).
+segmentation aug step of an FCN-CNSN or a PSPNet (``arch``) of layers
+(1, 1, 1, 1) at the GTAV recipe's knobs, with fixed draws
+(``chip_smoke.py``'s ``seg_card_vs_cpu``); the PSP heads' ReLUs go
+through ``fcn.py``'s ``F`` as the FCN heads' do.
 
 The first prints one JSON line: for the float32 run on ``--device`` and
 for the CPU's, the error against its replaying float64 twin, and, for
@@ -79,6 +80,7 @@ from ..ops.kernels import bn_stats as _bn_stats
 from ..ops.kernels.bn_stats import bn_sums_reference as _plain_sums
 from ..segmentation import backbone as _seg_backbone
 from ..segmentation import fcn as _seg_fcn
+from ..segmentation import pspnet as _seg_psp
 from ..segmentation.fcn import fcn_cnsn
 from ..segmentation.train_seg import SegStepFns, create_seg_train_state
 from ..utils.device import resolve_device
@@ -410,27 +412,36 @@ def _exact_seg(tape: _Tape):
 
 def run_seg_step(device: str | torch.device, dtype: torch.dtype, *,
                  replay: Optional[list] = None, seed: int = 3,
-                 sums: Optional[Callable] = None) -> Run:
+                 sums: Optional[Callable] = None,
+                 arch: str = "fcn_cnsn") -> Run:
     """One segmentation aug step (``SegStepFns.aug``: site ``SEG_MASK``
     on, its partner permutation and style box fixed, the class-major
-    fused CE, poly LR with 10× heads) of the reduced FCN-CNSN on
-    ``device`` (TF32 off) in ``dtype``, on seeded images (labels with an
-    ignored band) and weights; ``replay`` and ``sums`` as in
-    ``run_steps``.  The Run's state is the one after the step."""
+    fused CE, poly LR with 10× heads) of the reduced ``arch`` ('fcn_cnsn'
+    or 'psp', the recipe's CNSN knobs, heads' dropout 0) on ``device``
+    (TF32 off) in ``dtype``, on seeded images (labels with an ignored
+    band) and weights; ``replay`` and ``sums`` as in ``run_steps``.  The
+    Run's state is the one after the step."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     images = torch.randn(SEG_BATCH, SEG_SIZE, SEG_SIZE, 3, generator=gen)
     labels = torch.randint(0, SEG_CLASSES, (SEG_BATCH, SEG_SIZE, SEG_SIZE),
                            generator=gen)
     labels[:, :3] = 255
-    full = _seg_fcn.seg_resnet50
-    _seg_fcn.seg_resnet50 = functools.partial(_seg_backbone.SegResNet,
-                                              layers=(1, 1, 1, 1))
+    module = _seg_psp if arch == "psp" else _seg_fcn
+    full = module.seg_resnet50
+    module.seg_resnet50 = functools.partial(_seg_backbone.SegResNet,
+                                            layers=(1, 1, 1, 1))
     try:
-        net = fcn_cnsn(SEG_CLASSES, dropout=0.0,
-                       generator=torch.Generator().manual_seed(0))
+        init = torch.Generator().manual_seed(0)
+        if arch == "psp":
+            net = _seg_psp.PSPNet(
+                SEG_CLASSES, dropout=0.0, block_idxs="1_2_3_4",
+                pos="residual", cn_pos="post", cnsn_type="cnsn",
+                crop="style", generator=init)
+        else:
+            net = fcn_cnsn(SEG_CLASSES, dropout=0.0, generator=init)
     finally:
-        _seg_fcn.seg_resnet50 = full
+        module.seg_resnet50 = full
     state = create_seg_train_state(net.to(dtype), 0.01, 4, device=device)
     draws = [{"perm": grouped_permutation(SEG_BATCH, 1, gen),
               "style_box": sample_bbox(side, side, generator=gen)}

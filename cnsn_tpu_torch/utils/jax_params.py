@@ -3,7 +3,8 @@
 ``state_dict_from_jax(params, batch_stats, key_map=None)`` is the inverse
 of ``cnsn_tpu/utils/torch_import.py::_translate`` for ResNet, ResNet-IBN,
 WideResNet, DenseNet, ResNeXt and (with ``key_map``) AllConvNet and
-FCN segmentation trees: it takes the
+the segmentation trees (FCN, PSPNet, PSANet, PSALite: ``SEG_KEY_MAP``):
+it takes the
 JAX trees as nested dicts of arrays (numpy, or anything ``np.array``
 reads) and returns a torch state dict in the reference's key names and
 layouts, which the port's modules load with ``load_state_dict``:
@@ -31,14 +32,36 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["SEG_KEY_MAP", "state_dict_from_jax"]
+__all__ = ["PSA_KEY_MAP", "PSP_KEY_MAP", "SEG_KEY_MAP", "state_dict_from_jax"]
 
+_HEAD = (("0", "conv1"), ("1", "bn1"), ("4", "conv2"))
 # the FCN heads: torchvision FCNHead's Sequential indices → the JAX
 # FCNHead's names (cnsn_tpu/segmentation/fcn.py:27-41)
-SEG_KEY_MAP = {f"{head}.{idx}": f"{head}.{name}"
+_FCN_KEY_MAP = {f"{head}.{idx}": f"{head}.{name}"
                for head in ("classifier", "aux_classifier")
-               for idx, name in (("0", "conv1"), ("1", "bn1"),
-                                 ("4", "conv2"))}
+               for idx, name in _HEAD}
+# PSPNet's heads (reference pspnet.py: ppm.features.j = Sequential(pool,
+# conv, bn, relu); cls/aux Sequentials) → the JAX PPM's conv_j/bn_j and
+# _ClsHead's names (cnsn_tpu/segmentation/pspnet.py:63-97); the cls/aux
+# entries serve PSANet and PSALite too (PSALite's psa_* keep their names)
+PSP_KEY_MAP = {
+    **{f"ppm.features.{j}.{idx}": f"ppm.{name}_{j}"
+       for j in range(4) for idx, name in (("1", "conv"), ("2", "bn"))},
+    **{f"{head}.{idx}": f"{head}.{name}"
+       for head in ("cls", "aux") for idx, name in _HEAD}}
+# PSANet's PSA module (reference psanet.py: reduce, attention, proj
+# Sequentials) → the JAX PSA's names (pspnet.py:209-225)
+PSA_KEY_MAP = {
+    f"psa.{side}{suffix}.{idx}": f"psa.{side}{suffix}_{name}"
+    for suffix in ("", "_p")
+    for side, parts in (("reduce", (("0", "conv"), ("1", "bn"))),
+                        ("attention", (("0", "conv1"), ("1", "bn"),
+                                       ("3", "conv2"))))
+    for idx, name in parts}
+PSA_KEY_MAP.update({"psa.proj.0": "psa.proj_conv",
+                    "psa.proj.1": "psa.proj_bn"})
+# every segmentation arch's heads: the prefixes do not overlap
+SEG_KEY_MAP = {**_FCN_KEY_MAP, **PSP_KEY_MAP, **PSA_KEY_MAP}
 
 # JAX module name → torch path, by pattern (first match wins)
 _PATHS = ((re.compile(r"^(layer\d+|dense\d+)_(\d+)$"), r"\1.\2"),
@@ -86,7 +109,7 @@ def state_dict_from_jax(params: Mapping[str, Any],
                         ) -> Dict[str, torch.Tensor]:
     """``key_map``: torch prefix → JAX module path (dotted), the map
     ``convert_state_dict`` takes (AllConvNet's ``allconv_key_map(pos)``,
-    the FCN's ``SEG_KEY_MAP``)."""
+    the segmentation heads' ``SEG_KEY_MAP``)."""
     top = {jax_name: prefix for prefix, jax_name in (key_map or {}).items()}
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, v in _leaves(params):

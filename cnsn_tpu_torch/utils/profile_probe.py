@@ -1,16 +1,18 @@
 """Which launches a short profiled window loses, and where: the probe of
-the open fault of ``profiling.window`` (a profile that loses the card's
-records of its first launches).
+the fault of the profiler that loses the card's records of a window's
+first launches.
 
 Runs ``SESSIONS`` torch.profiler sessions back to back for each of two
 ways to open a window, each around four calls of K2's forward and of a
 torch op, as the card tests profile:
 
-  markers — ``profiling.window``: the untimed call and eight marker
-            kernels inside the profile, the count after the last marker
-  warmup  — the untimed call in the warmup step of a profiler schedule
-            (the card's activity tracing on, nothing kept), then the four
-            calls in its active step
+  window  — ``profiling.window``: the untimed call in the warmup step of a
+            profiler schedule (the card's activity tracing on, nothing
+            kept), then eight marker kernels and the four calls in its
+            active step; ``profiling.window_kernels`` counted as well
+            (``window_raised``: the sessions where it raised, having found
+            a record lost)
+  warmup  — the same without the markers
 
 In each session every kernel launch the host made (the event of its
 cudaLaunch* or cuLaunch* call) is matched to its kernel on the card by
@@ -44,15 +46,14 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from . import profiling
 
 SESSIONS, ITERS = 200, 4
-_LAUNCH = ("cudaLaunch", "cuLaunch")
+_LAUNCH = profiling._LAUNCH
 _ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
-def _markers(fn):
-    with profile(activities=_ACTIVITIES) as prof:
-        with profiling.window(fn) as run:
-            for _ in range(ITERS):
-                run()
+def _window(fn):
+    with profiling.window(fn) as prof:
+        for _ in range(ITERS):
+            fn()
     return prof
 
 
@@ -109,10 +110,17 @@ def main() -> list:
     fn()
     torch.cuda.synchronize()
     rows = []
-    for design, open_window in (("markers", _markers), ("warmup", _warmup)):
+    for design, open_window in (("window", _window), ("warmup", _warmup)):
         totals, losing, gaps = collections.Counter(), [], []
+        raised = 0
         for _ in range(SESSIONS):
-            got = session(open_window(fn))
+            prof = open_window(fn)
+            if design == "window":
+                try:
+                    profiling.window_kernels(prof)
+                except profiling.LostRecords:
+                    raised += 1
+            got = session(prof)
             gaps += got.pop("gaps_us")
             totals.update({k: got.get(k, 0)
                            for k in ("kept", "head", "middle", "tail", "all")})
@@ -121,6 +129,7 @@ def main() -> list:
                                for k in ("lost_ms", "kept_ms_gap_us")})
         rows.append({"design": design, "sessions": SESSIONS,
                      "sessions_losing": len(losing), "launches": dict(totals),
+                     "window_raised": raised if design == "window" else None,
                      "gap_us_min": min(gaps) if gaps else None,
                      "gap_us_median": statistics.median(gaps) if gaps else None,
                      "losing_sessions": losing[:10]})

@@ -112,6 +112,30 @@ def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
             torch.from_numpy(label)[None].repeat(2, 1, 1),
             generator=torch.Generator().manual_seed(0))
         assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+        from cnsn_tpu_torch.segmentation import pspnet as seg_psp
+        from cnsn_tpu_torch.segmentation import vis as seg_vis
+        from cnsn_tpu_torch.serving import export_segmenter, load_artifact
+        seg_psp.seg_resnet50 = seg_fcn.seg_resnet50
+        for net in (seg_psp.PSPNet(5, cnsn_type="cnsn", block_idxs="1_2",
+                                   pos="residual", cn_pos="post",
+                                   crop="style"),
+                    seg_psp.PSANet(5, image_hw=(41, 41), compact=True,
+                                   shrink_factor=5),
+                    seg_psp.PSALite(5, image_hw=(41, 41))):
+            state = create_seg_train_state(net, 0.01, 10, device="cpu")
+            state, metrics = SegStepFns(net, num_classes=5).aug(
+                state, torch.from_numpy(image)[None].repeat(2, 1, 1, 1),
+                torch.from_numpy(label)[None].repeat(2, 1, 1),
+                generator=torch.Generator().manual_seed(0))
+            assert bool(torch.isfinite(metrics["loss"]))
+        assert seg_vis.colorize(label).shape == (41, 41, 3)
+        out = os.path.join(sys.argv[1], "seg.pt2")
+        cli.main(["seg-export", "--config",
+                  "cnsn_tpu/configs/segmentation/gtav_fcn50_cnsn.yaml",
+                  "--device", "cpu", "--out", out, "arch=psp",
+                  "train_h=33", "train_w=33"])
+        assert load_artifact(out, "cpu")(torch.zeros(1, 33, 33, 3)).shape \
+            == (1, 33, 33, 19)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "optax", "cnsn_tpu", "cv2"))

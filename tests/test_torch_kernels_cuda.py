@@ -721,16 +721,12 @@ def test_bn_sums_back_to_back_and_on_two_streams():
 def test_bn_sums_is_one_launch_per_call():
     """The profiler sees one K2 forward kernel per call, clusters and
     all."""
-    from torch.profiler import ProfilerActivity, profile
-
     from cnsn_tpu_torch.utils.profiling import window, window_kernels
     x = _x((128, 56, 56, 64), 124, torch.bfloat16)
     m0 = _vec((64,), 125)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with window(lambda: bn_sums_cuda(x, m0)) as run:
-            for _ in range(3):
-                run()
+    with window(lambda: bn_sums_cuda(x, m0)) as prof:
+        for _ in range(3):
+            bn_sums_cuda(x, m0)
     names = [e.name for e in window_kernels(prof)]
     k2 = [n for n in names if "bn_sums" in n]
     assert len(k2) == 3 and all("bn_sums_persistent_kernel" in n
@@ -963,8 +959,9 @@ def test_crossnorm_on_the_card_launches_k1_for_its_unmasked_statistics(
 def test_device_time_breakdown_counts_each_call_once(per_call):
     """The profile counts the kernels of its ``iters`` calls and no other:
     K2's forward (one kernel per call) ``per_call`` times per call, none
-    of the untimed call's before the window marker, and the busy time
-    inside the wall time."""
+    of the untimed call's or the markers', every launch matched to its
+    record in the first profile (a lost record fails it), and the busy
+    time inside the wall time."""
     from cnsn_tpu_torch.utils.profiling import device_time_breakdown
     x = _x((128, 32, 32, 64), 126, torch.bfloat16)
     m0 = _vec((64,), 127)
@@ -974,6 +971,7 @@ def test_device_time_breakdown_counts_each_call_once(per_call):
             bn_sums_cuda(x, m0)
 
     prof = device_time_breakdown(fn, iters=4, warmup=1)
+    assert prof["attempts"] == 1, prof
     assert prof["launches_by_family"] == {"bn_stats": per_call}, prof
     assert prof["kernels_per_call"] == per_call
     assert 0 < prof["device_busy_ms"] <= prof["wall_ms"]
@@ -981,8 +979,11 @@ def test_device_time_breakdown_counts_each_call_once(per_call):
 
 def test_device_time_breakdown_raises_without_its_window_marker(
         monkeypatch):
+    """A window whose markers were not launched (so that its first
+    launches on the host are the block's own) is refused, not
+    miscounted."""
     from cnsn_tpu_torch.utils import profiling
-    monkeypatch.setattr(profiling, "_MARK", "no_kernel_has_this_name")
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
     x = _x((8, 8, 8, 64), 128, torch.bfloat16)
     m0 = _vec((64,), 129)
     with pytest.raises(RuntimeError, match="window marker"):
@@ -1116,6 +1117,7 @@ def test_ins_stats_is_one_launch_per_call(shape, dtype):
     x = _x(shape, 168, dtype)
     prof = device_time_breakdown(lambda: ins_stats_cuda(x), iters=3,
                                  warmup=1)
+    assert prof["attempts"] == 1, prof
     assert prof["launches_by_family"] == {"ins_stats": 1}, prof
     assert all("ins_stats_cluster_kernel" in k["name"]
                for k in prof["top_kernels_ms"]), prof
@@ -1230,6 +1232,7 @@ def test_bn_sums_bwd_is_one_launch_per_call():
     m0, g1, g2 = _vec((64,), 187), _vec((64,), 188), _vec((64,), 189)
     prof = device_time_breakdown(lambda: bn_sums_bwd_cuda(x, m0, g1, g2),
                                  iters=3, warmup=1)
+    assert prof["attempts"] == 1, prof
     assert prof["launches_by_family"] == {"bn_stats_bwd": 1}, prof
     assert all("bn_bwd_stream_kernel" in k["name"]
                for k in prof["top_kernels_ms"]), prof
@@ -1385,6 +1388,7 @@ def test_ins_stats_bwd_is_one_launch_per_call(shape):
     args = _k1_bwd_inputs(shape, 212, torch.bfloat16)
     prof = device_time_breakdown(lambda: ins_stats_bwd_cuda(*args), iters=3,
                                  warmup=1)
+    assert prof["attempts"] == 1, prof
     assert prof["launches_by_family"] == {"ins_stats_bwd": 1}, prof
     assert all("ins_bwd_stream_kernel" in k["name"]
                for k in prof["top_kernels_ms"]), prof
@@ -1640,6 +1644,10 @@ def test_resnet_ibn_takes_its_steps_on_the_card(variant, monkeypatch):
 SEG_K1 = [(16, 179, 179, 256), (16, 90, 90, 2048)]
 SEG_K2 = [(16, 357, 357, 64), (16, 90, 90, 2048)]
 SEG_K3 = [(8, 179, 179, 256), (8, 90, 90, 2048)]
+# K3 at the exported PSPNet-CNSN's SelfNorm planes (713², arch=psp) at the
+# batches it serves, 1 and 4: the staged kernel's plan follows the batch
+PSP_K3 = [(1, 179, 179, 256), (1, 90, 90, 2048), (4, 179, 179, 256),
+          (4, 90, 90, 512), (4, 90, 90, 1024), (4, 90, 90, 2048)]
 
 
 def _big(shape, seed, dtype, scale=1.5, offset=0.3):
@@ -1673,12 +1681,22 @@ def test_ins_stats_at_the_seg_shapes(shape, dtype):
     _close_to_scale(dx, want_dx, 1e-6 if dtype == torch.float32 else 2 ** -7)
 
 
-@pytest.mark.parametrize("shape", SEG_K2)
+# PSPNet's and PSANet's new K2 shapes (gtav_fcn50_cnsn.yaml arch=psp at
+# 713², b=16; arch=psa at 705²): the PPM's pooled bins, 16, 64, 144 and
+# 576 rows × 512 (the fewest rows K2 takes: most blocks of its one-wave
+# grid get no row), and PSA's shrunk 45² maps, 32,400 rows × 512 and
+# × 2048 (its proj at 45² before the upsampling); `-k psp_shapes`
+PSP_K2 = [(16, 1, 1, 512), (16, 2, 2, 512), (16, 3, 3, 512),
+          (16, 6, 6, 512), (16, 45, 45, 512), (16, 45, 45, 2048)]
+
+
+@pytest.mark.parametrize("shape", SEG_K2 + [
+    pytest.param(s, id="psp_shapes-" + "x".join(map(str, s))) for s in PSP_K2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_sums_at_the_seg_shapes(shape, dtype):
     """K2 forward (up to 2M rows a channel: the kernel's fp64 sums
     against the plain version's fp32 ones, 1e-5 of Σ|x−m0| and of s2)
-    and backward, run to run bit for bit."""
+    and backward, each bit for bit run to run."""
     c = shape[-1]
     x = _big(shape, 33, dtype, offset=1.0)
     gen = torch.Generator(device="cuda").manual_seed(34)
@@ -1694,17 +1712,21 @@ def test_bn_sums_at_the_seg_shapes(shape, dtype):
     g1 = torch.randn(c, generator=gen, device="cuda")
     g2 = torch.randn(c, generator=gen, device="cuda") * 1e-3
     got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    again = bn_sums_bwd_cuda(x, m0, g1, g2)
     want = bn_sums_bwd_reference(x, m0, g1, g2)
     torch.cuda.synchronize()
     assert got.shape == shape and got.dtype == dtype
+    assert torch.equal(got, again)
     _close_to_scale(got, want, 1e-6 if dtype == torch.float32 else 2 ** -7)
 
 
-@pytest.mark.parametrize("shape", SEG_K3)
+@pytest.mark.parametrize("shape", SEG_K3 + [
+    pytest.param(s, id="psp_served-" + "x".join(map(str, s))) for s in PSP_K3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selfnorm_at_the_seg_shapes(shape, dtype):
-    """K3 through the kernel its rule picks at the seg eval planes (and
-    the v1 kernel forced), against the plain version."""
+    """K3 through the kernel its rule picks at the seg eval planes and
+    the served PSPNet's (and the v1 kernel forced), against the plain
+    version."""
     c = shape[-1]
     x = _big(shape, 35, dtype)
     gen = torch.Generator(device="cuda").manual_seed(36)

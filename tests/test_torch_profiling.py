@@ -1,8 +1,12 @@
 """Port profiling helpers (cnsn_tpu_torch.utils.profiling) that need no
-card: kernel-name families, the busy-time union, and a profile without a
-window marker."""
+card: kernel-name families, the busy-time union, a profile without a
+window marker, and ``window_kernels``' matching of the card's records to
+the host's calls by correlation id, on hand-made records."""
+import types
+
 import pytest
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from cnsn_tpu_torch.utils import profiling
@@ -99,3 +103,66 @@ def test_window_kernels_raise_without_a_marker():
         x.add_(1)
     with pytest.raises(RuntimeError, match="no window marker"):
         profiling.window_kernels(prof)
+
+
+def _record(corr, name, device, start=0):
+    kind = DeviceType.CUDA if device else DeviceType.CPU
+    return types.SimpleNamespace(
+        correlation_id=lambda: corr, name=lambda: name,
+        device_type=lambda: kind, start_ns=lambda: start * 1000,
+        end_ns=lambda: start * 1000 + 500)
+
+
+def _profile(records):
+    result = types.SimpleNamespace(events=lambda: records)
+    return types.SimpleNamespace(
+        profiler=types.SimpleNamespace(kineto_results=result))
+
+
+def _window(lose=(), marker_records=range(8)):
+    """The records of a window: 8 marker launches (ids 10-17), then two
+    kernel launches, a copy and a host call that puts nothing on the card
+    (ids 20-23), and the card's records of each (the markers' in
+    ``marker_records``, none of the ids in ``lose``), beside the
+    profiler's step annotation on the card (id 5)."""
+    host = [_record(10 + i, "cudaLaunchKernel", False) for i in range(8)]
+    host += [_record(20, "cudaLaunchKernelExC", False),
+             _record(21, "cuLaunchKernel", False),
+             _record(22, "cudaMemcpyAsync", False),
+             _record(23, "cudaStreamSynchronize", False)]
+    card = [_record(10 + i, "spin_kernel", True, i) for i in marker_records]
+    card += [_record(c, name, True, 50 - c)
+             for c, name in ((20, "bn_sums_persistent_kernel<float, 4>"),
+                             (21, "vectorized_elementwise_kernel"),
+                             (22, "Memcpy HtoD (Pageable -> Device)"))
+             if c not in lose]
+    return _profile(host + card + [_record(5, "ProfilerStep#1", True)])
+
+
+def test_window_kernels_match_the_blocks_calls():
+    got = profiling.window_kernels(_window(marker_records=range(2, 8)))
+    assert [k.name for k in got] == [
+        "Memcpy HtoD (Pageable -> Device)", "vectorized_elementwise_kernel",
+        "bn_sums_persistent_kernel<float, 4>"]  # by start on the card
+
+
+@pytest.mark.parametrize("lose", [(20,), (21,)])
+def test_window_kernels_raise_on_a_lost_launch(lose):
+    with pytest.raises(profiling.LostRecords, match="lost the card's record"):
+        profiling.window_kernels(_window(lose=lose))
+
+
+def test_window_kernels_raise_where_the_markers_do_not_open_it():
+    prof = _window()
+    records = prof.profiler.kineto_results.events()
+    records.insert(0, _record(9, "cudaLaunchKernel", False))
+    with pytest.raises(profiling.LostRecords, match="no window marker"):
+        profiling.window_kernels(prof)
+
+
+def test_window_kernels_read_the_window_on_the_host():
+    """The card lost its records of every marker (as it does of a
+    profile's first records): the host's launches still open the window,
+    and its kernels are counted."""
+    got = profiling.window_kernels(_window(marker_records=()))
+    assert len(got) == 3

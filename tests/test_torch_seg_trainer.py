@@ -13,7 +13,10 @@ package's SegTrainer, on the CPU, at an FCN-CNSN of layers (1, 1, 1, 1)
   * (``test_torch_seg_checkpoint.py``, with this file's helpers)
     checkpoints, port → port and port → JAX ``SegTrainer.resume``;
   * the CLI on the CPU: the mIoU ``seg-eval resume=`` prints is the last
-    one ``seg-train`` logged; and what raises.
+    one ``seg-train`` logged; ``seg-export`` writes an artifact; and what
+    raises;
+  * arch psp, psa and psa_lite built by the SegTrainer at full depth, a
+    step each.
 
 The JAX trainer runs at ``num_devices=1`` (the conftest gives it 8 CPU
 devices; with more its models take per-shard statistics).
@@ -36,7 +39,8 @@ from cnsn_tpu.segmentation import SegResNet as JaxSegResNet
 from cnsn_tpu.segmentation.data import SegLoader as JaxSegLoader
 from cnsn_tpu.segmentation.data import synthetic_seg_dataset as jax_synthetic
 from cnsn_tpu_torch import cli
-from cnsn_tpu_torch.segmentation import FCNCNSN, SegResNet
+from cnsn_tpu_torch.segmentation import (FCNCNSN, PSALite, PSANet, PSPNet,
+                                         SegResNet)
 from cnsn_tpu_torch.segmentation.data import synthetic_seg_dataset
 from cnsn_tpu_torch.segmentation.trainer import SegConfig, SegTrainer
 from cnsn_tpu_torch.utils.jax_params import SEG_KEY_MAP, state_dict_from_jax
@@ -257,8 +261,27 @@ def test_cli_seg_train_then_seg_eval_on_the_cpu(small, tmp_path, capsys):
     assert _val_lines(capsys.readouterr().out) == train_lines
 
 
+@pytest.mark.parametrize("arch,cls", [("psp", PSPNet), ("psa", PSANet),
+                                       ("psa_lite", PSALite)])
+def test_psp_archs_build_and_step(arch, cls, tmp_path):
+    """arch psp, psa (the PSA knobs at their defaults: psa_type 2, the
+    gathered map) and psa_lite, at full depth, build through the
+    SegTrainer (33²: layer4 at 5², PSA's map shrunk to 3²) and take one
+    step of an epoch on the CPU."""
+    cfg = SegConfig(save_path=str(tmp_path), snapshot=False, arch=arch,
+                    classes=5, train_h=33, train_w=33, batch_size=2,
+                    print_freq=1, seed=2)
+    trainer = SegTrainer(cfg, synthetic_seg_dataset(2, hw=(41, 41),
+                                                    classes=5),
+                         device="cpu")
+    assert type(trainer.model) is cls and trainer.model.cn_num == 16
+    before = trainer.model.cls[4].weight.detach().clone()
+    loss, miou, _, _ = trainer.train_epoch(0)
+    assert trainer.state.step == 1 and np.isfinite(loss) and 0 <= miou <= 1
+    assert not torch.equal(trainer.model.cls[4].weight, before)
+
+
 @pytest.mark.parametrize("over,match", [
-    (dict(arch="psp"), "pspnet"), (dict(arch="psa_lite"), "pspnet"),
     (dict(fsdp=True), "parallel"), (dict(num_devices=2), "parallel"),
     (dict(spatial=2), "parallel"), (dict(remat=True), "parallel"),
     (dict(ckpt_backend="orbax"), "remaining utils")])
@@ -276,8 +299,10 @@ def test_trainer_defaults_to_cuda_and_cli_checks(tmp_path):
     with pytest.raises(ValueError, match="unknown seg config keys"):
         cli.main(["seg-train", "--config", RECIPE, "--device", "cpu",
                   "synthetic_data=true", "not_a_key=1"])
-    with pytest.raises(NotImplementedError, match="seg-export"):
-        cli.main(["seg-export", "--config", RECIPE])
+    out = str(tmp_path / "seg.pt2")
+    cli.main(["seg-export", "--config", RECIPE, "--device", "cpu", "--out",
+              out, "train_h=33", "train_w=33"])
+    assert os.path.getsize(out) > 0
     with pytest.raises(ValueError, match="compute_dtype"):
         SegTrainer(SegConfig(save_path=str(tmp_path), snapshot=False,
                              compute_dtype="float16"),
