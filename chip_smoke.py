@@ -88,6 +88,16 @@ BatchNorm2d layer, K1 once per SelfNorm site and image statistics):
     ``gtav_fcn50.yaml`` (no CNSN); ``validate`` at batch 8 through K3; a
     reduced FCN-CNSN aug step, card and CPU against float64 twins; ``cli
     seg-train`` then ``seg-eval resume=`` of both recipes at 713²;
+  * on-device AugMix and the normalisation options: the chain
+    (``data/augmix_device.py``) on the card against the CPU at CIFAR 32²
+    b=128 and ImageNet 224² b=IBN_BATCH, once under sync debug mode
+    'error', ms a batch beside host AugMix's; ``cli train``/``eval`` of
+    WRN-40-2's cnsn-augmix.yaml and ``cli train`` of IBN-b's with
+    ondevice_augmix=true, and Trainer epochs of both on-device and with
+    host AugMix, ms a step beside the step alone, launches per step;
+    BatchNorm's groups, stats_sample and var_impl and SelfNorm's is_two,
+    card vs CPU, K2 on the leading rows, K2's launches a WRN sn.yaml step
+    under each ``CNSN_BN_*`` variable;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -102,6 +112,7 @@ It exits non-zero, printing no result, where CUDA is absent or where the
 """
 import collections
 import contextlib
+import copy
 import dataclasses
 import glob
 import io
@@ -310,6 +321,26 @@ PSA_IMAGE = 705
 PSP_STEPS = 4  # the recipe's gate (seed 1) opens the aug step at step 4
 PSP_REQUESTS = 20  # timed requests of the exported PSPNet a batch
 PSP_SERVED = (1, 4)  # the batches the exported PSPNet serves
+
+# On-device AugMix (data/augmix_device.py): the bounds of the CPU tests
+# (tests/test_torch_augmix_device.py), pixel scale; its timed batches; the
+# synthetic images of the timed WRN Trainer epochs (10 steps at b=128)
+CIFAR_NORM = {"mean": (0.5, 0.5, 0.5), "std": (0.5, 0.5, 0.5)}
+CHAIN_PIXEL_TOL, CHAIN_FLIP_SHARE, CHAIN_TIMED = 1e-3, 1e-3, 10
+ONDEVICE_CIFAR_TRAIN = 1280
+# BatchNorm's options (nn/norm.py): card vs CPU at (128, 64, 16, 16), each
+# error relative to the CPU's largest element: fp32 sums in other orders
+# (1e-4 of the outputs and gradients, 1e-5 of the running statistics);
+# bf16 outputs and input gradients round once more (2^-6, two bf16 ulps
+# of the largest); stats_sample at the reference's per-replica 32 rows
+BN_SAMPLE = 32
+BN_OPTION_CASES = (dict(groups=2), dict(groups=4),
+                   dict(stats_sample=BN_SAMPLE), dict(var_impl="two"),
+                   dict(var_impl="one"))
+BN_OPT_TOL = {"out": 1e-4, "running_mean": 1e-5, "running_var": 1e-5,
+              "grad_x": 1e-4, "grad_weight": 1e-4, "grad_bias": 1e-4}
+BN_OPT_TOL_BF16 = {"out": 2 ** -6, "grad_x": 2 ** -6}
+BN_OPT_STEPS = 5
 
 
 def emit(obj):
@@ -913,18 +944,18 @@ def train_flops_per_step(model, batch, image=IMAGE):
 
 
 @contextlib.contextmanager
-def conv3x3_mode(mode):
-    """CNSN_CONV3X3 while the models of a phase are built (the factory
-    reads it then), restored after."""
-    old = os.environ.get("CNSN_CONV3X3")
-    os.environ["CNSN_CONV3X3"] = mode
+def env_vars(**values):
+    """Environment variables set for a block, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["CNSN_CONV3X3"]
-        else:
-            os.environ["CNSN_CONV3X3"] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def flagship(dev, recipe=RECIPE):
@@ -1104,7 +1135,7 @@ def phase_train_flagship_k4(dev, conv_ms, k4_rows):
     from cnsn_tpu_torch.ops.convdot import LAYOUT_COPIES
     from cnsn_tpu_torch.ops.kernels import LAUNCHES
     from cnsn_tpu_torch.utils.profiling import device_time_breakdown
-    with conv3x3_mode("pallas"):
+    with env_vars(CNSN_CONV3X3="pallas"):
         cfg, state, _, step, gates, images, _ = flagship(dev)
     n = FLAGSHIP_K4_STEPS
     torch.cuda.synchronize()
@@ -1181,7 +1212,7 @@ def phase_wrn_k4_vs_cudnn(dev):
     labels = torch.randint(0, 10, (32,), generator=gen).to(dev)
     runs = {}
     for mode in ("pallas", "conv"):
-        with conv3x3_mode(mode):
+        with env_vars(CNSN_CONV3X3=mode):
             model = WideResNet(depth=10, widen_factor=2, pos="pre",
                                cnsn_type="sn",
                                generator=torch.Generator().manual_seed(5))
@@ -1270,7 +1301,7 @@ def phase_train_wrn(dev):
     labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).to(dev)
     rates, wrn_counts = {}, None
     for mode in ("pallas", "conv"):
-        with conv3x3_mode(mode):
+        with env_vars(CNSN_CONV3X3=mode):
             model = build_model(
                 cfg.model, cfg.num_classes,
                 generator=torch.Generator().manual_seed(cfg.seed),
@@ -1457,7 +1488,7 @@ def phase_train_wrn_cn(dev):
         images = torch.randn(b, WRN_IMAGE, WRN_IMAGE, 3, generator=gen).to(dev)
         labels = torch.randint(0, cfg.num_classes, (b,),
                                generator=gen).to(dev)
-        with conv3x3_mode("pallas"):
+        with env_vars(CNSN_CONV3X3="pallas"):
             model = build_model(
                 cfg.model, cfg.num_classes,
                 generator=torch.Generator().manual_seed(cfg.seed),
@@ -1559,7 +1590,7 @@ def cli_train_eval(common, epochs, exp_root, log):
     (exp dir, log.txt's rows, the last checkpoint, the printed Test
     Error, the seconds cli train took)."""
     t0 = time.perf_counter()
-    with conv3x3_mode("pallas"):
+    with env_vars(CNSN_CONV3X3="pallas"):
         _cli(["train", *common, f"epochs={epochs}", f"exp_dir={exp_root}"],
              log)
     train_s = time.perf_counter() - t0
@@ -1573,7 +1604,7 @@ def cli_train_eval(common, epochs, exp_root, log):
           f"log.txt rows {rows}")
     [last] = [os.path.join(exp_dir, f) for f in os.listdir(exp_dir)
               if f.endswith("_last_ckpt")]
-    with conv3x3_mode("pallas"):
+    with env_vars(CNSN_CONV3X3="pallas"):
         printed = _cli(["eval", *common, f"resume={last}"], log)
     m = re.search(r"Test Error (\S+)", printed)
     check(m is not None and m.group(1) == rows[-1][3],
@@ -1660,7 +1691,7 @@ def phase_trainer_wrn(dev, step_ms, cnsn_counts):
     del model, served, eager
 
     # (b) one realistic epoch and evaluation, timed
-    with conv3x3_mode("pallas"):
+    with env_vars(CNSN_CONV3X3="pallas"):
         trainer = Trainer(cfg, device=dev)
     b = cfg.batch_size
     train = load_cifar("", cfg.dataset, True, synthetic=True,
@@ -2015,7 +2046,7 @@ def _cifar_model(dev, recipe, **over):
     from cnsn_tpu_torch.models import build_model
     from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
     cfg = load_config(recipe, compute_dtype="bf16", **over)
-    with conv3x3_mode("pallas"):
+    with env_vars(CNSN_CONV3X3="pallas"):
         model = build_model(cfg.model, cfg.num_classes,
                             generator=torch.Generator().manual_seed(cfg.seed),
                             pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
@@ -2467,12 +2498,13 @@ def phase_imagenet_loader(root):
 
 
 class StepCounts:
-    """The launches of each step a Trainer takes: its step functions
-    wrapped (``step_launches``) where the Trainer calls them, not where
-    one step calls another (cn_image ends in plain)."""
+    """The launches of each step a Trainer takes, and the host's clock at
+    its call: its step functions wrapped (``step_launches``) where the
+    Trainer calls them, not where one step calls another (cn_image ends
+    in plain)."""
 
     def __init__(self, trainer, names):
-        self.per_step, self.names, depth = [], [], [0]
+        self.per_step, self.names, self.times, depth = [], [], [], [0]
         for name in names:
             fn = getattr(trainer.steps, name)
 
@@ -2481,6 +2513,7 @@ class StepCounts:
                     return _fn(*a, **kw)
                 depth[0] += 1
                 try:
+                    self.times.append(time.perf_counter())
                     self.names.append(_name)
                     return step_launches(lambda: _fn(*a, **kw),
                                          self.per_step)
@@ -2535,7 +2568,7 @@ def phase_trainer_imagenet(dev, data_dir, corrupt_dir, step_ms, loader_ms):
         torch.cuda.synchronize()
         LAUNCHES.clear()
         t0 = time.perf_counter()
-        with conv3x3_mode("conv"):
+        with env_vars(CNSN_CONV3X3="conv"):
             _cli(["train", *common, "epochs=1", f"exp_dir={tmp}/exp"], log)
         train_s = time.perf_counter() - t0
         counts = dict(LAUNCHES)
@@ -2554,7 +2587,7 @@ def phase_trainer_imagenet(dev, data_dir, corrupt_dir, step_ms, loader_ms):
         LAUNCHES.clear()
         t0 = time.perf_counter()
         try:
-            with conv3x3_mode("conv"):
+            with env_vars(CNSN_CONV3X3="conv"):
                 printed = _cli(["eval", *common,
                                 f"resume={exp_dir}/ResNet_last_ckpt",
                                 f"corrupt_data_dir={corrupt_dir}"], log)
@@ -2581,7 +2614,7 @@ def phase_trainer_imagenet(dev, data_dir, corrupt_dir, step_ms, loader_ms):
     with tempfile.TemporaryDirectory() as tmp:
         cfg = load_config(RECIPE, data_dir=data_dir, compute_dtype="bf16",
                           snapshot=False, exp_dir=tmp, print_freq=1000)
-        with conv3x3_mode("conv"):
+        with env_vars(CNSN_CONV3X3="conv"):
             trainer = Trainer(cfg, device=dev)
         try:
             rec = StepCounts(trainer, ("cn_image", "plain"))
@@ -2642,7 +2675,7 @@ def phase_train_resnet_ibn_augmix(dev, data_dir):
           == ("cn_image_augmix", "residual", "sn", "neither",
               "resnet50_ibn_b"), f"{IBN_RECIPE} resolves to {cfg.regime}")
     b = IBN_BATCH
-    with conv3x3_mode("conv"):
+    with env_vars(CNSN_CONV3X3="conv"):
         model = build_model(cfg.model, cfg.num_classes,
                             generator=torch.Generator().manual_seed(cfg.seed),
                             pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
@@ -2720,7 +2753,7 @@ def phase_train_resnet_ibn_augmix(dev, data_dir):
                    os.path.join(small, "validation"))
         LAUNCHES.clear()
         t0 = time.perf_counter()
-        with conv3x3_mode("conv"):
+        with env_vars(CNSN_CONV3X3="conv"):
             _cli(["train", "--config", IBN_RECIPE, "--device", str(dev),
                   f"data_dir={small}", "compute_dtype=bf16", "epochs=1",
                   f"batch_size={b}", f"augmix_workers={os.cpu_count() - 1}",
@@ -2740,7 +2773,7 @@ def phase_train_resnet_ibn_augmix(dev, data_dir):
           "augmix_workers": os.cpu_count() - 1, "cli_train_s": cli_s,
           "launches": cli_counts, "log_row": row})
     torch.cuda.empty_cache()
-    return counts, peak
+    return counts, peak, med
 
 
 def phase_train_cifar_augmix(dev):
@@ -2758,7 +2791,7 @@ def phase_train_cifar_augmix(dev):
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     log = os.path.join(out_dir, "cli.txt")
-    out = {}
+    out, step_ms = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for recipe in CIFAR_AUGMIX_RECIPES:
             model = os.path.basename(os.path.dirname(recipe))
@@ -2814,6 +2847,7 @@ def phase_train_cifar_augmix(dev):
             check(bool(torch.isfinite(losses).all()),
                   f"losses {losses.tolist()}")
             out[model] = counts
+            step_ms[model] = med
             del state, images3
             torch.cuda.empty_cache()
         _, rows, _, _, train_s = cli_train_eval(
@@ -2824,7 +2858,7 @@ def phase_train_cifar_augmix(dev):
         emit({"phase": "train_cifar_augmix_no_jsd",
               "recipe": os.path.relpath(ALLCONV_AUGMIX, ROOT),
               "cli_train_s": train_s, "cli_log_rows": rows})
-    return out
+    return out, step_ms
 
 
 def phase_augmix_card_vs_cpu(dev):
@@ -2850,6 +2884,459 @@ def phase_augmix_card_vs_cpu(dev):
                   "batch": shape[kind][0], "image": shape[kind][1]},
             lambda device, dtype, _k=kind, **kw: run_augmix_step(
                 device, dtype, _k, **kw), counts, seeds=range(4))
+
+
+def _chain_vs_cpu(dev, images, params, norm):
+    """The chain on the card (once under sync debug mode 'error') and on
+    the CPU from the same images and draws: the pixels (the normalized
+    difference times 255·std) past CHAIN_PIXEL_TOL, which a rounding moved
+    across a later op's step, held to CHAIN_FLIP_SHARE; the worst of the
+    others; the CPU's seconds."""
+    from cnsn_tpu_torch.data.augmix_device import apply_augmix
+    images_dev = images.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = apply_augmix(images_dev, params, **norm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(got.device == images_dev.device and got.dtype == torch.float32,
+          f"the views on {got.device}, {got.dtype}")
+    t0 = time.perf_counter()
+    want = apply_augmix(images, params, **norm)
+    cpu_s = time.perf_counter() - t0
+    diff = (got.cpu() - want).abs() * (torch.tensor(norm["std"]) * 255)
+    flips = int((diff > CHAIN_PIXEL_TOL).sum())
+    worst = float(diff[diff <= CHAIN_PIXEL_TOL].max())
+    check(flips <= CHAIN_FLIP_SHARE * diff.numel(),
+          f"chain card vs CPU: {flips} of {diff.numel()} pixels past "
+          f"{CHAIN_PIXEL_TOL}")
+    check(bool(torch.isfinite(want).all()), "finite views")
+    return {"pixels": diff.numel(), "flips": flips,
+            "max_err_of_the_rest": worst, "cpu_s": cpu_s}
+
+
+def phase_augmix_device_vs_cpu(dev, imagenet_host_ms):
+    """On-device AugMix (``data/augmix_device.py``) on the card against
+    the CPU with the same images and draws (``_chain_vs_cpu``, the first
+    card call under sync debug mode 'error'): CIFAR 32² at b=128 (0.5/0.5,
+    the recipes' severity 3) and ImageNet 224² at b=IBN_BATCH (its
+    statistics, the IBN-b recipe's severity 1).  Then ms a batch on the
+    card, CHAIN_TIMED batches each with new draws as the Trainer calls it
+    (host wall time, the draws and the grouping included, and device time
+    by events; the median of CHAIN_TIMED, each waited for), beside the
+    host AugMix's ms a batch: CIFAR's from a CifarLoader 'train_augmix'
+    in this process (train_ondevice_augmix times its worker processes in
+    a Trainer), ImageNet's from phase imagenet_loader (its worker
+    pool)."""
+    from cnsn_tpu_torch.data import (IMAGENET_MEAN, IMAGENET_STD, CifarLoader,
+                                     load_cifar)
+    from cnsn_tpu_torch.data.augmix_device import augmix_batch, draw_augmix
+    imagenet_norm = {"mean": tuple(map(float, IMAGENET_MEAN)),
+                     "std": tuple(map(float, IMAGENET_STD))}
+    for name, hw, b, norm, severity in (
+            ("cifar", WRN_IMAGE, 128, CIFAR_NORM, 3.0),
+            ("imagenet", IMAGE, IBN_BATCH, imagenet_norm, 1.0)):
+        gen = torch.Generator().manual_seed(hw)
+        images = torch.randint(0, 256, (b, hw, hw, 3), generator=gen,
+                               dtype=torch.uint8)
+        torch.cuda.reset_peak_memory_stats()
+        err = _chain_vs_cpu(dev, images, draw_augmix(gen, b, severity),
+                            norm)
+        images_dev = images.to(dev)
+        augmix_batch(gen, images_dev, severity, **norm)
+        torch.cuda.synchronize()
+        wall_ms, device_ms = [], []
+        for _ in range(CHAIN_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            views = augmix_batch(gen, images_dev, severity, **norm)
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            device_ms.append(start.elapsed_time(end))
+        check(views.shape == (3, b, hw, hw, 3)
+              and bool(torch.isfinite(views).all()), f"views {views.shape}")
+        row = {"phase": "augmix_device_vs_cpu", "data": name, "batch": b,
+               "image": hw, "severity": severity, **err,
+               "tol": {"pixel": CHAIN_PIXEL_TOL, "flip_share":
+                       CHAIN_FLIP_SHARE},
+               "sync_debug_mode": "error",
+               "card_ms_per_batch": statistics.median(wall_ms),
+               "card_ms_per_batch_each": wall_ms,
+               "card_device_ms_per_batch": statistics.median(device_ms),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if name == "cifar":
+            train = load_cifar("", "cifar10", True, synthetic=True,
+                               synthetic_size=3 * b)
+            ms, _ = time_loader(CifarLoader(train, b, mode="train_augmix"))
+            row["host_ms_per_batch_procs0"] = ms
+        else:
+            row[f"host_ms_per_batch_procs{os.cpu_count() - 1}"] = \
+                imagenet_host_ms
+        row["card"] = nvidia_smi_name_power()
+        emit(row)
+        del views, images_dev
+        torch.cuda.empty_cache()
+
+
+def _timed_epoch(trainer, names):
+    """One ``train_epoch`` of ``trainer``: the launches of the whole epoch
+    (read from the counters, so a launch outside the steps shows) and of
+    its steps, the first recorded step's counts of each step kind that
+    ran, ms a step from the second step's call to the end of the last
+    (the first waits for the pipeline to fill), the wait per staged batch
+    and the peak memory."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    rec = StepCounts(trainer, names)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    loss = trainer.train_epoch()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    n = len(rec.times)
+    summed = collections.Counter()
+    for c in rec.per_step:
+        summed.update(c)
+    check(launches == dict(summed), f"epoch launches {launches}, its steps"
+          f" summed {dict(summed)}")
+    first = {}
+    for c, kind in zip(rec.per_step, rec.names):
+        first.setdefault(kind, c)
+    return {"steps": n, "names": rec.names, "per_step": rec.per_step,
+            "first_per_step": first, "launches": launches,
+            "ms_per_step": (time.perf_counter() - rec.times[1]) * 1e3
+            / (n - 1), "data_wait_ms": trainer.data_wait.avg * 1e3,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "loss": loss}
+
+
+def phase_train_ondevice_augmix(dev, data_dir, cifar_step_ms, ibn_step_ms):
+    """``ondevice_augmix`` through the entry points a user calls.
+
+    (a) ``cli train`` + ``cli eval resume=`` of WRN-40-2's
+    cifar10/wideresnet/cnsn-augmix.yaml with ondevice_augmix=true: one
+    synthetic epoch (4 steps of b=128), bf16, CNSN_CONV3X3=pallas.
+    (b) Trainers of that recipe on the synthetic set at
+    ONDEVICE_CIFAR_TRAIN images, with
+    ondevice_augmix and with host AugMix in os.cpu_count() − 1 worker
+    processes: ms a step through ``train_epoch`` of each, beside
+    train_cifar_augmix's step alone (``cifar_step_ms``), the wait per
+    staged batch and the peak memory; each step's K1, K2 and K4 launches
+    against ``expected_launches`` (the host path's: the chain launches
+    none).
+    (c) ``cli train`` of imagenet/resnet50_ibn_b/cnsn-augmix.yaml with
+    ondevice_augmix=true batch_size=IBN_BATCH on 2·IBN_BATCH images of the
+    fake folder (2 steps), then Trainers of it on 3·IBN_BATCH images (3
+    steps), on-device and host AugMix as in (b),
+    beside train_resnet_ibn_augmix's step alone (``ibn_step_ms``); K2 52
+    and K1 16 each way a step, K1 one more on a cn_image_augmix step."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.data import CifarLoader, load_cifar
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train.trainer import Trainer
+    out_dir = os.path.join(ROOT, "chiprun_out", "train_ondevice_augmix")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = os.path.join(out_dir, "cli.txt")
+    recipe = CIFAR_AUGMIX_RECIPES[0]
+    ncpu = os.cpu_count()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a)
+        LAUNCHES.clear()
+        _, rows, _, test_error, train_s = cli_train_eval(
+            ["--config", recipe, "--device", str(dev),
+             "synthetic_data=true", "compute_dtype=bf16",
+             "ondevice_augmix=true"], 1, os.path.join(tmp, "wrn"), log)
+        check(math.isfinite(float(rows[-1][2])), f"train loss {rows}")
+        emit({"phase": "train_ondevice_augmix", "part": "cli_wrn",
+              "recipe": os.path.relpath(recipe, ROOT), "cli_train_s": train_s,
+              "cli_log_rows": rows, "cli_eval_test_error": test_error,
+              "launches": dict(LAUNCHES)})
+        # (b)
+        train = load_cifar("", "cifar10", True, synthetic=True,
+                           synthetic_size=ONDEVICE_CIFAR_TRAIN)
+        runs, names = {}, {}
+        for ondevice in (True, False):
+            cfg = load_config(recipe, synthetic_data=True,
+                              compute_dtype="bf16", snapshot=False,
+                              ondevice_augmix=ondevice, print_freq=10_000,
+                              augmix_workers=0 if ondevice else ncpu - 1,
+                              exp_dir=os.path.join(tmp, f"t{ondevice}"))
+            with env_vars(CNSN_CONV3X3="pallas"):
+                trainer = Trainer(cfg, device=dev)
+            try:
+                trainer.train_loader.close()
+                trainer.train_loader = CifarLoader(
+                    train, cfg.batch_size,
+                    mode="train_geom" if ondevice else "train_augmix",
+                    seed=cfg.seed, workers=cfg.augmix_workers)
+                with contextlib.redirect_stdout(open(log, "a")):
+                    run = _timed_epoch(trainer, ("augmix_cn", "augmix"))
+            finally:
+                trainer.close()
+            k4 = k4_paths_per_forward(trainer.state.model, dev)
+            want = {kind: expected_launches(trainer.state.model, cfg, kind,
+                                            k4)
+                    for kind in ("augmix", "augmix_cn")}
+            bad = [(i, g, want[n]) for i, (g, n) in enumerate(
+                zip(run["per_step"], run["names"])) if g != want[n]]
+            check(not bad and run["steps"] == len(train.images)
+                  // cfg.batch_size, f"ondevice={ondevice} launches per step"
+                  f" {bad[:2]}")
+            check(math.isfinite(run["loss"]), f"loss {run['loss']}")
+            key = "ondevice" if ondevice else "host_augmix"
+            names[key] = run["names"]
+            runs[key] = {k: run[k] for k in (
+                "steps", "first_per_step", "launches", "ms_per_step",
+                "data_wait_ms", "peak_mem_gib", "loss")}
+            del trainer
+            torch.cuda.empty_cache()
+        check(names["ondevice"] == names["host_augmix"],
+              "the same gates on both paths")
+        runs["gated_steps"] = names["ondevice"].count("augmix_cn")
+        out["cifar"] = runs
+        emit({"phase": "train_ondevice_augmix", "part": "trainer_wrn",
+              "recipe": os.path.relpath(recipe, ROOT), "batch": 128,
+              "dtype": "bfloat16", "conv3x3": "pallas",
+              "step_only_ms": cifar_step_ms, "expected_per_step": want,
+              **runs, "host_procs": ncpu - 1, "card": nvidia_smi_name_power()})
+        # (c)
+        files = sorted(glob.glob(os.path.join(data_dir, "train", "*", "*")))
+        subsets = {}
+        for n in (2, 3):
+            small = os.path.join(tmp, f"ibn{n}")
+            for f in files[:n * IBN_BATCH]:
+                d = os.path.join(small, "train",
+                                 os.path.basename(os.path.dirname(f)))
+                os.makedirs(d, exist_ok=True)
+                os.symlink(f, os.path.join(d, os.path.basename(f)))
+            os.symlink(os.path.join(data_dir, "validation"),
+                       os.path.join(small, "validation"))
+            subsets[n] = small
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with env_vars(CNSN_CONV3X3="conv"):
+            _cli(["train", "--config", IBN_RECIPE, "--device", str(dev),
+                  f"data_dir={subsets[2]}", "compute_dtype=bf16", "epochs=1",
+                  f"batch_size={IBN_BATCH}", "ondevice_augmix=true",
+                  f"exp_dir={tmp}/ibn_exp"], log)
+        cli_s = time.perf_counter() - t0
+        cli_counts = dict(LAUNCHES)
+        [exp_dir] = glob.glob(f"{tmp}/ibn_exp/*/*")
+        row = open(os.path.join(exp_dir, "log.txt")).read().splitlines()[-1]
+        check(math.isfinite(float(row.split("\t")[2])), f"log.txt row {row}")
+        cfg = load_config(IBN_RECIPE)
+        gates = np.random.RandomState(cfg.seed).rand(2)
+        check(cli_counts.get("bn_sums") == 2 * (BN_LAYERS - 1)
+              and cli_counts.get("ins_stats") == 2 * SN_SITES + int(
+                  (gates < cfg.cn_prob).sum())
+              and cli_counts.get(K3_STAGED) == SN_SITES,
+              f"IBN-b ondevice cli train launches {cli_counts}")
+        plain = {"bn_sums": BN_LAYERS - 1, "bn_sums_bwd": BN_LAYERS - 1,
+                 "ins_stats": SN_SITES, "ins_stats_bwd": SN_SITES}
+        want = {"augmix": plain,
+                "cn_image_augmix": dict(plain, ins_stats=SN_SITES + 1)}
+        runs = {}
+        for ondevice in (True, False):
+            cfg = load_config(IBN_RECIPE, data_dir=subsets[3],
+                              compute_dtype="bf16", batch_size=IBN_BATCH,
+                              snapshot=False, ondevice_augmix=ondevice,
+                              augmix_workers=0 if ondevice else ncpu - 1,
+                              print_freq=10_000,
+                              exp_dir=os.path.join(tmp, f"i{ondevice}"))
+            with env_vars(CNSN_CONV3X3="conv"):
+                trainer = Trainer(cfg, device=dev)
+            try:
+                with contextlib.redirect_stdout(open(log, "a")):
+                    run = _timed_epoch(trainer,
+                                       ("cn_image_augmix", "augmix"))
+            finally:
+                trainer.close()
+            bad = [(i, g) for i, (g, n) in enumerate(
+                zip(run["per_step"], run["names"])) if g != want[n]]
+            check(not bad and run["steps"] == 3,
+                  f"IBN-b ondevice={ondevice} launches per step {bad[:2]}")
+            check(math.isfinite(run["loss"]), f"loss {run['loss']}")
+            runs["ondevice" if ondevice else "host_augmix"] = {
+                k: run[k] for k in ("steps", "names", "first_per_step",
+                                    "launches", "ms_per_step",
+                                    "data_wait_ms", "peak_mem_gib", "loss")}
+            del trainer
+            torch.cuda.empty_cache()
+        check(runs["ondevice"]["names"] == runs["host_augmix"]["names"],
+              "the same gates on both paths")
+        out["ibn"] = {"cli": cli_counts, **runs}
+        emit({"phase": "train_ondevice_augmix", "part": "trainer_ibn",
+              "recipe": os.path.relpath(IBN_RECIPE, ROOT),
+              "batch": IBN_BATCH, "dtype": "bfloat16", "cli_train_s": cli_s,
+              "cli_launches": cli_counts, "cli_log_row": row,
+              "step_only_ms": ibn_step_ms, "expected_per_step": want,
+              **runs, "host_procs": ncpu - 1, "card": nvidia_smi_name_power()})
+    return out
+
+
+def _rel_err(got, want):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def _bn_card_vs_cpu(dev, kw, dtype, x, r, init):
+    """One training forward and backward of ``BatchNorm(**kw)`` on the
+    card and on the CPU from the same state: the card's error in the
+    output, the running statistics and the gradients (x, weight, bias),
+    each relative to the largest element of the CPU's; K2's launches on
+    the card."""
+    from cnsn_tpu_torch.nn import BatchNorm
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        bn = BatchNorm(x.shape[1], **kw)
+        bn.load_state_dict(init)
+        bn = bn.to(d).train()
+        xd = x.to(device=d, dtype=dtype, copy=True).requires_grad_(True)
+        LAUNCHES.clear()
+        out = bn(xd)
+        (out.float() * r.to(d)).sum().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        check(out.is_contiguous(memory_format=torch.channels_last),
+              "BatchNorm keeps channels_last")
+        res[d.type] = (out, bn.running_mean, bn.running_var, xd.grad,
+                       bn.weight.grad, bn.bias.grad)
+    names = ("out", "running_mean", "running_var", "grad_x", "grad_weight",
+             "grad_bias")
+    return {n: _rel_err(a, b) for n, a, b in zip(names, res["cuda"],
+                                                  res["cpu"])}, launches
+
+
+def phase_bn_options_card_vs_cpu(dev):
+    """BatchNorm's options and SelfNorm(is_two=True) on the card.
+
+    (a) ``BatchNorm`` with groups 2 and 4, stats_sample BN_SAMPLE and
+    var_impl 'two' and 'one', in fp32 and bf16, at WRN-40-2's (128, 64,
+    16, 16) channels_last: one training forward and backward on the card
+    against the CPU (``_bn_card_vs_cpu``), K2 once each way at stats_sample
+    and never otherwise.  (b) K2 forward and backward on the leading
+    BN_SAMPLE rows of WRN-40-2's BatchNorm inputs at b=128 bf16 against
+    their plain versions, timed (``_k2_rows``).  (c) K2's launches in one
+    WRN-40-2 sn.yaml step (bf16, pallas) under CNSN_BN_VAR=two,
+    CNSN_BN_GROUPS=2, CNSN_BN_SAMPLE=BN_SAMPLE and by default, and the
+    step's ms (BN_OPT_STEPS steps after 2).  (d) SelfNorm(is_two=True) on
+    the card against the CPU: a training forward and backward (K1 each
+    way) and an eval forward (K1, no K3), fp32 and bf16."""
+    from cnsn_tpu_torch.nn import SelfNorm
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    gen = torch.Generator().manual_seed(17)
+    shape = (128, 64, 16, 16)
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.8).contiguous(
+        memory_format=torch.channels_last)
+    r = torch.randn(shape, generator=gen)
+    init = {"weight": torch.rand(64, generator=gen) + 0.5,
+            "bias": torch.randn(64, generator=gen) * 0.1,
+            "running_mean": torch.randn(64, generator=gen) * 0.3 + 0.8,
+            "running_var": torch.rand(64, generator=gen) + 0.5}
+    for kw in BN_OPTION_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs, launches = _bn_card_vs_cpu(dev, kw, dtype, x, r, init)
+            tol = dict(BN_OPT_TOL, **(BN_OPT_TOL_BF16
+                                      if dtype == torch.bfloat16 else {}))
+            k2 = int("stats_sample" in kw)
+            row = {"phase": "bn_options_card_vs_cpu", "options": kw,
+                   "dtype": str(dtype).split(".")[1], "shape": list(shape),
+                   "errors": errs, "tol": tol, "launches": launches}
+            emit(row)
+            check(all(errs[k] <= tol[k] for k in errs),
+                  f"BatchNorm {kw} {dtype} card vs CPU {errs}")
+            check(launches.get("bn_sums", 0) == k2
+                  and launches.get("bn_sums_bwd", 0) == k2,
+                  f"BatchNorm {kw} launches {launches}")
+    # (b)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(18)
+    k2_rows = []
+    for h, c, sites in WRN_BN_SHAPES:
+        k2_rows += _k2_rows((128, h, h, c), torch.bfloat16, sites, flush, g,
+                            lead=BN_SAMPLE, model="wrn_stats_sample",
+                            phase="bn_options_card_vs_cpu")
+    del flush
+    # (c)
+    steps_ms, per_step = {}, {}
+    for name, env in (("default", {}), ("CNSN_BN_VAR=two", {"CNSN_BN_VAR":
+                                                             "two"}),
+                      ("CNSN_BN_GROUPS=2", {"CNSN_BN_GROUPS": 2}),
+                      (f"CNSN_BN_SAMPLE={BN_SAMPLE}",
+                       {"CNSN_BN_SAMPLE": BN_SAMPLE})):
+        with env_vars(**env):
+            cfg, state, steps = _cifar_model(dev, WRN_RECIPE)
+            images = torch.randn(128, WRN_IMAGE, WRN_IMAGE, 3,
+                                 generator=gen).to(dev)
+            labels = torch.randint(0, 10, (128,), generator=gen).to(dev)
+            counts = []
+            for _ in range(2):
+                step_launches(lambda: steps.plain(state, images, labels),
+                              counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BN_OPT_STEPS):
+                _, m = steps.plain(state, images, labels)
+            loss = float(m["loss"])
+            steps_ms[name] = (time.perf_counter() - t0) * 1e3 / BN_OPT_STEPS
+        k2 = WRN_BN if name in ("default", f"CNSN_BN_SAMPLE={BN_SAMPLE}") \
+            else 0
+        check(all(c.get("bn_sums", 0) == k2 and c.get("bn_sums_bwd", 0) == k2
+                  and c.get("ins_stats") == WRN_SN for c in counts)
+              and math.isfinite(loss), f"WRN sn.yaml {name}: {counts[-1]}")
+        per_step[name] = counts[-1]
+        del state
+    emit({"phase": "bn_options_card_vs_cpu", "part": "wrn_sn_step",
+          "recipe": os.path.relpath(WRN_RECIPE, ROOT), "batch": 128,
+          "dtype": "bfloat16", "conv3x3": "pallas",
+          "launches_per_step": per_step, "ms_per_step": steps_ms,
+          "card": nvidia_smi_name_power()})
+    # (d)
+    xs = (torch.randn(32, 64, 16, 16, generator=gen) * 1.3 + 0.2).contiguous(
+        memory_format=torch.channels_last)
+    sn = SelfNorm(64, is_two=True, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            m = copy.deepcopy(sn).to(d)
+            xd = xs.to(device=d, dtype=dtype, copy=True).requires_grad_(
+                True)
+            LAUNCHES.clear()
+            out = m.train()(xd)
+            (out.float() * r[:32].to(d)).sum().backward()
+            with torch.no_grad():
+                ev = m.eval()(xd.detach())
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(LAUNCHES)
+            res[d.type] = (out, xd.grad, ev, m.f_bn.running_mean,
+                           m.g_bn.running_var)
+        names = ("train_out", "grad_x", "eval_out", "f_bn_running_mean",
+                 "g_bn_running_var")
+        errs = {n: _rel_err(a, b) for n, a, b in zip(names, res["cuda"],
+                                                      res["cpu"])}
+        t = BN_OPT_TOL_BF16["out"] if dtype == torch.bfloat16 \
+            else BN_OPT_TOL["out"]
+        tol = {n: (t if n in ("train_out", "grad_x", "eval_out")
+                   else BN_OPT_TOL["running_mean"]) for n in names}
+        emit({"phase": "bn_options_card_vs_cpu", "part": "selfnorm_is_two",
+              "dtype": str(dtype).split(".")[1], "errors": errs, "tol": tol,
+              "launches": launches})
+        check(all(errs[n] <= tol[n] for n in names),
+              f"SelfNorm is_two {dtype} card vs CPU {errs}")
+        check(launches == {"ins_stats": 2, "ins_stats_bwd": 1},
+              f"SelfNorm is_two launches {launches}")
+    torch.cuda.empty_cache()
+    return {"k2_rows": k2_rows, "wrn_sn": per_step}
 
 
 def seg_config(recipe, **over):
@@ -2885,11 +3372,13 @@ def seg_site_shapes(model, dev, size, modules=None):
     return bn, sn
 
 
-def _k2_rows(shape, dtype, sites, flush, gen, **tag):
+def _k2_rows(shape, dtype, sites, flush, gen, lead=None, **tag):
     """K2 forward and backward at ``shape`` in ``dtype`` against their
     plain versions (forward: 1e-5 of Σ|x−m0| and of s2; backward: 1e-6
     of max|dx| in fp32, 2^-7 in bf16), each bit for bit run to run: its
-    two ``_row`` lines, with times, bound and ``torch.var_mean``."""
+    two ``_row`` lines, with times, bound and ``torch.var_mean``.  With
+    ``lead``, x is the leading ``lead`` rows of that batch, in place, as
+    BatchNorm's stats_sample hands them to K2."""
     from cnsn_tpu_torch.ops import (bn_sums_bwd_cuda, bn_sums_bwd_reference,
                                     bn_sums_cuda, bn_sums_reference)
     from cnsn_tpu_torch.ops.kernels.bn_stats import (bn_bwd_plan_of,
@@ -2897,6 +3386,8 @@ def _k2_rows(shape, dtype, sites, flush, gen, **tag):
     dev, c = gen.device, shape[-1]
     x = (torch.randn(shape, generator=gen, device=dev) * 1.5
          + 0.5).to(dtype)
+    if lead is not None:
+        x = x[:lead]
     m0 = torch.randn(c, generator=gen, device=dev) * 0.3
     elems, size = x.numel(), x.element_size()
     s1, s2 = bn_sums_cuda(x, m0)
@@ -3674,7 +4165,7 @@ def main():
                      dev, flush)
     del flush
     torch.cuda.empty_cache()
-    with conv3x3_mode("conv"):
+    with env_vars(CNSN_CONV3X3="conv"):
         timed("train_card_vs_cpu", phase_train_card_vs_cpu, dev)
         timed("train_card_vs_cpu_seeds", phase_train_card_vs_cpu_seeds, dev)
         train_counts, n_cn, flagship_ms = timed("train", phase_train, dev)
@@ -3682,16 +4173,16 @@ def main():
                         flagship_ms, k4_rows)
     timed("wrn_k4_vs_cudnn", phase_wrn_k4_vs_cudnn, dev)
     wrn_counts = timed("train_wrn", phase_train_wrn, dev)
-    with conv3x3_mode("conv"):
+    with env_vars(CNSN_CONV3X3="conv"):
         timed("cn_card_vs_cpu", phase_cn_card_vs_cpu, dev)
     cn_counts, cn_ms = timed("train_wrn_cn", phase_train_wrn_cn, dev)
     trainer_counts = timed("trainer_wrn", phase_trainer_wrn, dev,
                            cn_ms["cnsn.yaml"], cn_counts["cnsn.yaml"])
     cifar = timed("train_cifar_models", phase_train_cifar_models, dev)
-    with conv3x3_mode("conv"):
+    with env_vars(CNSN_CONV3X3="conv"):
         timed("consist_card_vs_cpu", phase_consist_card_vs_cpu, dev)
     timed("trainer_cifar", phase_trainer_cifar, dev)
-    with conv3x3_mode("conv"):
+    with env_vars(CNSN_CONV3X3="conv"):
         cn_counts["resnet50/cn.yaml"] = timed(
             "train_resnet_cn_both", phase_train_resnet_cn_both, dev)
         r50_consist = timed("train_resnet_consist",
@@ -3705,11 +4196,22 @@ def main():
             "trainer_imagenet", phase_trainer_imagenet, dev, data_dir,
             corrupt_dir, flagship_ms,
             next(iter(loaders.values()))["ms_per_batch_mean"])
-        ibn_counts_, _ = timed("train_resnet_ibn_augmix",
-                               phase_train_resnet_ibn_augmix, dev, data_dir)
-    cifar_augmix = timed("train_cifar_augmix", phase_train_cifar_augmix, dev)
-    with conv3x3_mode("conv"):
+        ibn_counts_, _, ibn_step_ms = timed(
+            "train_resnet_ibn_augmix", phase_train_resnet_ibn_augmix, dev,
+            data_dir)
+        cifar_augmix, cifar_augmix_ms = timed(
+            "train_cifar_augmix", phase_train_cifar_augmix, dev)
+        # on-device AugMix and the normalisation options
+        timed("augmix_device_vs_cpu", phase_augmix_device_vs_cpu, dev,
+              loaders[f"train_augmix_b{IBN_BATCH}_procs{os.cpu_count() - 1}"][
+                  "ms_per_batch_mean_after_first"])
+        ondevice = timed("train_ondevice_augmix",
+                         phase_train_ondevice_augmix, dev, data_dir,
+                         cifar_augmix_ms["wideresnet"], ibn_step_ms)
+    with env_vars(CNSN_CONV3X3="conv"):
         timed("augmix_card_vs_cpu", phase_augmix_card_vs_cpu, dev)
+    bn_options = timed("bn_options_card_vs_cpu",
+                       phase_bn_options_card_vs_cpu, dev)
     # this slice: GTAV -> Cityscapes segmentation, FCN-ResNet50 (+ CNSN)
     seg_counts = timed("train_seg", phase_train_seg, dev)
     seg_eval = timed("seg_eval", phase_seg_eval, dev)
@@ -3717,7 +4219,7 @@ def main():
     psp_counts = timed("train_psp", phase_train_psp, dev)
     psa_counts = timed("train_psa", phase_train_psa, dev)
     psp_export = timed("seg_export", phase_seg_export, dev)
-    with conv3x3_mode("conv"):
+    with env_vars(CNSN_CONV3X3="conv"):
         timed("seg_card_vs_cpu", phase_seg_card_vs_cpu, dev)
     timed("seg_cli", phase_seg_cli, dev)
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
@@ -3977,6 +4479,42 @@ def main():
                                      "library_ms", "max_abs_err")}
             for r in psp_rows if r["kernel"] == k["name"]]
         k["seg_psp"] = psp
+    # each kernel's launches in the first measured step of each kind of
+    # the on-device AugMix Trainers (every step held to the host AugMix
+    # path's counts in train_ondevice_augmix) and in their timed epochs
+    # (read from the counters, equal to the steps' sum); per WRN-40-2
+    # sn.yaml step under each BatchNorm option (none for CNSN_BN_VAR=two
+    # and CNSN_BN_GROUPS=2, plain torch in both packages); K2 at the
+    # stats_sample slices: its rows by their sites, per step
+    for k in [k3, k3_v1] + kernels:
+        name = k["name"]
+        k["ondevice_augmix"] = {
+            part: {"per_step": {
+                kind: c.get(name, 0) for kind, c in
+                ondevice[part]["ondevice"]["first_per_step"].items()},
+                   "epoch": ondevice[part]["ondevice"]["launches"].get(
+                       name, 0),
+                   "steps": ondevice[part]["ondevice"]["steps"]}
+            for part in ("cifar", "ibn")}
+        k["ondevice_augmix"]["ibn_cli_train"] = ondevice["ibn"]["cli"].get(
+            name, 0)
+        k["ondevice_augmix"]["per"] = (
+            "cifar: WRN-40-2 cnsn-augmix.yaml b=128 bf16, pallas; ibn: "
+            f"ResNet-50-IBN-b cnsn-augmix.yaml b={IBN_BATCH} bf16 (Trainer "
+            "epochs of train_ondevice_augmix)")
+        k["bn_options"] = {variant: c.get(name, 0) for variant, c in
+                           bn_options["wrn_sn"].items()}
+        part = [r for r in bn_options["k2_rows"] if r["kernel"] == name]
+        if part:
+            k["stats_sample"] = {
+                **{key: sum(r[key] * r["sites"] for r in part)
+                   for key in ("kernel_ms", "plain_ms", "bound_ms")},
+                "library_ms": (None if part[0]["library_ms"] is None else
+                               sum(r["library_ms"] * r["sites"]
+                                   for r in part)),
+                "max_abs_err": max(r["max_abs_err"] for r in part),
+                "per": f"WRN-40-2 sn.yaml training step, b=128 bf16, "
+                       f"stats_sample={BN_SAMPLE}: K2 on the leading rows"}
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
     # compact: the line carries every kernel's paths and stays one line

@@ -4,7 +4,8 @@ and augments them with PIL: port of ``cnsn_tpu/data/imagenet.py``.
 The reference's torchvision ImageFolder (imagenet.py:482-505 train and
 val; :426-450 an ImageNet-C folder per corruption and severity), with a
 scanner of its own and a pool of threads (or, for host AugMix, of
-processes) that decode and augment each batch into NHWC float32.  The
+processes) that decode and augment each batch into NHWC float32 (or
+uint8, the geometry alone, for on-device AugMix).  The
 batches are the JAX loader's bit for bit on its PIL path (same seeds,
 same draws in the same order).  The JAX loader's native C++ decoder
 (``data/native.py``, linked against libjpeg) has no counterpart: PIL's
@@ -30,7 +31,7 @@ __all__ = ["ImageFolderData", "scan_image_folder", "ImageNetLoader",
            "imagenet_c_dir"]
 
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
-_MODES = ("train", "train_augmix", "eval")
+_MODES = ("train", "train_augmix", "train_geom", "eval")
 
 
 @dataclass
@@ -65,39 +66,50 @@ def _decode(path: str) -> Image.Image:
         return im.convert("RGB")
 
 
-def _augmix_item(item, image_size, aug_kw):
-    """One image's three views from (path, seed): decode, the
-    RandomResizedCrop and flip geometry, then (clean, AugMix, AugMix)
-    (imagenet.py:487-499).  At module level, so that the threads and the
-    worker processes run the same function (equal bits per seed)."""
-    path, seed = item
-    rng = np.random.RandomState(seed)
+def _train_geometry(rng, path: str, image_size: int) -> np.ndarray:
+    """Decode, RandomResizedCrop, then a flip at ``rng.rand() < 0.5``:
+    the training geometry of every train mode, uint8 (S, S, 3)."""
     img = random_resized_crop(rng, _decode(path), image_size)
     arr = np.asarray(img, np.uint8)
     if rng.rand() < 0.5:
         arr = np.ascontiguousarray(arr[:, ::-1])
+    return arr
+
+
+def _augmix_item(item, image_size, aug_kw):
+    """One image's three views from (path, seed): the training geometry,
+    then (clean, AugMix, AugMix) (imagenet.py:487-499).  At module level,
+    so that the threads and the worker processes run the same function
+    (equal bits per seed)."""
+    path, seed = item
+    rng = np.random.RandomState(seed)
+    arr = _train_geometry(rng, path, image_size)
     return (imagenet_normalize(arr),
             augmix(rng, arr, imagenet_normalize, image_size, **aug_kw),
             augmix(rng, arr, imagenet_normalize, image_size, **aug_kw))
 
 
 class ImageNetLoader:
-    """Batches of an image folder: NHWC float32 images and int32 labels.
+    """Batches of an image folder: NHWC images (float32; uint8 in
+    'train_geom') and int32 labels.
 
     mode:
       'train'        — RandomResizedCrop + flip + normalize (B, S, S, 3)
       'train_augmix' — the same geometry, then the views (clean, AugMix,
                        AugMix) at severity ``aug_severity``: (3, B, S, S, 3)
+      'train_geom'   — the same geometry only, uint8 (B, S, S, 3): the
+                       input of on-device AugMix (``augmix_device.py``)
       'eval'         — resize 256 + centre crop S + normalize, in order
 
     Each pass draws from ``RandomState(seed + epoch * 1009)``, the epoch
-    counting the passes made: a permutation, then in 'train' one
-    ``RandomState(rng.randint(2**31))`` per image, in 'train_augmix'
-    ``rng.randint(0, 2**31, B)`` per batch.  ``workers`` threads decode
-    and augment; ``mp_workers`` > 0 builds 'train_augmix' views in that
-    many worker processes instead (``PrefetchPool``: the PIL op chain
-    holds the GIL), one batch ahead, with the same bits.  The pool lives
-    until ``close()``, after which the threads build the views.
+    counting the passes made: a permutation, then in 'train' and
+    'train_geom' one ``RandomState(rng.randint(2**31))`` per image, in
+    'train_augmix' ``rng.randint(0, 2**31, B)`` per batch.  ``workers``
+    threads decode and augment; ``mp_workers`` > 0 builds 'train_augmix'
+    views in that many worker processes instead (``PrefetchPool``: the
+    PIL op chain holds the GIL), one batch ahead, with the same bits.  The
+    pool lives until ``close()``, after which the threads build the
+    views.
     """
 
     def __init__(self, data: ImageFolderData, batch_size: int,
@@ -106,11 +118,6 @@ class ImageNetLoader:
                  mixture_width: int = 3, mixture_depth: int = -1,
                  all_ops: bool = False, drop_last: Optional[bool] = None,
                  mp_workers: int = 0):
-        if mode == "train_geom":
-            raise NotImplementedError(
-                "ImageNetLoader mode 'train_geom' (the input of on-device "
-                "AugMix) is not yet ported to cnsn_tpu_torch (ROADMAP "
-                "queue 1, on-device AugMix)")
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}: one of {_MODES}")
         self.data = data
@@ -144,11 +151,10 @@ class ImageNetLoader:
         self.close()
 
     def _one_train(self, rng, path):
-        img = random_resized_crop(rng, _decode(path), self.image_size)
-        arr = np.asarray(img, np.uint8)
-        if rng.rand() < 0.5:
-            arr = arr[:, ::-1]
-        return imagenet_normalize(arr)
+        return imagenet_normalize(self._one_train_geom(rng, path))
+
+    def _one_train_geom(self, rng, path):
+        return _train_geometry(rng, path, self.image_size)
 
     def _one_eval(self, _rng, path):
         img = center_crop_resize(_decode(path), 256, self.image_size)
@@ -191,7 +197,8 @@ class ImageNetLoader:
         if self.mode == "train_augmix":
             yield from self._augmix_batches(rng, idx, stop)
             return
-        fn = self._one_train if self.mode == "train" else self._one_eval
+        fn = {"train": self._one_train, "train_geom": self._one_train_geom,
+              "eval": self._one_eval}[self.mode]
         with ThreadPoolExecutor(self.workers) as pool:
             for s in range(0, stop, b):
                 sel = idx[s:s + b]
@@ -199,4 +206,6 @@ class ImageNetLoader:
                 rngs = [np.random.RandomState(rng.randint(2**31))
                         for _ in sel]
                 batch = np.stack(list(pool.map(fn, rngs, paths)))
-                yield batch.astype(np.float32), self._labels(sel)
+                if self.mode != "train_geom":  # which stays uint8
+                    batch = batch.astype(np.float32)
+                yield batch, self._labels(sel)

@@ -97,27 +97,40 @@ class SelfNorm(nn.Module):
     126-149``): the statistics are cast to x's type, the FC and BN1d run
     in fp32, g is cast to x's type and x·g is taken in x's type.  Eval
     (K3, the Pallas kernel's rounding): x·g in fp32, cast once.
+
+    ``is_two`` adds the mean-recalibration branch (``:143-148``; no model
+    of the reference turns it on): a second pair-FC ``f_fc`` and BN1d
+    ``f_bn`` give f as the first give g, and out = x·g + mean·(f − g), in
+    x's type.  Its statistics come from K1 in train and eval alike, and
+    eval runs the train formula on the running statistics: K3 computes no
+    f, and JAX keeps ``is_two`` off its fused path (``:117``).
     """
 
     def __init__(self, features: int, is_two: bool = False,
                  eps: float = 1e-12,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if is_two:
-            raise NotImplementedError("SelfNorm is_two=True (the mean "
-                                      "recalibration branch) is not ported")
+        generator = generator or torch.Generator()
         self.features = features
+        self.is_two = is_two
         self.eps = eps
-        self.g_fc = _PairFC(features, generator or torch.Generator())
+        self.g_fc = _PairFC(features, generator)
         self.g_bn = BatchNorm1dStats(features)
+        if is_two:
+            self.f_fc = _PairFC(features, generator)
+            self.f_bn = BatchNorm1dStats(features)
 
     def forward(self, x: torch.Tensor, stats=None,
                 gate_only: bool = False) -> torch.Tensor:
         """``stats``: precomputed (mean, std), each (N, C), which the fused
         CNSN path knows analytically; ``gate_only`` returns the gate g,
         (N, C, 1, 1) in x's type, instead of x·g."""
+        if gate_only and self.is_two:
+            raise ValueError("SelfNorm gate_only has no is_two branch "
+                             "(cnsn_tpu/nn/cnsn.py:140)")
         w = self.g_fc.weight.reshape(self.features, 2)
-        if not self.training and stats is None and not gate_only:
+        if (not self.training and stats is None and not gate_only
+                and not self.is_two):
             a, b = self.g_bn.folded_affine()
             return _nchw(selfnorm_infer(_nhwc(x), w, a, b, self.eps))
         n, c = x.shape[0], self.features
@@ -125,9 +138,20 @@ class SelfNorm(nn.Module):
             mean, std = instance_mean_std(_nhwc(x), eps=self.eps)
             stats = (mean.reshape(n, c), std.reshape(n, c))
         sdt = torch.promote_types(x.dtype, torch.float32)
-        y = stats[0].to(sdt) * w[:, 0] + stats[1].to(sdt) * w[:, 1]
-        g = torch.sigmoid(self.g_bn(y)).to(x.dtype).reshape(n, c, 1, 1)
-        return g if gate_only else x * g
+        m, s = stats[0].to(sdt), stats[1].to(sdt)
+
+        def gate(fc, bn):
+            w = fc.weight.reshape(c, 2)
+            y = m * w[:, 0] + s * w[:, 1]
+            return torch.sigmoid(bn(y)).to(x.dtype).reshape(n, c, 1, 1)
+
+        g = gate(self.g_fc, self.g_bn)
+        if gate_only:
+            return g
+        if not self.is_two:
+            return x * g
+        f = gate(self.f_fc, self.f_bn)
+        return x * g + stats[0].to(x.dtype).reshape(n, c, 1, 1) * (f - g)
 
 
 class CNSN(nn.Module):

@@ -10,6 +10,9 @@ unbiased variance), where JAX returns them as a new ``batch_stats`` tree.
 """
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -60,25 +63,42 @@ class _NormStats(nn.Module):
 
 
 class BatchNorm(_NormStats):
-    """torch.nn.BatchNorm2d over an NCHW (channels_last) tensor.
+    """torch.nn.BatchNorm2d over an NCHW (channels_last) tensor, with the
+    JAX package's options (``cnsn_tpu/nn/norm.py:40-195``).
 
-    Train: the shifted one-pass statistics of ``cnsn_tpu/nn/norm.py:
-    141-164`` through K2 (``BnSums``): with m0 the running mean,
-    s1 = Σ(x−m0), s2 = Σ(x−m0)² over (N, H, W), mean = m0 + s1/n and
-    var = max(s2/n − (s1/n)², 0).  Eval: the running statistics.  Either
-    way the output is computed in fp32 and cast to x's type (``:190-195``).
+    Train, ``var_impl`` 'shifted' (the default): the shifted one-pass
+    statistics of ``:141-164`` through K2 (``BnSums``): with m0 the running
+    mean, s1 = Σ(x−m0), s2 = Σ(x−m0)² over (N, H, W), mean = m0 + s1/n and
+    var = max(s2/n − (s1/n)², 0).  'two' is the centred two-pass variance
+    and 'one' the naive E[x²] − E[x]², both in plain torch, as in JAX.
+    ``stats_sample`` = s (0 < s < N) takes the statistics of the leading s
+    rows only, n = s·H·W, and normalizes every row with them (ghost BN);
+    in channels_last those rows are one contiguous block, which K2 reads
+    as it is.  ``groups`` = g > 1 with N divisible by g normalizes each
+    contiguous block of N/g rows with its own two-pass statistics (the
+    per-replica BN of data parallelism; ``var_impl`` and ``stats_sample``
+    do not apply), the running statistics following group 0 with its
+    count in the unbiased correction; where g does not divide N the
+    whole batch is taken as one.  Eval: the running statistics.  Either
+    way the output is computed in at least fp32 and cast to x's type
+    (``:181-195``).
 
-    ``groups`` > 1 (per-replica statistics), ``stats_sample`` (ghost-BN
-    subsampling) and a ``var_impl`` other than 'shifted' are JAX options
-    off the single-card flagship path; they are not ported and raise in
-    training.
+    The defaults come from the environment: ``groups`` from
+    ``CNSN_BN_GROUPS`` and ``stats_sample`` from ``CNSN_BN_SAMPLE`` when
+    the layer is built (JAX reads them when ``norm.py`` is imported),
+    ``var_impl`` from ``CNSN_BN_VAR`` at each training forward (JAX, at
+    trace time).
     """
 
-    def __init__(self, features: int, eps: float = 1e-5, groups: int = 1,
-                 stats_sample: int = 0, var_impl: str = "shifted"):
+    def __init__(self, features: int, eps: float = 1e-5,
+                 groups: Optional[int] = None,
+                 stats_sample: Optional[int] = None,
+                 var_impl: Optional[str] = None):
         super().__init__(features, eps)
-        self.groups = groups
-        self.stats_sample = stats_sample
+        self.groups = (int(os.environ.get("CNSN_BN_GROUPS", "1"))
+                       if groups is None else groups)
+        self.stats_sample = (int(os.environ.get("CNSN_BN_SAMPLE", "0"))
+                             if stats_sample is None else stats_sample)
         self.var_impl = var_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,24 +107,57 @@ class BatchNorm(_NormStats):
             # in fp32 and writes bf16, in one pass, keeping the layout
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        if self.groups != 1 or self.stats_sample or self.var_impl != "shifted":
-            raise NotImplementedError(
-                "BatchNorm groups > 1, stats_sample and var_impl other than "
-                "'shifted' are not ported yet (ROADMAP queue 1: BN groups "
-                "and stats_sample)")
-        n = x.numel() // self.features
-        # the shift: a copy, since the running mean is updated in place
-        # below while the backward still needs the value used here
-        m0 = self.running_mean.clone()
-        s1, s2 = BnSums.apply(x.permute(0, 2, 3, 1), m0)
-        mean_d = s1 / n
-        var = torch.clamp(s2 / n - mean_d.square(), min=0.0)
-        mean = m0 + mean_d
+        g = self.groups
+        if g > 1 and x.shape[0] % g == 0:
+            return self._grouped(x, g)
+        s = self.stats_sample
+        xs = x[:s] if 0 < s < x.shape[0] else x
+        n = xs.numel() // self.features
+        var_impl = self.var_impl or os.environ.get("CNSN_BN_VAR", "shifted")
+        if var_impl == "shifted":
+            # the shift: a copy, since the running mean is updated in place
+            # below while the backward still needs the value used here
+            m0 = self.running_mean.clone()
+            s1, s2 = BnSums.apply(xs.permute(0, 2, 3, 1), m0)
+            mean_d = s1 / n
+            var = torch.clamp(s2 / n - mean_d.square(), min=0.0)
+            mean = m0 + mean_d
+        elif var_impl in ("two", "one"):
+            xf = xs.to(_stat_dtype(x))
+            mean = xf.mean(dim=(0, 2, 3))
+            if var_impl == "two":
+                var = (xf - mean.reshape(1, -1, 1, 1)).square().mean(
+                    dim=(0, 2, 3))
+            else:
+                var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        else:
+            raise ValueError(f"BatchNorm var_impl {var_impl!r}: one of "
+                             "'shifted', 'two', 'one'")
         self._update_running(mean, var, n)
         shape = (1, self.features, 1, 1)
         inv = torch.rsqrt(var + self.eps) * self.weight
         out = ((x.to(_stat_dtype(x)) - mean.reshape(shape))
                * inv.reshape(shape) + self.bias.reshape(shape))
+        return out.to(x.dtype)
+
+    def _grouped(self, x: torch.Tensor, g: int) -> torch.Tensor:
+        """Per-group two-pass statistics (``cnsn_tpu/nn/norm.py:122-129,
+        181-188``), plain torch; each row normalized by its group's."""
+        xf = x.to(_stat_dtype(x))
+        rows = x.shape[0] // g
+        xg = xf.reshape((g, rows) + x.shape[1:])
+        mean = xg.mean(dim=(1, 3, 4))                            # (g, C)
+        var = (xg - mean[:, None, :, None, None]).square().mean(
+            dim=(1, 3, 4))
+        self._update_running(mean[0], var[0],
+                             rows * x.shape[2] * x.shape[3])
+        inv = torch.rsqrt(var + self.eps) * self.weight
+
+        def per_row(t):  # (g, C) → (N, C, 1, 1), each group's rows
+            return t.repeat_interleave(rows, dim=0)[:, :, None, None]
+
+        out = ((xf - per_row(mean)) * per_row(inv)
+               + self.bias.reshape(1, -1, 1, 1))
         return out.to(x.dtype)
 
 

@@ -324,7 +324,8 @@ class RandomGaussianBlur:
         if radius != 5:
             raise NotImplementedError(
                 "RandomGaussianBlur takes OpenCV's fixed 5-tap table; "
-                f"radius {radius} (a sigma-derived kernel) is not ported")
+                f"radius {radius} (a sigma-derived kernel) is not yet "
+                "ported (ROADMAP queue 1, RandomGaussianBlur radius)")
         self.radius = radius
         self.p = p
 

@@ -3,8 +3,10 @@ CIFAR and ImageNet (reference mains: cifar.py:315-511,
 imagenet.py:453-650).
 
 A per-epoch loop over the host loader (CIFAR arrays, or an ImageNet image
-folder; host AugMix for the AugMix regimes), its batches staged onto the
-card ahead of the step (``utils/prefetch.py``); the stochastic CN gate
+folder; host AugMix for the AugMix regimes, or with ``ondevice_augmix``
+the uint8 geometry batch, whose views ``data/augmix_device.py`` builds on
+the card), its batches staged onto the card ahead of the step
+(``utils/prefetch.py``); the stochastic CN gate
 (``RandomState(seed).rand() < cn_prob``, cifar.py:127-128) picks the step
 function per batch; the evaluation (CIFAR-C, or ImageNet-C and its mCE),
 ``log.txt`` and checkpoints mirror the JAX package's layout.  It runs on
@@ -22,8 +24,10 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
+from ..data.augmix_device import apply_augmix, draw_augmix
 from ..data.cifar import CifarLoader, load_cifar
 from ..data.imagenet import ImageNetLoader, imagenet_c_dir, scan_image_folder
+from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..evaluation.classify import (CORRUPTIONS, compute_mce, evaluate,
                                    evaluate_cifar_c)
 from ..models import build_model
@@ -46,8 +50,6 @@ NOT_PORTED = (
     (lambda c: c.fsdp, "fsdp", _PARALLEL),
     (lambda c: (c.num_devices or 1) > 1, "num_devices > 1", _PARALLEL),
     (lambda c: c.remat, "remat", _PARALLEL),
-    (lambda c: c.ondevice_augmix, "ondevice_augmix",
-     "ROADMAP queue 1, on-device AugMix"),
 )
 
 # regime → (the StepFns method the gate picks, the one it picks
@@ -75,6 +77,11 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.dataset == "imagenet" and cfg.no_jsd:
         raise ValueError("no_jsd is a CIFAR AugMix knob "
                          "(reference utils.py:100-113)")
+    if "augmix" in cfg.regime and cfg.no_jsd and cfg.ondevice_augmix:
+        raise ValueError(
+            "no_jsd uses the host single-view AugMix path "
+            "(data/cifar.py train_augmix_nojsd); it does not "
+            "compose with ondevice_augmix")
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
@@ -115,14 +122,18 @@ class Trainer:
 
         self.image_size = cfg.resolved_image_size
         augmix = "augmix" in cfg.regime
+        # on-device AugMix: the loaders hand over the uint8 geometry batch
+        self.ondevice = augmix and cfg.ondevice_augmix
         aug_kw = dict(aug_severity=cfg.aug_severity,
                       mixture_width=cfg.mixture_width,
                       mixture_depth=cfg.mixture_depth, all_ops=cfg.all_ops)
         if cfg.dataset == "imagenet":
+            mode = "train"
+            if augmix:
+                mode = "train_geom" if self.ondevice else "train_augmix"
             self.train_loader = ImageNetLoader(
                 scan_image_folder(os.path.join(cfg.data_dir, "train")),
-                cfg.batch_size, mode="train_augmix" if augmix else "train",
-                seed=cfg.seed, workers=cfg.workers,
+                cfg.batch_size, mode=mode, seed=cfg.seed, workers=cfg.workers,
                 image_size=self.image_size, mp_workers=cfg.augmix_workers,
                 **aug_kw)
             self.test_loader = ImageNetLoader(
@@ -131,7 +142,9 @@ class Trainer:
                 image_size=self.image_size)
         else:
             mode = "train"
-            if augmix:
+            if self.ondevice:
+                mode = "train_geom"
+            elif augmix:
                 mode = "train_augmix_nojsd" if cfg.no_jsd else "train_augmix"
             self.train_data = load_cifar(cfg.data_dir, cfg.dataset, True,
                                          synthetic=cfg.synthetic_data)
@@ -190,6 +203,15 @@ class Trainer:
         # JAX package folds the step index into key(seed + 7919): the same
         # distributions, other numbers
         self._draws = torch.Generator().manual_seed(cfg.seed + 7919)
+        # on-device AugMix's draws on the host (JAX splits them off each
+        # step's key); the statistics follow the dataset (CIFAR 0.5/0.5,
+        # cifar.py:330; ImageNet's, imagenet.py:473-475).  The chain has
+        # the nine default ops: all_ops does not reach it, as in JAX.
+        self._augmix_gen = torch.Generator().manual_seed(cfg.seed + 104729)
+        self._augmix_norm = (
+            dict(mean=tuple(map(float, IMAGENET_MEAN)),
+                 std=tuple(map(float, IMAGENET_STD)))
+            if cfg.dataset == "imagenet" else {})
         # seconds the step loop waited for each staged batch, last epoch
         self.data_wait = AverageMeter()
 
@@ -210,6 +232,19 @@ class Trainer:
 
     # ---- one epoch -------------------------------------------------------
 
+    def augmix_draws(self, n: int) -> dict:
+        """``draw_augmix``'s draws for a batch of ``n`` images, from the
+        Trainer's own generator."""
+        cfg = self.cfg
+        return draw_augmix(self._augmix_gen, n, float(cfg.aug_severity),
+                           cfg.mixture_width, cfg.mixture_depth)
+
+    def augmix_views(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """The (3, B, H, W, 3) views of a staged uint8 batch, built on its
+        device (``cnsn_tpu/train/trainer.py:234-257``)."""
+        return apply_augmix(images_u8, self.augmix_draws(len(images_u8)),
+                            **self._augmix_norm)
+
     def train_epoch(self) -> float:
         cfg = self.cfg
         losses = AverageMeter()
@@ -220,6 +255,8 @@ class Trainer:
         staged = device_prefetch(self.train_loader, batch_put(self.device),
                                  depth=cfg.prefetch_depth)
         for i, (im, lb) in enumerate(_timed(staged, self.data_wait)):
+            if self.ondevice:
+                im = self.augmix_views(im)
             gate = (cfg.cn_prob is not None
                     and float(self._rng.rand(1)[0]) < cfg.cn_prob)
             if gate and self._gated is not None:

@@ -22,7 +22,8 @@ layouts, which the port's modules load with ``load_state_dict``:
   dense kernel (in, out)       → weight (out, in)
   norm  scale / bias           → weight / bias
   stats mean / var             → running_mean / running_var
-  SelfNorm g_fc (C, 2)         → g_fc.weight (C, 1, 2)
+  SelfNorm g_fc (C, 2)         → g_fc.weight (C, 1, 2)  (and is_two's
+           f_fc (C, 2)         → f_fc.weight; f_bn as any norm)
 """
 from __future__ import annotations
 
@@ -122,8 +123,8 @@ def state_dict_from_jax(params: Mapping[str, Any],
             key = _join(mod, "weight")
         elif leaf == "bias":
             key = _join(mod, "bias")
-        elif leaf == "g_fc":
-            key, v = _join(_join(mod, "g_fc"), "weight"), v[:, None, :]
+        elif leaf in ("g_fc", "f_fc"):
+            key, v = _join(_join(mod, leaf), "weight"), v[:, None, :]
         else:
             raise KeyError(f"no torch name for param "
                            f"{'/'.join(path + (leaf,))}")

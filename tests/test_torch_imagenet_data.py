@@ -147,12 +147,6 @@ def test_imagenet_loader_matches_jax(folder, mode, batch):
     assert labels.dtype == np.int32
 
 
-def test_imagenet_loader_refuses_train_geom(folder):
-    with pytest.raises(NotImplementedError, match="on-device AugMix"):
-        imagenet.ImageNetLoader(imagenet.scan_image_folder(folder), 2,
-                                mode="train_geom")
-
-
 @pytest.mark.parametrize("mode", ["train_augmix", "train_augmix_nojsd"])
 def test_cifar_augmix_loader_matches_jax(mode):
     """Two epochs of the CIFAR AugMix modes, serially, at the recipes'

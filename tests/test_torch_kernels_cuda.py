@@ -6,6 +6,8 @@ it runs with the JAX-pinning conftest left out:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1739,3 +1741,137 @@ def test_selfnorm_at_the_seg_shapes(shape, dtype):
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == shape
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# ---- BatchNorm's stats_sample: K2 on the leading rows ----------------------
+
+# (batch, H, C) of WRN-40-2's BatchNorm inputs at b=128, and the sample
+BN_SLICES = [(128, 32, 16), (128, 16, 64), (128, 8, 128), (64, 56, 64)]
+
+
+@pytest.mark.parametrize("n,h,c", BN_SLICES)
+@pytest.mark.parametrize("sample", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_on_leading_rows_matches_plain(n, h, c, sample, dtype):
+    """The leading rows of an NHWC batch are one contiguous block at the
+    batch's address: K2 forward and backward read it as it is, at the
+    bounds of the whole-batch tests."""
+    full = _big((n, h, h, c), 41, dtype)
+    x = full[:sample]
+    assert x.is_contiguous() and x.data_ptr() == full.data_ptr()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    m0 = torch.randn(c, generator=gen, device="cuda") * 0.3
+    s1, s2 = bn_sums_cuda(x, m0)
+    w1, w2 = bn_sums_reference(x, m0)
+    torch.cuda.synchronize()
+    d_abs = (x.float() - m0).abs().sum(dim=(0, 1, 2))
+    assert bool(((s1 - w1).abs() <= 1e-5 * d_abs).all())
+    assert bool(((s2 - w2).abs() <= 1e-5 * w2).all())
+    g1 = torch.randn(c, generator=gen, device="cuda")
+    g2 = torch.randn(c, generator=gen, device="cuda") * 1e-3
+    got = bn_sums_bwd_cuda(x, m0, g1, g2)
+    _close_to_scale(got, bn_sums_bwd_reference(x, m0, g1, g2),
+                    1e-6 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_stats_sample_launches_k2_on_the_slice(dtype):
+    """A training forward at stats_sample 32 launches K2 once each way and
+    agrees with the same layer on the CPU; groups 2 and var_impl 'two'
+    launch none."""
+    from cnsn_tpu_torch.nn import BatchNorm
+    x = _big((128, 64, 16, 16), 43, torch.float32).contiguous(
+        memory_format=torch.channels_last)
+    r = _big((128, 64, 16, 16), 44, torch.float32)
+    for kw, k2 in ((dict(stats_sample=32), 1), (dict(groups=2), 0),
+                   (dict(var_impl="two"), 0)):
+        outs, grads = [], []
+        for dev in ("cuda", "cpu"):
+            bn = BatchNorm(64, **kw).to(dev).train()
+            bn.running_mean.fill_(0.3)
+            xd = x.to(device=dev, dtype=dtype, copy=True).requires_grad_(True)
+            before = dict(LAUNCHES)
+            out = bn(xd)
+            (out.float() * r.to(dev)).sum().backward()
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                for key in ("bn_sums", "bn_sums_bwd"):
+                    assert LAUNCHES[key] - before.get(key, 0) == k2, kw
+            outs.append(out.detach().float().cpu())
+            grads.append(xd.grad.float().cpu())
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        _close_to_scale(outs[0], outs[1], tol)
+        _close_to_scale(grads[0], grads[1], tol)
+
+
+# ---- on-device AugMix -----------------------------------------------------
+
+def _augmix_inputs(b, hw, seed):
+    from cnsn_tpu_torch.data.augmix_device import draw_augmix
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (b, hw, hw, 3), generator=gen,
+                           dtype=torch.uint8)
+    return images, draw_augmix(gen, b, 3.0 if hw == 32 else 1.0)
+
+
+@pytest.mark.parametrize("b,hw,norm", [
+    (16, 32, dict()),
+    (4, 96, dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)))])
+def test_augmix_chain_on_card_matches_cpu(b, hw, norm):
+    """The same images and draws on the card and on the CPU: within 1e-3
+    on the pixel scale, but for pixels a rounding moved across a later
+    op's step (at most 0.1%)."""
+    from cnsn_tpu_torch.data.augmix_device import apply_augmix
+    images, params = _augmix_inputs(b, hw, 45)
+    got = apply_augmix(images.cuda(), params, **norm)
+    want = apply_augmix(images, params, **norm)
+    assert got.device.type == "cuda" and got.shape == (3, b, hw, hw, 3)
+    std = torch.tensor(norm.get("std", (0.5, 0.5, 0.5))) * 255
+    diff = (got.cpu() - want).abs() * std
+    assert int((diff > 1e-3).sum()) <= 1e-3 * diff.numel()
+
+
+def test_augmix_chain_makes_no_host_sync():
+    """Under sync debug mode 'error' the chain runs through: its draws and
+    grouping stay on the host, and what the card needs of them goes over
+    in non-blocking copies."""
+    from cnsn_tpu_torch.data.augmix_device import apply_augmix
+    images, params = _augmix_inputs(32, 32, 46)
+    images = images.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = apply_augmix(images, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
+def test_selfnorm_is_two_on_card_matches_cpu():
+    """is_two in train (K1 each way) and eval (K1, no K3) against the CPU:
+    the outputs within 1e-5 of their scale, the input gradient within
+    1e-4 (it goes through both BN1d's statistics over 16 samples; the
+    CPU's float32 gradient lies 5.9e-6 from float64's)."""
+    from cnsn_tpu_torch.nn import SelfNorm
+    x = _big((16, 64, 14, 14), 47, torch.float32).contiguous(
+        memory_format=torch.channels_last)
+    sn = SelfNorm(64, is_two=True,
+                  generator=torch.Generator().manual_seed(48))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(sn).to(dev)
+        xd = x.to(dev).detach().requires_grad_(True)
+        before = dict(LAUNCHES)
+        out = m.train()(xd)
+        out.square().sum().backward()
+        with torch.no_grad():
+            ev = m.eval()(x.to(dev))
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            got = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                   if v != before.get(k, 0)}
+            assert got == {"ins_stats": 2, "ins_stats_bwd": 1}, got
+        outs.append([t.detach().cpu() for t in (out, xd.grad, ev)])
+    for a, b, tol in zip(*outs, (1e-5, 1e-4, 1e-5)):
+        _close_to_scale(a, b, tol)

@@ -156,20 +156,3 @@ def test_inactive_crossnorm_is_identity(monkeypatch):
         tx, True, {"perm": torch.from_numpy(np.array(perms[0]))})
     assert got.is_contiguous(memory_format=torch.channels_last)
     np.testing.assert_allclose(_nhwc_np(got), np.asarray(want), **F32_TOL)
-
-
-@pytest.mark.parametrize("module", [BatchNorm(8, groups=2),
-                                    BatchNorm(8, stats_sample=1),
-                                    BatchNorm(8, var_impl="two")])
-def test_training_forward_raises(module):
-    """BN's JAX options off the single-card flagship path are not ported:
-    a training forward with one of them raises (eval is unaffected)."""
-    x = torch.ones(2, 8, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        module.train()(x)
-    assert module.eval()(x).shape == x.shape
-
-
-def test_selfnorm_is_two_raises():
-    with pytest.raises(NotImplementedError, match="is_two"):
-        SelfNorm(8, is_two=True)

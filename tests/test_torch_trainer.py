@@ -304,14 +304,11 @@ def test_resume_restores_weights_momentum_and_step(small, tmp_path):
 
 
 @pytest.mark.parametrize("recipe,over,match", [
-    (CNSN, dict(dataset="imagenet", ondevice_augmix=True), "ondevice_augmix"),
     (CNSN, dict(ckpt_backend="orbax"), "orbax"),
     (CNSN, dict(fsdp=True), "fsdp"),
     (CNSN, dict(num_devices=2), "num_devices"),
     (CNSN, dict(remat=True), "remat"),
-    (CNSN, dict(ondevice_augmix=True), "ondevice_augmix"),
     (CNSN, dict(dataset="imagenet", remat=True), "remat"),
-    ("cnsn-augmix.yaml", dict(ondevice_augmix=True), "ondevice_augmix"),
     ("cnsn-augmix.yaml", dict(fsdp=True), "fsdp"),
 ])
 def test_unported_knobs_raise_at_construction(recipe, over, match,
