@@ -98,6 +98,22 @@ BatchNorm2d layer, K1 once per SelfNorm site and image statistics):
     BatchNorm's groups, stats_sample and var_impl and SelfNorm's is_two,
     card vs CPU, K2 on the leading rows, K2's launches a WRN sn.yaml step
     under each ``CNSN_BN_*`` variable;
+  * rematerialised blocks (``remat``): a gated and a plain step of the
+    flagship (b=128) and of ResNet-50-IBN-b's cnsn-augmix.yaml (b=192)
+    with remat against the same steps without, from the same state and
+    draws (running statistics bit for bit, parameters within the spread
+    of two non-remat runs, K1/K2 launches a step: each block-internal
+    forward launch doubled), ms a step and peak memory on and off; IBN-b's
+    recipe at its own batch_size 256 with remat=true and
+    ondevice_augmix=true through ``cli train``; gtav_fcn50_cnsn.yaml at
+    b=16 713² with remat=true and remat=1_2;
+  * ``ckpt_backend=orbax``: ``cli train`` of WRN-40-2 cnsn.yaml in a
+    subprocess, SIGTERM after two steps (exit 143, nothing left running),
+    the flushed step restored and trained on, keep-2 after two epoch-end
+    saves; an async save of the flagship's state; a SegTrainer's save and
+    auto-restore at the recipe's shapes;
+  * the NaN guard (``utils/debug.py::checked``) on a WRN-40-2 step at
+    b=128: the clean step bit for bit, a NaN pixel named, its cost;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
     the full-width eval forward is held against the CPU's.
@@ -958,11 +974,11 @@ def env_vars(**values):
                 os.environ[k] = v
 
 
-def flagship(dev, recipe=RECIPE):
+def flagship(dev, recipe=RECIPE, remat=False):
     """The flagship recipe's (or another ImageNet recipe's: cn_image or
     cn_image_consist) train state and step, b=128 224² bf16, built as a
-    user builds it; ``step(cn)`` runs the recipe's gated step or a plain
-    step."""
+    user builds it (``remat``: every bottleneck rematerialised);
+    ``step(cn)`` runs the recipe's gated step or a plain step."""
     from cnsn_tpu_torch.config import load_config
     from cnsn_tpu_torch.models import build_model
     from cnsn_tpu_torch.train import (StepFns, create_train_state,
@@ -974,7 +990,8 @@ def flagship(dev, recipe=RECIPE):
     model = build_model(cfg.model, cfg.num_classes,
                         generator=torch.Generator().manual_seed(cfg.seed),
                         pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
-                        cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16)
+                        cnsn_type=cfg.cnsn_type, dtype=torch.bfloat16,
+                        remat=remat)
     state = create_train_state(
         model, imagenet_step_lr(cfg.lr, cfg.epochs, cfg.batch_size,
                                 STEPS_PER_EPOCH),
@@ -3643,6 +3660,7 @@ def phase_train_seg(dev):
     counts["run"] = run
     counts["steps"] = SEG_STEPS
     counts["alone_ms"] = alone
+    counts["peak_mem_gib"] = peak
 
     # the recipe under compute_dtype=bfloat16 at its batch: the steps alone
     del trainer
@@ -4101,6 +4119,642 @@ def phase_seg_export(dev):
     return out
 
 
+# ---- rematerialised blocks, step checkpoints, the NaN guard --------------
+
+REMAT_WARM, REMAT_TIMED = 2, 5  # steps per configuration in train_remat
+IBN_RECIPE_BATCH = 256  # resnet50_ibn_b/cnsn-augmix.yaml's own batch
+SEG_REMAT_SPECS = (True, "1_2")
+SEG_STAGE_BLOCKS = (3, 4, 6, 3)  # bottlenecks per stage of ResNet-50
+# a remat step's parameters against the non-remat step's: at most twice
+# the spread of two non-remat runs of the same step, or this share of the
+# largest update of the tensor (one bf16 rounding of a gradient)
+UPDATE_FLOOR = 2 ** -8
+PREEMPT_TIMEOUT = 300  # seconds the cli subprocess may take
+GUARD_STEPS = 3
+
+
+def remat_want(per_step, block_bn, block_sn):
+    """A step's launches with ``block_bn`` BatchNorm2d layers and
+    ``block_sn`` K1 forward calls inside rematerialised blocks: each of
+    those forward launches once more, the backward ones as often."""
+    out = dict(per_step)
+    out["bn_sums"] = out.get("bn_sums", 0) + block_bn
+    out["ins_stats"] = out.get("ins_stats", 0) + block_sn
+    return out
+
+
+def _rel_update_err(got, want, start):
+    """Per tensor max|got − want| over the largest |want − start| (the
+    step's update), the worst tensor's."""
+    worst = 0.0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        upd = float((w.double() - start[k].double()).abs().max())
+        if upd == 0.0:
+            continue
+        worst = max(worst, float((got[k].double() - w.double()).abs().max())
+                    / upd)
+    return worst
+
+
+def _remat_card_vs_card(dev, label, states, kinds, block_bn, block_sn,
+                        base_want):
+    """Each step of ``kinds`` ({kind: fn(state)}) from the same start
+    (weights, statistics, a fresh optimizer: ``states[remat]()``) on the
+    non-remat model twice and the remat model once: the running
+    statistics bit for bit, the parameters within the spread, every
+    step's K1/K2 launches against ``base_want`` (non-remat) and
+    ``remat_want``."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    out = {}
+    for kind, step in kinds.items():
+        runs = {}
+        for run, remat in (("a", False), ("b", False), ("remat", True)):
+            state = states[remat]()
+            start = {k: v.detach().clone()
+                     for k, v in state.model.state_dict().items()}
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            loss = float(step(state)["loss"])
+            torch.cuda.synchronize()
+            runs[run] = (dict(LAUNCHES), loss,
+                         {k: v.detach().clone()
+                          for k, v in state.model.state_dict().items()})
+            params = {n for n, _ in state.model.named_parameters()}
+        stats = [k for k in start if "running" in k]
+        pick = (lambda sd, keys: {k: sd[k] for k in keys})
+        spread = _rel_update_err(pick(runs["b"][2], params),
+                                 pick(runs["a"][2], params), start)
+        err = _rel_update_err(pick(runs["remat"][2], params),
+                              pick(runs["a"][2], params), start)
+        stats_equal = all(torch.equal(runs["remat"][2][k], runs["a"][2][k])
+                          for k in stats)
+        want = base_want[kind]
+        rwant = remat_want(want, block_bn, block_sn)
+        got = {r: {k: v for k, v in runs[r][0].items()
+                   if k in STATS_FAMILY} for r in runs}
+        out[kind] = {"launches": got["a"], "remat_launches": got["remat"],
+                     "expected": want, "remat_expected": rwant,
+                     "loss": {r: runs[r][1] for r in runs},
+                     "running_stats_bit_equal": stats_equal,
+                     "running_stats": len(stats),
+                     "param_err_vs_update": err,
+                     "param_spread_vs_update": spread}
+        check(got["a"] == want and got["b"] == want,
+              f"{label} {kind}: launches {got['a']}, expected {want}")
+        check(got["remat"] == rwant,
+              f"{label} {kind} remat: launches {got['remat']}, expected "
+              f"{rwant}")
+        check(stats_equal, f"{label} {kind}: running statistics differ "
+              "with remat")
+        check(err <= max(2 * spread, UPDATE_FLOOR),
+              f"{label} {kind}: remat parameters off by {err} of the "
+              f"update (two non-remat runs: {spread})")
+        check(math.isfinite(runs["remat"][1]), f"{label} {kind} loss")
+    return out
+
+
+def _time_plain(state, step):
+    """ms a step (REMAT_TIMED after REMAT_WARM, the host waiting for the
+    last) and the peak memory of those steps, GiB."""
+    for _ in range(REMAT_WARM):
+        step(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(REMAT_TIMED):
+        m = step(state)
+    float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3 / REMAT_TIMED
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_remat_card_vs_card(dev):
+    """``remat`` on the card against the same steps without it, from the
+    same state and draws: the flagship (resnet50/cnsn.yaml, b=128 224²
+    bf16) and ResNet-50-IBN-b (cnsn-augmix.yaml at b=IBN_BATCH), a
+    gated and a plain step each (``_remat_card_vs_card``); then each
+    model's ms a step and peak memory with remat off and on.  Returns
+    (launches per step by path, the flagship's ms a step, its state)."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.train import create_train_state, imagenet_step_lr
+    cfg, state0, steps, _, _, images, labels = flagship(dev)
+    _, state1, _, _, _, _, _ = flagship(dev, remat=True)
+    start = {k: v.detach().clone() for k, v in state0.model.state_dict().items()}
+
+    def fresh(state):
+        def make():
+            state.model.load_state_dict(start)
+            return create_train_state(
+                state.model, state.schedule, momentum=cfg.momentum,
+                weight_decay=cfg.weight_decay, nesterov=cfg.nesterov,
+                device=dev)
+        return make
+
+    def gated(state):
+        gen = torch.Generator(device=dev if cfg.crop == "neither"
+                              else "cpu").manual_seed(cfg.seed)
+        return getattr(steps, cfg.regime)(state, images, labels,
+                                          generator=gen)[1]
+
+    plain = {"bn_sums": BN_LAYERS, "bn_sums_bwd": BN_LAYERS,
+             "ins_stats": SN_SITES, "ins_stats_bwd": SN_SITES}
+    base = {"plain": plain, "cn_image": dict(plain, ins_stats=SN_SITES + 1)}
+    flag = _remat_card_vs_card(
+        dev, "flagship", {False: fresh(state0), True: fresh(state1)},
+        {"cn_image": gated,
+         "plain": lambda st: steps.plain(st, images, labels)[1]},
+        BN_LAYERS - 1, SN_SITES, base)
+    from cnsn_tpu_torch.utils.profiling import device_time_breakdown
+    timing, trained = {}, {}
+    for remat, st in ((False, state0), (True, state1)):
+        s = trained[remat] = fresh(st)()
+        ms, peak = _time_plain(s, lambda x: steps.plain(x, images, labels)[1])
+        # where a remat step's extra time goes: the card's busy time and
+        # its idle share against the unprofiled step
+        prof = device_time_breakdown(
+            lambda: steps.plain(s, images, labels), iters=3, warmup=1, top=8)
+        timing["remat" if remat else "off"] = {
+            "ms_per_step": ms, "peak_mem_gib": peak,
+            "device_busy_ms": prof["device_busy_ms"],
+            "idle_share_vs_unprofiled": 1.0 - prof["device_busy_ms"] / ms,
+            "busy_by_family_ms": prof.get("by_family_ms")}
+    emit({"phase": "remat_card_vs_card", "model": "flagship",
+          "recipe": os.path.relpath(RECIPE, ROOT), "batch": cfg.batch_size,
+          "image": IMAGE, "dtype": "bfloat16", **flag,
+          "update_floor": UPDATE_FLOOR, "card": nvidia_smi_name_power()})
+    emit({"phase": "train_remat", "part": "flagship",
+          "recipe": os.path.relpath(RECIPE, ROOT), "batch": cfg.batch_size,
+          "step": "plain", **timing,
+          "remat_over_off": timing["remat"]["ms_per_step"]
+          / timing["off"]["ms_per_step"], "card": nvidia_smi_name_power()})
+    keep = trained[False]  # weights, statistics and momentum buffers
+    del state1, start, trained
+    torch.cuda.empty_cache()
+
+    # ResNet-50-IBN-b, the AugMix steps at IBN_BATCH
+    icfg = load_config(IBN_RECIPE, compute_dtype="bf16")
+    b = IBN_BATCH
+    models = {}
+    for remat in (False, True):
+        with env_vars(CNSN_CONV3X3="conv"):
+            models[remat] = build_model(
+                icfg.model, icfg.num_classes,
+                generator=torch.Generator().manual_seed(icfg.seed),
+                pos=icfg.pos, crop=icfg.crop, beta=icfg.beta,
+                cnsn_type=icfg.cnsn_type, dtype=torch.bfloat16,
+                remat=remat).to(dev)
+    istart = {k: v.detach().clone()
+              for k, v in models[False].state_dict().items()}
+    sched = imagenet_step_lr(icfg.lr, icfg.epochs, icfg.batch_size,
+                             STEPS_PER_EPOCH)
+
+    def ifresh(model):
+        def make():
+            model.load_state_dict(istart)
+            return create_train_state(
+                model, sched, momentum=icfg.momentum,
+                weight_decay=icfg.weight_decay, nesterov=icfg.nesterov,
+                device=dev)
+        return make
+
+    gen = torch.Generator().manual_seed(icfg.seed)
+    images3 = torch.randn(3, b, IMAGE, IMAGE, 3, generator=gen).to(dev)
+    ilabels = torch.randint(0, icfg.num_classes, (b,), generator=gen).to(dev)
+    from cnsn_tpu_torch.train import StepFns
+    isteps = StepFns(image_crop=icfg.crop, image_beta=icfg.beta)
+
+    def igated(state):
+        g = torch.Generator(device=dev).manual_seed(icfg.seed)
+        return isteps.cn_image_augmix(state, images3, ilabels,
+                                      generator=g)[1]
+
+    n_bn = BN_LAYERS - 1  # an InstanceNorm stem: every BatchNorm in a block
+    iplain = {"bn_sums": n_bn, "bn_sums_bwd": n_bn, "ins_stats": SN_SITES,
+              "ins_stats_bwd": SN_SITES}
+    ibase = {"augmix": iplain,
+             "cn_image_augmix": dict(iplain, ins_stats=SN_SITES + 1)}
+    ibn = _remat_card_vs_card(
+        dev, "IBN-b", {False: ifresh(models[False]),
+                       True: ifresh(models[True])},
+        {"cn_image_augmix": igated,
+         "augmix": lambda st: isteps.augmix(st, images3, ilabels)[1]},
+        n_bn, SN_SITES, ibase)
+    itiming = {}
+    for remat in (False, True):
+        s = ifresh(models[remat])()
+        ms, peak = _time_plain(
+            s, lambda x: isteps.augmix(x, images3, ilabels)[1])
+        itiming["remat" if remat else "off"] = {"ms_per_step": ms,
+                                                "peak_mem_gib": peak}
+    emit({"phase": "remat_card_vs_card", "model": "resnet50_ibn_b",
+          "recipe": os.path.relpath(IBN_RECIPE, ROOT), "batch": b,
+          "views": 3, "image": IMAGE, "dtype": "bfloat16", **ibn,
+          "update_floor": UPDATE_FLOOR, "card": nvidia_smi_name_power()})
+    emit({"phase": "train_remat", "part": "resnet50_ibn_b", "batch": b,
+          "step": "augmix", **itiming,
+          "remat_over_off": itiming["remat"]["ms_per_step"]
+          / itiming["off"]["ms_per_step"], "card": nvidia_smi_name_power()})
+    del models, images3, istart
+    torch.cuda.empty_cache()
+    paths = {"flagship": {k: v["remat_launches"] for k, v in flag.items()},
+             "resnet50_ibn_b": {k: v["remat_launches"]
+                                for k, v in ibn.items()}}
+    return paths, timing["off"]["ms_per_step"], keep
+
+
+def phase_train_remat_ibn(dev, data_dir, ibn_step_ms):
+    """resnet50_ibn_b/cnsn-augmix.yaml at its own batch_size 256 with
+    remat=true and ondevice_augmix=true, bf16: ``cli train`` of one epoch
+    on 2·256 images of the fake folder (it finishes; its launches), then
+    the step loop at b=256 on pre-made views, ms a step and peak memory
+    beside the b=IBN_BATCH non-remat step (``ibn_step_ms``)."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.train import (StepFns, create_train_state,
+                                      imagenet_step_lr)
+    out_dir = os.path.join(ROOT, "chiprun_out", "train_remat")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    icfg = load_config(IBN_RECIPE)
+    b = icfg.batch_size
+    check(b == IBN_RECIPE_BATCH, f"{IBN_RECIPE} batch_size {b}")
+    n_bn = BN_LAYERS - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        small = os.path.join(tmp, "data")
+        files = sorted(glob.glob(os.path.join(data_dir, "train", "*", "*")))
+        for f in files[:2 * b]:
+            d = os.path.join(small, "train",
+                             os.path.basename(os.path.dirname(f)))
+            os.makedirs(d, exist_ok=True)
+            os.symlink(f, os.path.join(d, os.path.basename(f)))
+        os.symlink(os.path.join(data_dir, "validation"),
+                   os.path.join(small, "validation"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with env_vars(CNSN_CONV3X3="conv"):
+            _cli(["train", "--config", IBN_RECIPE, "--device", str(dev),
+                  f"data_dir={small}", "compute_dtype=bf16", "epochs=1",
+                  "remat=true", "ondevice_augmix=true", f"exp_dir={tmp}/exp"],
+                 os.path.join(out_dir, "cli.txt"))
+        cli_s = time.perf_counter() - t0
+        cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        cli_counts = dict(LAUNCHES)
+        [exp_dir] = glob.glob(f"{tmp}/exp/*/*")
+        row = open(os.path.join(exp_dir, "log.txt")).read().splitlines()[-1]
+    gates = np.random.RandomState(icfg.seed).rand(2) < icfg.cn_prob
+    want_cli = {"bn_sums": 2 * 2 * n_bn, "bn_sums_bwd": 2 * n_bn,
+                "ins_stats": 2 * 2 * SN_SITES + int(gates.sum()),
+                "ins_stats_bwd": 2 * SN_SITES, K3_STAGED: SN_SITES}
+    got_cli = {k: cli_counts.get(k, 0) for k in want_cli}
+    check(got_cli == want_cli, f"IBN-b remat cli train launches {got_cli},"
+          f" expected {want_cli}")
+    check(math.isfinite(float(row.split("\t")[2])), f"log.txt row {row}")
+    torch.cuda.empty_cache()
+    # the step loop at the recipe's batch
+    with env_vars(CNSN_CONV3X3="conv"):
+        model = build_model(icfg.model, icfg.num_classes,
+                            generator=torch.Generator().manual_seed(icfg.seed),
+                            pos=icfg.pos, crop=icfg.crop, beta=icfg.beta,
+                            cnsn_type=icfg.cnsn_type, dtype=torch.bfloat16,
+                            remat=True)
+    state = create_train_state(
+        model, imagenet_step_lr(icfg.lr, icfg.epochs, b, STEPS_PER_EPOCH),
+        momentum=icfg.momentum, weight_decay=icfg.weight_decay,
+        nesterov=icfg.nesterov, device=dev)
+    steps = StepFns(image_crop=icfg.crop, image_beta=icfg.beta)
+    gen = torch.Generator().manual_seed(icfg.seed)
+    images3 = torch.randn(3, b, IMAGE, IMAGE, 3, generator=gen).to(dev)
+    labels = torch.randint(0, icfg.num_classes, (b,), generator=gen).to(dev)
+    per = []
+    step_launches(lambda: steps.augmix(state, images3, labels), per)
+    want = remat_want({"bn_sums": n_bn, "bn_sums_bwd": n_bn,
+                       "ins_stats": SN_SITES, "ins_stats_bwd": SN_SITES},
+                      n_bn, SN_SITES)
+    got = {k: per[0].get(k, 0) for k in want}
+    check(got == want, f"IBN-b b={b} remat step launches {got}, expected "
+          f"{want}")
+    ms, peak = _time_plain(state,
+                           lambda s: steps.augmix(s, images3, labels)[1])
+    emit({"phase": "train_remat", "part": "resnet50_ibn_b_recipe_batch",
+          "recipe": os.path.relpath(IBN_RECIPE, ROOT), "batch": b,
+          "remat": True, "ondevice_augmix": True, "dtype": "bfloat16",
+          "cli_train_s": cli_s, "cli_launches": cli_counts,
+          "cli_expected": want_cli, "cli_log_row": row,
+          "cli_peak_mem_gib": cli_peak, "step": "augmix",
+          "launches_per_step": got, "ms_per_step": ms,
+          "ms_per_image": ms / b, "peak_mem_gib": peak,
+          "non_remat_b192_ms_per_step": ibn_step_ms,
+          "non_remat_b192_ms_per_image": (None if ibn_step_ms is None
+                                          else ibn_step_ms / IBN_BATCH),
+          "card": nvidia_smi_name_power()})
+    del state, images3
+    torch.cuda.empty_cache()
+    return {"augmix": got}
+
+
+def phase_train_remat_seg(dev, seg_counts):
+    """gtav_fcn50_cnsn.yaml at b=16 713² float32 with remat=true and
+    remat=1_2: each step alone (``_time_steps``: a plain and an aug step),
+    their launches (K2 once more per BatchNorm of a rematerialised stage,
+    K1 once more per SelfNorm site there, and the active CrossNorm site's
+    if it lies there) and the peak memory, beside train_seg's (no
+    remat)."""
+    out = {}
+    stage_sites = dict(zip((1, 2, 3, 4), SEG_STAGE_BLOCKS))
+    for spec in SEG_REMAT_SPECS:
+        tmp = tempfile.mkdtemp(prefix="seg_remat_")
+        trainer, record = _seg_trainer(dev, SEG_RECIPE, 1,
+                                       os.path.join(tmp, "s"), remat=spec)
+        stages = trainer.model.backbone.remat_stages
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        alone = _time_steps(trainer, ("plain", "aug"))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        blocks = sum(stage_sites[s] for s in stages)
+        # 3 BatchNorms a block, and each stage's first block's downsample
+        block_bn = 3 * blocks + len(stages)
+        bad = []
+        for kind, got in record:
+            want = remat_want(SEG_WANT[kind], block_bn, blocks)
+            got = {k: got.get(k, 0) for k in want}
+            # an aug step's active CrossNorm site: once more where its
+            # stage is rematerialised
+            more = dict(want, ins_stats=want["ins_stats"] + 1)
+            ok = (got == want if kind == "plain"
+                  else got == more if len(stages) == 4
+                  else got in (want, more))
+            if not ok:
+                bad.append((kind, got, want))
+        check(not bad, f"seg remat={spec!r} launches: {bad[:2]}")
+        check(all(math.isfinite(v) for v in alone.values()),
+              f"seg remat={spec!r} steps {alone}")
+        key = "true" if spec is True else str(spec)
+        out[key] = {kind: got for kind, got in record}
+        emit({"phase": "train_remat", "part": f"seg_remat_{key}",
+              "recipe": os.path.relpath(SEG_RECIPE, ROOT), "batch": 16,
+              "image": trainer.cfg.train_h, "compute_dtype": "float32",
+              "remat": spec, "remat_stages": sorted(stages),
+              "step_alone_ms": alone, "peak_mem_gib": peak,
+              "launches": [{"kind": k, **g} for k, g in record],
+              "no_remat_peak_mem_gib": seg_counts.get("peak_mem_gib"),
+              "no_remat_step_alone_ms": seg_counts.get("alone_ms"),
+              "card": nvidia_smi_name_power()})
+        del trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _session_processes(sid):
+    """Live processes of session ``sid``, read from /proc."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[3]) == sid and fields[0] != "Z":
+            pids.append(int(name))
+    return pids
+
+
+def phase_ckpt_preempt(dev, flagship_state, flagship_ms):
+    """``ckpt_backend=orbax`` on the card.
+
+    (a) ``cli train`` of WRN-40-2 cnsn.yaml (synthetic, bf16) in a
+    subprocess, SIGTERM after 2 steps: exit 143, no process of its
+    session left, one step checkpoint flushed.  (b) A Trainer with
+    ``resume=<exp>`` (as ``cli train resume=`` builds it): the flushed
+    step restored, its state equal to the files, one more step makes it
+    step + 1; then ``fit`` over two epochs, each ending in a save: the
+    newest two steps kept.  (c) The blocking ms of an async save of the
+    flagship's state, and of its write, beside its step.  (d) A
+    SegTrainer of gtav_fcn50_cnsn.yaml at its shapes: a step, a save,
+    and a second SegTrainer restoring it by itself."""
+    import signal
+
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.train.trainer import Trainer
+    from cnsn_tpu_torch.utils.orbax_io import OrbaxCheckpointer
+    out_dir = os.path.join(ROOT, "chiprun_out", "ckpt_preempt")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    recipe = WRN_CN_RECIPES[1]
+    tmp = tempfile.mkdtemp(prefix="ckpt_")
+    exp = os.path.join(tmp, "exp")
+    os.makedirs(exp)
+    args = ["--config", recipe, "--device", str(dev), "synthetic_data=true",
+            "compute_dtype=bf16", "ckpt_backend=orbax", f"resume={exp}",
+            "print_freq=1", "snapshot=false"]
+    env = dict(os.environ, PYTHONPATH=ROOT, CNSN_CONV3X3="conv",
+               PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "cnsn_tpu_torch.cli", "train",
+                          *args, "epochs=100"], cwd=ROOT, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, start_new_session=True)
+    lines, seen = [], 0
+    try:
+        for line in p.stdout:
+            lines.append(line)
+            seen += "Train Loss" in line
+            if seen >= 2 or time.perf_counter() - t0 > PREEMPT_TIMEOUT:
+                break
+        p.send_signal(signal.SIGTERM)
+        rest, _ = p.communicate(timeout=PREEMPT_TIMEOUT)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    lines.append(rest)
+    with open(os.path.join(out_dir, "cli_train.txt"), "w") as f:
+        f.write("".join(lines))
+    deadline = time.perf_counter() + 20
+    while _session_processes(p.pid) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    left = _session_processes(p.pid)
+    for pid in left:
+        os.kill(pid, signal.SIGKILL)
+    check(seen >= 2, "the cli's training never reached two steps")
+    check(p.returncode == 143, f"SIGTERM'd cli train exited {p.returncode}")
+    check(left == [], f"processes left behind: {left}")
+    steps_saved = OrbaxCheckpointer(os.path.join(exp, "orbax")).all_steps()
+    check(1 <= len(steps_saved) <= 2 and steps_saved[-1] >= 2,
+          f"flushed steps {steps_saved}")
+    flushed = steps_saved[-1]
+    # (b)
+    cfg = load_config(recipe, synthetic_data=True, compute_dtype="bf16",
+                      ckpt_backend="orbax", resume=exp, snapshot=False,
+                      print_freq=10_000)
+    previous = signal.getsignal(signal.SIGTERM)
+    with env_vars(CNSN_CONV3X3="conv"), \
+            contextlib.redirect_stdout(open(os.path.join(out_dir,
+                                                         "resume.txt"), "a")):
+        trainer = Trainer(cfg, device=dev)
+    try:
+        payload = torch.load(os.path.join(exp, "orbax", str(flushed),
+                                          "state.pt"), weights_only=True)
+        sd = trainer.state.model.state_dict()
+        equal = all(torch.equal(sd[k].cpu(), v)
+                    for k, v in payload["model"].items())
+        restored_step = trainer.state.step
+        check(restored_step == flushed and equal
+              and trainer.start_epoch == payload["extra"]["epoch"],
+              f"restored step {restored_step} of {flushed}, start epoch "
+              f"{trainer.start_epoch} of {payload['extra']}, state equal "
+              f"{equal}")
+        images, labels = next(iter(trainer.train_loader))
+        trainer.steps.plain(trainer.state, torch.from_numpy(images).to(dev),
+                            torch.from_numpy(np.asarray(labels,
+                                                        np.int64)).to(dev))
+        check(trainer.state.step == flushed + 1,
+              f"one step from {flushed} made {trainer.state.step}")
+        trainer.state.model.load_state_dict(payload["model"])
+        trainer.state.optimizer.load_state_dict(payload["optimizer"])
+        trainer.state.step = flushed
+        per_epoch = len(trainer.train_loader)
+        with contextlib.redirect_stdout(open(os.path.join(
+                out_dir, "resume.txt"), "a")):
+            trainer.fit(trainer.start_epoch + 2)
+        kept = trainer.ckpt.all_steps()
+    finally:
+        trainer.close()
+        signal.signal(signal.SIGTERM, previous)
+    want_kept = [flushed + per_epoch, flushed + 2 * per_epoch]
+    check(kept == want_kept, f"kept steps {kept}, expected {want_kept}")
+    # (c)
+    ck = OrbaxCheckpointer(os.path.join(tmp, "flagship"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, flagship_state)
+    blocking_ms = (time.perf_counter() - t0) * 1e3
+    ck.wait_until_finished()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(os.path.join(tmp, "flagship", "1", "state.pt"))
+    # (d)
+    from cnsn_tpu_torch.segmentation.trainer import SegTrainer
+    seg, _ = _seg_trainer(dev, SEG_RECIPE, 1, os.path.join(tmp, "seg"),
+                          ckpt_backend="orbax", epochs=1)
+    try:
+        seg.train_epoch(0)
+        seg.save_checkpoint(1)
+        seg.ckpt.wait_until_finished()
+        seg_step = seg.state.step
+        want_sd = {k: v.detach().cpu() for k, v in
+                   seg.state.model.state_dict().items()}
+    finally:
+        seg.close()
+        signal.signal(signal.SIGTERM, previous)
+    seg2 = SegTrainer(seg.cfg, seg.train_loader.dataset, device=dev)
+    try:
+        got_sd = seg2.state.model.state_dict()
+        seg_equal = all(torch.equal(got_sd[k].cpu(), v)
+                        for k, v in want_sd.items())
+        check(seg2.state.step == seg_step == 1 and seg2.cfg.start_epoch == 1
+              and seg_equal, f"SegTrainer orbax restore: step "
+              f"{seg2.state.step} of {seg_step}, equal {seg_equal}")
+    finally:
+        seg2.close()
+        signal.signal(signal.SIGTERM, previous)
+    del seg, seg2
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "ckpt_preempt", "recipe": os.path.relpath(recipe, ROOT),
+          "cli_exit": p.returncode, "steps_seen": seen,
+          "flushed_step": flushed, "processes_left": left,
+          "restored_step": restored_step, "state_equal_to_files": equal,
+          "kept_after_two_epochs": kept, "steps_per_epoch": per_epoch,
+          "flagship_async_save": {"blocking_ms": blocking_ms,
+                                  "write_total_ms": total_ms,
+                                  "bytes": nbytes,
+                                  "step_ms": flagship_ms},
+          "seg_restored_step": seg_step, "seg_state_equal": seg_equal,
+          "card": nvidia_smi_name_power()})
+
+
+def phase_nan_guard(dev):
+    """``checked(trainer.steps.plain)`` (``utils/debug.py``) on WRN-40-2
+    cnsn.yaml at b=128 32² bf16 from a Trainer's state, under cuDNN's
+    deterministic algorithms: two unwrapped steps from the same state
+    (their spread), a wrapped one equal to the first bit for bit (within
+    the spread), then a NaN pixel raising with an op named; ms a step
+    wrapped and not."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.train.trainer import Trainer
+    from cnsn_tpu_torch.utils.debug import NonFiniteError, checked
+    cfg = load_config(WRN_CN_RECIPES[1], synthetic_data=True,
+                      compute_dtype="bf16", snapshot=False,
+                      exp_dir=tempfile.mkdtemp(prefix="nan_"))
+    with env_vars(CNSN_CONV3X3="conv"):
+        trainer = Trainer(cfg, device=dev)
+    images, labels = next(iter(trainer.train_loader))
+    images = torch.from_numpy(images).to(dev)
+    labels = torch.from_numpy(np.asarray(labels, np.int64)).to(dev)
+    state = trainer.state
+    start = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    plain, guarded = trainer.steps.plain, checked(trainer.steps.plain)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = []
+        for fn in (plain, plain, guarded):
+            state.model.load_state_dict(start)
+            state.optimizer.state.clear()
+            state.step = 0
+            _, m = fn(state, images, labels)
+            torch.cuda.synchronize()
+            results.append((float(m["loss"]),
+                            {k: v.detach().clone() for k, v in
+                             state.model.state_dict().items()}))
+        spread = max(float((results[1][1][k].double()
+                            - results[0][1][k].double()).abs().max())
+                     for k in start if start[k].is_floating_point())
+        err = max(float((results[2][1][k].double()
+                         - results[0][1][k].double()).abs().max())
+                  for k in start if start[k].is_floating_point())
+        check(err <= spread,
+              f"guarded step off by {err} (unwrapped spread {spread})")
+        times = {}
+        for name, fn in (("unwrapped", plain), ("guarded", guarded)):
+            fn(state, images, labels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GUARD_STEPS):
+                _, m = fn(state, images, labels)
+            float(m["loss"])
+            times[name] = (time.perf_counter() - t0) * 1e3 / GUARD_STEPS
+        bad = images.clone()
+        bad[5, 7, 9, 1] = float("nan")
+        op = None
+        try:
+            guarded(state, bad, labels)
+        except NonFiniteError as e:
+            op = e.op
+        check(op is not None, "a NaN pixel did not raise")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        trainer.close()
+    emit({"phase": "nan_guard", "recipe": os.path.relpath(WRN_CN_RECIPES[1],
+                                                          ROOT),
+          "batch": cfg.batch_size, "dtype": "bfloat16",
+          "clean_equal_bits": err == 0, "clean_max_abs_diff": err,
+          "unwrapped_spread": spread, "nan_raised_by": op,
+          "ms_per_step": times,
+          "guard_over_unwrapped": times["guarded"] / times["unwrapped"],
+          "card": nvidia_smi_name_power()})
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
 def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
               per="main-path training step"):
     """A kernel's line: ms, plain, bound and library time per main-path
@@ -4187,6 +4841,15 @@ def main():
             "train_resnet_cn_both", phase_train_resnet_cn_both, dev)
         r50_consist = timed("train_resnet_consist",
                             phase_train_resnet_consist, dev)
+        # rematerialised blocks against the same steps without, step
+        # checkpoints with the SIGTERM flush, the NaN guard
+        remat_paths, _, flag_state = timed(
+            "remat_card_vs_card", phase_remat_card_vs_card, dev)
+        timed("ckpt_preempt", phase_ckpt_preempt, dev, flag_state,
+              flagship_ms)
+        del flag_state
+        torch.cuda.empty_cache()
+        timed("nan_guard", phase_nan_guard, dev)
     # this slice: the ImageNet loaders and Trainer, ResNet-50-IBN-b's and
     # the CIFAR AugMix recipes, on folders written here
     with tempfile.TemporaryDirectory() as fake:
@@ -4208,12 +4871,18 @@ def main():
         ondevice = timed("train_ondevice_augmix",
                          phase_train_ondevice_augmix, dev, data_dir,
                          cifar_augmix_ms["wideresnet"], ibn_step_ms)
+        remat_paths["resnet50_ibn_b_b256"] = timed(
+            "train_remat_ibn", phase_train_remat_ibn, dev, data_dir,
+            ibn_step_ms)
     with env_vars(CNSN_CONV3X3="conv"):
         timed("augmix_card_vs_cpu", phase_augmix_card_vs_cpu, dev)
     bn_options = timed("bn_options_card_vs_cpu",
                        phase_bn_options_card_vs_cpu, dev)
     # this slice: GTAV -> Cityscapes segmentation, FCN-ResNet50 (+ CNSN)
     seg_counts = timed("train_seg", phase_train_seg, dev)
+    for key, per in timed("train_remat_seg", phase_train_remat_seg, dev,
+                          seg_counts).items():
+        remat_paths[f"seg_remat_{key}"] = per
     seg_eval = timed("seg_eval", phase_seg_eval, dev)
     # this slice: PSPNet, PSANet and PSALite on the same recipe, served
     psp_counts = timed("train_psp", phase_train_psp, dev)
@@ -4515,6 +5184,17 @@ def main():
                 "max_abs_err": max(r["max_abs_err"] for r in part),
                 "per": f"WRN-40-2 sn.yaml training step, b=128 bf16, "
                        f"stats_sample={BN_SAMPLE}: K2 on the leading rows"}
+    # each kernel's launches per step on the remat paths (every
+    # bottleneck, or the listed stages, rematerialised): by path and
+    # step kind
+    for k in [k3, k3_v1] + kernels:
+        k["remat"] = {path: {kind: c.get(k["name"], 0)
+                             for kind, c in per.items()}
+                      for path, per in remat_paths.items()}
+        k["remat"]["per"] = (
+            "one step of each kind: flagship b=128 and IBN-b b=192 "
+            "(remat_card_vs_card), IBN-b b=256 (train_remat), "
+            "gtav_fcn50_cnsn.yaml b=16 713² float32 (train_remat)")
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
     # compact: the line carries every kernel's paths and stays one line

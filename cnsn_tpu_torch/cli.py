@@ -13,6 +13,11 @@ Usage:
       [resume=<seg_ckpt> | weight=<seg_ckpt>] [--seed 0] [arch=psp ...]
 
 Everything runs on the card unless ``--device cpu`` asks for the CPU.
+``remat=true`` rematerialises the ResNets' bottlenecks (``seg-train``: or
+a stage spec, ``remat=1_2``); ``ckpt_backend=orbax`` keeps step
+checkpoints with a SIGTERM flush, ``resume=`` then naming the experiment
+directory (``train``) or restoring from ``save_path`` by itself
+(``seg-train``).
 ``export`` and ``seg-export`` take the weights of a checkpoint
 (``resume=``, or ``weight=`` for ``seg-export``), or random ones drawn
 from ``--seed``.  The pipelined export (``--pipeline-stages``) is not
@@ -62,10 +67,13 @@ def _export_main(cfg, args):
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
+    # remat reaches the ResNets only, as in JAX (cnsn_tpu/cli.py:142-143);
+    # the exported eval forward runs every block as it is
+    knobs = {"remat": cfg.remat} if cfg.model.startswith("resnet") else {}
     model = build_classifier(cfg.model, cfg.num_classes, device=args.device,
                              seed=args.seed, pos=cfg.pos, crop=cfg.crop,
                              beta=cfg.beta, cnsn_type=cfg.cnsn_type,
-                             dtype=DTYPES[cfg.compute_dtype])
+                             dtype=DTYPES[cfg.compute_dtype], **knobs)
     if cfg.resume:
         from .utils.checkpoint import load_checkpoint
         model.load_state_dict(load_checkpoint(cfg.resume)["state_dict"],

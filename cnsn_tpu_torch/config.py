@@ -72,7 +72,9 @@ class ExperimentConfig:
     # runtime
     print_freq: int = 10
     eval_batch_size: int = 1000
-    ckpt_backend: str = "msgpack"     # single files (``utils/checkpoint.py``)
+    # 'msgpack': single files (``utils/checkpoint.py``); 'orbax': step
+    # checkpoints, async saves, SIGTERM flush (``utils/orbax_io.py``)
+    ckpt_backend: str = "msgpack"
     snapshot: bool = True             # code + config into the exp dir
     resume: Optional[str] = None
     pretrained: Optional[str] = None  # torch .pth partial init
@@ -80,7 +82,7 @@ class ExperimentConfig:
     num_devices: Optional[int] = None
     fsdp: bool = False
     compute_dtype: str = "fp32"       # fp32 | bf16 (params stay fp32)
-    remat: bool = False
+    remat: bool = False               # rematerialise ResNet bottlenecks
     image_size: Optional[int] = None  # default: 32 (CIFAR) / 224 (ImageNet)
 
     def infer(self) -> "ExperimentConfig":

@@ -29,12 +29,12 @@ def build_model(name: str, num_classes: int,
                 **knobs: Any) -> nn.Module:
     """Build a model by reference-script name on the CPU.
 
-    knobs: pos, crop, beta, cnsn_type, dtype, and ``layers`` for
-    resnet50, resnet50_ibn_a and resnet50_ibn_b; None values take the
-    model's defaults, as in the JAX registry.  ``wideresnet`` is WRN-40-2
-    without dropout, ``densenet`` DenseNet-40-12 and ``resnext`` ResNeXt-29
-    4×32d, as there; AllConvNet takes ``pos`` as an int (the recipes write
-    '1').
+    knobs: pos, crop, beta, cnsn_type, dtype, and ``layers`` and
+    ``remat`` for resnet50, resnet50_ibn_a and resnet50_ibn_b; None
+    values take the model's defaults, as in the JAX registry.
+    ``wideresnet`` is WRN-40-2 without dropout, ``densenet``
+    DenseNet-40-12 and ``resnext`` ResNeXt-29 4×32d, as there; AllConvNet
+    takes ``pos`` as an int (the recipes write '1').
     """
     knobs = {k: v for k, v in knobs.items() if v is not None}
     if name == "wideresnet":

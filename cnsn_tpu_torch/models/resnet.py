@@ -3,9 +3,11 @@
 
 Stride on the 3×3 conv (v1.5), CNSN at {residual, pre, post, identity}
 per bottleneck, ``cnsn_type=None`` for the plain bottleneck; 16
-bottleneck sites; global average pool head.  The public input is NHWC
-(B, H, W, 3), as in the JAX package; inside, it becomes an NCHW view in
-``torch.channels_last`` memory (zero-copy from NHWC-contiguous data).
+bottleneck sites; global average pool head.  ``remat`` rematerialises
+each bottleneck in training (``models/remat.py``), as the JAX model's
+``remat`` (``cnsn_tpu/models/resnet.py:116,143``).  The public input is
+NHWC (B, H, W, 3), as in the JAX package; inside, it becomes an NCHW view
+in ``torch.channels_last`` memory (zero-copy from NHWC-contiguous data).
 Module names follow the reference torch state dict (``layer1.0.conv1``,
 ``layer1.0.downsample.0``, ``layer1.0.cnsn.selfnorm.g_fc``, ``fc``).
 """
@@ -20,6 +22,7 @@ from torch import nn
 from ..nn.cnsn import CNSN
 from ..nn.norm import BatchNorm
 from .common import Linear, conv_he_fanout, site_gates
+from .remat import block_call
 
 __all__ = ["Bottleneck", "ResNet", "block_plan", "resnet50"]
 
@@ -116,17 +119,19 @@ class ResNet(nn.Module):
     parameters and statistics stay fp32, and autograd carries each
     gradient back to the fp32 parameter through its cast.  ``generator``
     seeds every initializer (a fresh default generator when None).
+    ``remat`` rematerialises every bottleneck in training.
     """
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 1000, pos: Optional[str] = None,
                  crop: str = "neither", beta: float = 1.0,
                  cnsn_type: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator or torch.Generator()
         self.cnsn_type = cnsn_type
+        self.remat = bool(remat)
         self.conv1 = conv_he_fanout(3, 64, 7, 2, dtype=dtype, generator=g)
         self.bn1 = BatchNorm(64)
         stages = [[] for _ in range(4)]
@@ -171,9 +176,9 @@ class ResNet(nn.Module):
         site = 0
         for layer in self._stages():
             for block in layer:
-                x = block(x, gates[site],
-                          None if cn_draws is None else cn_draws[site],
-                          generator)
+                x = block_call(block, self.remat, x, gates[site],
+                               None if cn_draws is None else cn_draws[site],
+                               generator)
                 site += 1
         return self.fc(x.mean(dim=(2, 3)))
 

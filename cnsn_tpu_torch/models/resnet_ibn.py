@@ -12,6 +12,8 @@ models/imagenet/resnet_ibn_cnsn.py:24-315).
     None).
   * At pos 'pre' the downsample branch takes the CNSN's output, as the
     conv branch does (ResNet-50's takes the block's input).
+  * ``remat`` rematerialises every bottleneck in training
+    (``models/remat.py``; JAX ``resnet_ibn.py:100,142``).
 
 The stem is the plain 7×7/s2 conv, as the port's ResNet-50 has it
 (``models/common.py``).  The public input is NHWC (B, H, W, 3); inside,
@@ -29,6 +31,7 @@ from torch import nn
 from ..nn.cnsn import CNSN
 from ..nn.norm import IBN, BatchNorm, InstanceNorm
 from .common import Linear, conv_he_fanout, site_gates
+from .remat import block_call
 from .resnet import _POSITIONS, block_plan
 
 __all__ = ["BottleneckIBN", "ResNetIBN", "resnet50_ibn_a", "resnet50_ibn_b"]
@@ -113,18 +116,20 @@ class BottleneckIBN(nn.Module):
 
 class ResNetIBN(nn.Module):
     """ResNet-IBN: images NHWC (B, H, W, 3) → logits (B, classes), in
-    train or eval mode; ``dtype`` and ``generator`` as ``ResNet``'s."""
+    train or eval mode; ``dtype``, ``remat`` and ``generator`` as
+    ``ResNet``'s."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  ibn_cfg: Sequence[Optional[str]] = ("a", "a", "a", None),
                  num_classes: int = 1000, pos: Optional[str] = None,
                  crop: str = "neither", beta: float = 1.0,
                  cnsn_type: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator or torch.Generator()
         self.cnsn_type = cnsn_type
+        self.remat = bool(remat)
         self.ibn_cfg = tuple(ibn_cfg)
         self.conv1 = conv_he_fanout(3, 64, 7, 2, dtype=dtype, generator=g)
         self.bn1 = (InstanceNorm(64) if self.ibn_cfg[0] == "b"
@@ -174,11 +179,11 @@ class ResNetIBN(nn.Module):
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in layer:
                 if block.cnsn is None:
-                    x = block(x)
+                    x = block_call(block, self.remat, x)
                     continue
-                x = block(x, gates[site],
-                          None if cn_draws is None else cn_draws[site],
-                          generator)
+                x = block_call(block, self.remat, x, gates[site],
+                               None if cn_draws is None else cn_draws[site],
+                               generator)
                 site += 1
         return self.fc(x.mean(dim=(2, 3)))
 

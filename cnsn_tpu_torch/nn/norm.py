@@ -7,6 +7,10 @@ They keep the reference torch state-dict names (``weight``, ``bias``,
 fp32 parameters and statistics.
 In training the running statistics are updated in place (momentum 0.1,
 unbiased variance), where JAX returns them as a new ``batch_stats`` tree.
+Inside a rematerialised block's recomputation (``ops/recompute.py``) they
+are left as the first run left them, and BatchNorm's K2 shift is the
+first run's, as JAX's ``nn.remat`` recomputes from the same
+``batch_stats``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.bn_stats import BnSums
+from ..ops.recompute import recomputing, replayed
 
 __all__ = ["BatchNorm", "BatchNorm1dStats", "IBN", "InstanceNorm",
            "gelu_sig"]
@@ -55,7 +60,10 @@ class _NormStats(nn.Module):
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor,
                         n: int) -> None:
         """running ← (1−m)·running + m·batch at m = ``MOMENTUM``, with the
-        unbiased variance var·n/(n−1) (``cnsn_tpu/nn/norm.py:173-179``)."""
+        unbiased variance var·n/(n−1) (``cnsn_tpu/nn/norm.py:173-179``);
+        none in a recomputation."""
+        if recomputing():
+            return
         m = MOMENTUM
         unbiased = var * (n / max(n - 1, 1))
         self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
@@ -116,8 +124,9 @@ class BatchNorm(_NormStats):
         var_impl = self.var_impl or os.environ.get("CNSN_BN_VAR", "shifted")
         if var_impl == "shifted":
             # the shift: a copy, since the running mean is updated in place
-            # below while the backward still needs the value used here
-            m0 = self.running_mean.clone()
+            # below while the backward still needs the value used here; a
+            # recomputation takes the first run's
+            m0 = replayed(self.running_mean.clone)
             s1, s2 = BnSums.apply(xs.permute(0, 2, 3, 1), m0)
             mean_d = s1 / n
             var = torch.clamp(s2 / n - mean_d.square(), min=0.0)

@@ -26,6 +26,7 @@ from typing import Optional, Sequence
 import torch
 
 from .bbox import sample_bbox
+from .recompute import replayed
 from .stats import instance_mean_std, masked_instance_mean_std, region_mask
 
 __all__ = ["CROP_MODES", "cross_norm_2ins", "cross_norm_fma", "draw",
@@ -82,7 +83,15 @@ def draw(x: torch.Tensor, crop: str = "neither", *, beta: float = 1.0,
     ``crop`` and ``chan`` need, the given ones, and the missing ones
     drawn from ``generator`` (in the order perm, style box, content box,
     channel permutation), the permutations on x's device; None for the
-    rest."""
+    rest.  A recomputation (``ops/recompute.py``) gets the first run's
+    draws back and draws nothing."""
+    return replayed(lambda: _draw(
+        x, crop, beta, bbx_thres, chan, num_groups, perm, style_box,
+        content_box, chan_perm, generator))
+
+
+def _draw(x, crop, beta, bbx_thres, chan, num_groups, perm, style_box,
+          content_box, chan_perm, generator) -> dict:
     if crop not in CROP_MODES:
         raise ValueError(f"crop must be one of {CROP_MODES}, got {crop!r}")
     n, h, w, c = x.shape

@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "build", "load", "library_path"]
+__all__ = ["LAUNCHES", "WATCHERS", "build", "load", "library_path", "watch"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -34,6 +34,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launch counts, by kernel wrapper name.  A wrapper adds one where it
 # launches its kernel and nowhere else; callers clear() it to count a run.
 LAUNCHES: collections.Counter = collections.Counter()
+
+# Callables given (wrapper name, outputs) after each counted launch: the
+# kernels write their outputs through ctypes, where no torch op (and so
+# no dispatch mode, ``utils/debug.py::checked``) sees the values.
+WATCHERS: list = []
+
+
+def watch(name: str, *outputs) -> None:
+    """Hand a launch's outputs to the ``WATCHERS``."""
+    for watcher in WATCHERS:
+        watcher(name, outputs)
 
 
 def _nvcc() -> str:

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from ._build import LAUNCHES
+from ._build import LAUNCHES, watch
 from ._launch import (DTYPE_CODE, INT, PTR, bind, check_activation,
                       check_f32, check_launch, device_limits, stream,
                       vector_width)
@@ -113,6 +113,7 @@ def bn_sums_cuda(x: torch.Tensor, m0: torch.Tensor):
     arguments and results as for ``bn_sums_reference``."""
     s1, s2 = _launch(x, m0)
     LAUNCHES["bn_sums"] += 1
+    watch("bn_sums", s1, s2)
     return s1, s2
 
 
@@ -202,6 +203,7 @@ def bn_sums_bwd_cuda(x, m0, g1, g2):
     ``bn_sums_bwd_reference``; m0, g1 and g2 are contiguous (C,) fp32."""
     dx = _launch_bwd(x, m0, g1, g2)
     LAUNCHES["bn_sums_bwd"] += 1
+    watch("bn_sums_bwd", dx)
     return dx
 
 

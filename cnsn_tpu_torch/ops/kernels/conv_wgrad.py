@@ -27,7 +27,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import LAUNCHES
+from ._build import LAUNCHES, watch
 from ._launch import (DTYPE_CODE, INT, PTR, bind, check_activation,
                       check_launch, stream, vector_width)
 
@@ -166,5 +166,6 @@ def wgrad3x3_cuda(x: torch.Tensor, dy: torch.Tensor,
                      cin, cout, chunks, stream(x))
     check_launch(err, name)
     LAUNCHES[name] += 1
+    watch(name, out)
     return out
 

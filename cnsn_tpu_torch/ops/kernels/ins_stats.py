@@ -23,7 +23,7 @@ import functools
 
 import torch
 
-from ._build import LAUNCHES
+from ._build import LAUNCHES, watch
 from ._launch import (DTYPE_CODE, FLOAT, INT, PTR, bind, check_activation,
                       check_f32, check_launch, device_limits, stream,
                       vector_width)
@@ -163,6 +163,7 @@ def ins_stats_cuda(x: torch.Tensor, eps: float = 1e-5, ddof: int = 1):
     launch.  Arguments and results as for ``ins_stats_reference``."""
     mean, std = _launch(x, eps, ddof)
     LAUNCHES["ins_stats"] += 1
+    watch("ins_stats", mean, std)
     return mean, std
 
 
@@ -246,6 +247,7 @@ def ins_stats_bwd_cuda(x, mean, std, gm, gs, ddof: int = 1):
     mean, std, gm and gs are contiguous (N, C) fp32."""
     dx = _launch_bwd(x, mean, std, gm, gs, ddof)
     LAUNCHES["ins_stats_bwd"] += 1
+    watch("ins_stats_bwd", dx)
     return dx
 
 

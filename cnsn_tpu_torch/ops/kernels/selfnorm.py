@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from ._build import LAUNCHES
+from ._build import LAUNCHES, watch
 from ._launch import (DTYPE_CODE, FLOAT, INT, PTR, bind, check_activation,
                       check_f32, check_launch, stream)
 from .ins_stats import ins_stats_reference
@@ -140,6 +140,7 @@ def _launch(x, w, a, b, eps: float, path: str, lanes: int = 0,
                             stream(x))
     check_launch(err, key)
     LAUNCHES[key] += 1
+    watch(key, out)
     return out
 
 

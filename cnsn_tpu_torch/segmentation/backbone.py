@@ -13,6 +13,10 @@ segmentation/model/cnsn_resnet.py:215-472).
   * ``cn_pos`` ('post') places a separate CrossNorm (the reference's
     ``real_cn``) after the block, and the CNSN slot at ``pos`` then
     carries SelfNorm only;
+  * ``remat`` (True, False or a stage spec: '1_2', or the int 12 an
+    unquoted YAML ``1_2`` parses to) rematerialises the bottlenecks of the
+    listed stages in training (``models/remat.py::remat_stages``, JAX's
+    ``remat_stages``);
   * returns {'out': layer4, 'aux': layer3}, NHWC views.
 
 The convolutions are plain (dilated) convolutions, as the JAX backbone's
@@ -32,13 +36,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.common import Conv2d, site_gates
+from ..models.remat import block_call, remat_stages
 from ..nn.cnsn import CNSN, CrossNorm
 from ..nn.norm import BatchNorm
 
 __all__ = ["SegBottleneck", "SegResNet", "seg_resnet50"]
 
 _POSITIONS = ("residual", "identity", "pre", "post")
-REMAT_ITEM = "ROADMAP queue 1, parallel (remat)"
 
 
 class DilatedConv(Conv2d):
@@ -154,16 +158,14 @@ class SegResNet(nn.Module):
                  remat: Any = False, dilation_mode: str = "torchvision",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                f"remat={remat!r} (rematerialised bottlenecks) is not yet "
-                f"ported to cnsn_tpu_torch ({REMAT_ITEM})")
         if dilation_mode not in ("torchvision", "psp"):
             raise ValueError(f"bad dilation_mode {dilation_mode!r}")
         g = generator or torch.Generator()
         self.layers = tuple(layers)
         self.block_idxs = block_idxs
         self.cnsn_type = cnsn_type
+        self.remat = remat
+        self.remat_stages = remat_stages(remat)
         self.img_cn = (CrossNorm(crop, beta) if self.has_img_cn else None)
         self.conv1 = DilatedConv(3, 64, 7, 2, dtype=dtype, generator=g)
         self.bn1 = BatchNorm(64)
@@ -233,13 +235,14 @@ class SegResNet(nn.Module):
         gates = site_gates(cn_active, self.cn_num)
         site, aux = 0, None
         for s, layer in enumerate(self._stages()):
+            remat = (s + 1) in self.remat_stages
             for block in layer:
                 active = draws = None
                 if self.custom[s] and has_cn:
                     active = gates[site]
                     draws = None if cn_draws is None else cn_draws[site]
                     site += 1
-                x = block(x, active, draws, generator)
+                x = block_call(block, remat, x, active, draws, generator)
             if s == 2:
                 aux = x
         return {"out": x.permute(0, 2, 3, 1), "aux": aux.permute(0, 2, 3, 1)}

@@ -20,9 +20,14 @@ so batches can be compared:
     inverted matrix rounded to float32, and a bilinear lerp in float32;
     the label's through OpenCV's fixed point (AB_BITS 10, rounded), which
     both OpenCV 4 and 5 use for INTER_NEAREST;
-  * blur (``GaussianBlur((5, 5), 0)``): the fixed 5-tap table
-    [1, 4, 6, 4, 1]/16 that OpenCV uses for a 5-tap kernel with sigma 0,
-    rows then columns, BORDER_REFLECT_101;
+  * blur (``GaussianBlur((r, r), 0)`` at any odd r): OpenCV's taps
+    (``gaussian_taps``: its fixed tables up to 9 taps, else the
+    sigma-derived kernel), rows then columns, BORDER_REFLECT_101 (also
+    where r exceeds the image); a row as OpenCV's symmetric small filter
+    (r ≤ 5) or its fused multiply-add row filter, a column as its
+    symmetric fused multiply-add column filter, each FMA emulated in
+    float64: bit for bit up to 3 taps, within 2 float32 ulps of the
+    0–255 scale beyond;
   * flips, the constant-border padding of ``Crop`` and ``Normalize``:
     exact.
 
@@ -31,6 +36,7 @@ where the JAX package uses ``cv2.imread``.
 """
 from __future__ import annotations
 
+import fractions
 import math
 import os
 from dataclasses import dataclass
@@ -50,8 +56,15 @@ _F32 = np.float32
 # OpenCV's fixed point for INTER_NEAREST warps (imgproc/src/imgwarp.cpp)
 _AB_BITS = 10
 _AB_SCALE = 1 << _AB_BITS
-# GaussianBlur's table for a 5-tap kernel at sigma <= 0
-_BLUR5 = np.array([0.0625, 0.25, 0.375, 0.25, 0.0625], _F32)
+# getGaussianKernel's fixed tables for an odd kernel at sigma <= 0
+# (imgproc/src/smooth.dispatch.cpp, getGaussianKernelBitExact)
+_GAUSS_TABLES = {
+    1: (1.0,), 3: (0.25, 0.5, 0.25),
+    5: (0.0625, 0.25, 0.375, 0.25, 0.0625),
+    7: (0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125),
+    9: tuple(v / 256 for v in (4, 13, 30, 51, 60, 51, 30, 13, 4))}
+# the widest kernel OpenCV's row filter takes symmetrically
+_SYMM_ROW = 5
 
 
 # ---- the cv2 ops ----------------------------------------------------------
@@ -180,16 +193,69 @@ def _warp_nearest(label: np.ndarray, minv: np.ndarray,
     return np.where(inside, out, np.asarray(border, label.dtype))
 
 
-def _blur5(image: np.ndarray) -> np.ndarray:
-    """5-tap [1, 4, 6, 4, 1]/16 separable blur, BORDER_REFLECT_101."""
-    x = torch.from_numpy(np.ascontiguousarray(image, _F32))
-    k = torch.from_numpy(_BLUR5)
-    h, w, _ = x.shape
-    xp = x[:, _reflect101(w, 2)]
-    x = sum(xp[:, i:i + w] * k[i] for i in range(5))
-    xp = x[_reflect101(h, 2)]
-    x = sum(xp[i:i + h] * k[i] for i in range(5))
-    return x.numpy()
+def gaussian_taps(r: int) -> np.ndarray:
+    """``cv2.getGaussianKernel(r, 0, CV_32F)``: a fixed table up to 9
+    taps, else exp(−x²/(2σ²)) at σ = 0.3·((r − 1)/2 − 1) + 0.8 in double,
+    normalised to sum 1, rounded to float32.  An even or non-positive r
+    raises, as OpenCV's GaussianBlur does."""
+    if r < 1 or r % 2 == 0:
+        raise ValueError(f"Gaussian blur radius {r}: a positive odd size")
+    if r in _GAUSS_TABLES:
+        return np.array(_GAUSS_TABLES[r], _F32)
+    # σ = 0.15·r + 0.35, rounded once (OpenCV's mulAdd)
+    sigma = float(fractions.Fraction(r) * fractions.Fraction(0.15)
+                  + fractions.Fraction(0.35))
+    scale = -0.125 / (sigma * sigma)  # −1/(2σ²) on x = 2·(i − (r−1)/2)
+    side = [math.exp(float(x * x) * scale) for x in range(1 - r, 0, 2)]
+    total = 0.0
+    for v in side:
+        total += v
+    inv = 1.0 / (total * 2 + 1.0)
+    side = [v * inv for v in side]
+    return np.array(side + [inv] + side[::-1], _F32)
+
+
+def _fma_round(a: torch.Tensor, k: float, acc: torch.Tensor) -> torch.Tensor:
+    """float32(a·k + acc) for float32 values held in float64: the product
+    is exact there, so one rounding as a fused multiply-add makes."""
+    return (a * k + acc).to(torch.float32).to(torch.float64)
+
+
+def _blur_axis(x: torch.Tensor, k: np.ndarray, dim: int,
+               symmetric_rows: bool) -> torch.Tensor:
+    """One pass of the separable blur along ``dim`` of a float32 image
+    held in float64, BORDER_REFLECT_101."""
+    r = len(k)
+    p, n = r // 2, x.shape[dim]
+    xp = x.index_select(dim, _reflect101(n, p))
+
+    def tap(i):
+        return xp.narrow(dim, i, n)
+
+    def f32(t):
+        return t.to(torch.float32).to(torch.float64)
+
+    if dim == 0 or symmetric_rows:
+        # the centre, then each pair of taps summed first
+        acc = f32(tap(p) * float(k[p]))
+        for j in range(1, p + 1):
+            pair = f32(tap(p - j) + tap(p + j))
+            acc = (_fma_round(pair, float(k[p + j]), acc) if dim == 0
+                   else f32(acc + f32(pair * float(k[p + j]))))
+        return acc
+    acc = f32(tap(0) * float(k[0]))
+    for i in range(1, r):
+        acc = _fma_round(tap(i), float(k[i]), acc)
+    return acc
+
+
+def _gaussian_blur(image: np.ndarray, r: int) -> np.ndarray:
+    """``cv2.GaussianBlur(image, (r, r), 0)`` of a float32 HWC image."""
+    k = gaussian_taps(r)
+    x = torch.from_numpy(np.ascontiguousarray(image, _F32)).to(torch.float64)
+    x = _blur_axis(x, k, 1, r <= _SYMM_ROW)
+    x = _blur_axis(x, k, 0, True)
+    return x.to(torch.float32).numpy()
 
 
 def _reflect101(n: int, pad: int) -> torch.Tensor:
@@ -320,18 +386,17 @@ class RandomVerticalFlip:
 
 
 class RandomGaussianBlur:
+    """``cv2.GaussianBlur(image, (radius, radius), 0)`` with probability
+    ``p``; an even radius raises when the transform is built."""
+
     def __init__(self, radius: int = 5, p: float = 0.5):
-        if radius != 5:
-            raise NotImplementedError(
-                "RandomGaussianBlur takes OpenCV's fixed 5-tap table; "
-                f"radius {radius} (a sigma-derived kernel) is not yet "
-                "ported (ROADMAP queue 1, RandomGaussianBlur radius)")
+        gaussian_taps(radius)
         self.radius = radius
         self.p = p
 
     def __call__(self, rng, image, label):
         if rng.rand() < self.p:
-            image = _blur5(image)
+            image = _gaussian_blur(image, self.radius)
         return image, label
 
 

@@ -14,9 +14,18 @@ card, with one wait per loader; checkpoints rotate keep-last-N
 validation runs each epoch (:271-278).  It runs on the card unless the
 caller asks for the CPU.  What the port does not have yet raises when the
 trainer is built (``NOT_PORTED``).
+
+``remat`` (True or a stage spec, ``backbone.py``) rematerialises the
+backbone's bottlenecks.  ``ckpt_backend: orbax`` (JAX ``trainer.py:
+220-260,380-410``) keeps the newest ``keep_last`` step checkpoints under
+``<save_path>/orbax/`` (``utils/orbax_io.py``, the port's own format):
+after the init-only ``weight`` load the newest step is restored, whatever
+``resume`` says; a SIGTERM is flushed at the next step boundary and the
+process exits with 143.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -45,13 +54,11 @@ _PARALLEL = "ROADMAP queue 1, parallel"
 ARCHS = ("fcn", "fcn_cnsn", "psp", "psa", "psa_lite")
 # (what is set, the ROADMAP item that ports it), checked in this order
 NOT_PORTED = (
-    (lambda c: c.ckpt_backend == "orbax", "ckpt_backend: orbax",
-     "ROADMAP queue 1, the remaining utils"),
     (lambda c: c.fsdp, "fsdp", _PARALLEL),
     (lambda c: (c.num_devices or 1) > 1, "num_devices > 1", _PARALLEL),
     (lambda c: (c.spatial or 1) > 1, "spatial > 1", _PARALLEL),
-    (lambda c: c.remat, "remat", _PARALLEL),
 )
+CKPT_BACKENDS = ("msgpack", "orbax")
 # compute_dtype as the JAX SegConfig names it (jnp.dtype); params stay fp32
 DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -101,7 +108,9 @@ class SegConfig:
     seed: int = 1
     print_freq: int = 10
     save_path: str = "./exp/seg"
-    ckpt_backend: str = "msgpack"   # torch.save files, keep-last rotation
+    # 'msgpack': torch.save files, keep-last rotation; 'orbax': step
+    # checkpoints, async saves, SIGTERM flush, auto-restore
+    ckpt_backend: str = "msgpack"
     snapshot: bool = True
     tensorboard: bool = False
     keep_last: int = 2
@@ -125,6 +134,9 @@ def _check_ported(cfg: SegConfig) -> None:
                 f"{what} is not yet ported to cnsn_tpu_torch ({item})")
     if cfg.arch not in ARCHS:
         raise ValueError(f"unknown arch {cfg.arch}")
+    if cfg.ckpt_backend not in CKPT_BACKENDS:
+        raise ValueError(f"ckpt_backend {cfg.ckpt_backend!r}: one of "
+                         f"{CKPT_BACKENDS}")
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: None, "
                          f"'float32' or 'bfloat16'")
@@ -228,20 +240,37 @@ class SegTrainer:
         self.writer = MetricWriter(os.path.join(cfg.save_path, "metrics"),
                                    tensorboard=cfg.tensorboard)
         self._epoch = cfg.start_epoch
+        self.ckpt = self._preempt = None
+        if cfg.ckpt_backend == "orbax":
+            from ..utils.orbax_io import (OrbaxCheckpointer,
+                                          install_preemption_save)
+            self.ckpt = OrbaxCheckpointer(
+                os.path.join(os.path.abspath(cfg.save_path), "orbax"),
+                keep=cfg.keep_last)
+            self._preempt = install_preemption_save(
+                lambda: (self.state.step, self.state), self.ckpt,
+                get_extra=lambda: {"epoch": self._epoch}, exit_code=143,
+                before_exit=self.close)
         if cfg.weight and os.path.isfile(cfg.weight):
             # init-only load (reference --weight vs --resume,
             # train_cnsn.py:179-204): weights and statistics, no optimizer
             self.state.model.load_state_dict(
                 load_checkpoint(cfg.weight)["state_dict"], strict=True)
             print(f"=> loaded weight '{cfg.weight}'")
-        if cfg.resume:
+        # the full restore after the weight load (the reference's
+        # precedence); orbax restores its newest step whatever resume says,
+        # so a restart after a SIGTERM flush goes on where the run stopped
+        restored = 0
+        if self.ckpt is not None:
+            restored = self.resume()
+        elif cfg.resume:
             if os.path.isfile(cfg.resume):
                 restored = self.resume(cfg.resume)
-                if restored:
-                    cfg.start_epoch = restored
-                    self._epoch = restored
             else:
                 print(f"=> no checkpoint found at '{cfg.resume}'")
+        if restored:
+            cfg.start_epoch = restored
+            self._epoch = restored
 
     def train_epoch(self, epoch: int):
         cfg = self.cfg
@@ -275,11 +304,13 @@ class SegTrainer:
         for i, (im, lb) in enumerate(staged):
             aug = bool(has_cn and self._gate.rand(1)[0] < cfg.mix_prob)
             self.gates.append(aug)
-            if aug:
-                self.state, m = self.steps.aug(self.state, im, lb,
-                                               generator=self._draws)
-            else:
-                self.state, m = self.steps.plain(self.state, im, lb)
+            with (self._preempt.step() if self._preempt is not None
+                  else contextlib.nullcontext()):
+                if aug:
+                    self.state, m = self.steps.aug(self.state, im, lb,
+                                                   generator=self._draws)
+                else:
+                    self.state, m = self.steps.plain(self.state, im, lb)
             step = epoch * len(self.train_loader) + i + 1
             pending.append((m, int(im.shape[0]), step))
             if (i + 1) % cfg.print_freq == 0:
@@ -339,17 +370,36 @@ class SegTrainer:
         return {"loss": loss, "mIoU": miou, "mAcc": macc, "allAcc": aacc,
                 "iou_class": inter / np.maximum(union, 1e-10)}
 
-    def resume(self, path: str) -> int:
+    def resume(self, path: Optional[str] = None) -> int:
         """Restore weights, statistics, momentum buffers and the update
-        count; returns the epoch (train_cnsn.py:191-204 --resume)."""
+        count; returns the epoch (train_cnsn.py:191-204 --resume).  Under
+        orbax ``path`` is ignored: the newest step of ``<save_path>/
+        orbax`` (0 where there is none)."""
+        if self.ckpt is not None:
+            self.state, step, extra = self.ckpt.restore(
+                self.state, extra_template={"epoch": 0})
+            if step is None:
+                return 0
+            epoch = int(extra["epoch"])
+            print(f"=> restored orbax step {step} (epoch {epoch})")
+            return epoch
+        if path is None:
+            raise ValueError("the msgpack backend resumes from a "
+                             "checkpoint path")
         self.state, epoch, _ = restore_state(path, self.state)
         print(f"=> loaded checkpoint '{path}' (epoch {epoch})")
         return epoch
 
     def save_checkpoint(self, epoch: int) -> str:
         """``seg_last_ckpt`` and ``seg_ckpt_<epoch>``, the newest
-        ``keep_last`` epoch files kept (train_cnsn.py:255-261)."""
+        ``keep_last`` epoch files kept (train_cnsn.py:255-261); under
+        orbax an asynchronous save of the step, the newest ``keep_last``
+        steps kept."""
         cfg = self.cfg
+        if self.ckpt is not None:
+            self.ckpt.save(self.state.step, self.state,
+                           extra={"epoch": epoch})
+            return os.path.join(self.ckpt.directory, str(self.state.step))
         path = _save(self.state, "seg", cfg.save_path, epoch, 0.0, False,
                      keep_epoch_file=True)
         epochs = sorted(
@@ -374,10 +424,16 @@ class SegTrainer:
                     self.validate()
                 if self.cross_loader:
                     self.validate(self.cross_loader, tag="cross-domain")
+        if self.ckpt is not None:
+            self.ckpt.wait_until_finished()
         return self.state
 
     def close(self):
+        """Close the metric writer and finish a checkpoint write in
+        flight."""
         self.writer.close()
+        if self.ckpt is not None:
+            self.ckpt.wait_until_finished()
 
 
 def config_fields():

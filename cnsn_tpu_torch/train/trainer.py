@@ -13,9 +13,19 @@ function per batch; the evaluation (CIFAR-C, or ImageNet-C and its mCE),
 the card unless the caller asks for the CPU.  The loaders' worker pools
 live until ``close()``, so a second ``fit()`` keeps them.  What the port
 does not have yet raises when the Trainer is built (``NOT_PORTED``).
+
+``remat`` reaches only the ResNet models, as in JAX (``cnsn_tpu/train/
+trainer.py:58-59``): on the CIFAR models it is ignored, not refused.
+``ckpt_backend: orbax`` (JAX ``trainer.py:153-185,323-343``) keeps step
+checkpoints under ``<exp>/orbax/`` (``utils/orbax_io.py``; the port's own
+format, which the JAX package does not read): ``resume=`` is the
+experiment directory, whose newest step is restored with its epoch and
+best accuracy; each epoch ends with an asynchronous save; a SIGTERM is
+flushed at the next step boundary and the process exits with 143.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Iterable, Iterator, Optional
@@ -45,12 +55,10 @@ DTYPES = {"fp32": None, "bf16": torch.bfloat16}
 _PARALLEL = "ROADMAP queue 1, parallel"
 # (what is set, the ROADMAP item that ports it), checked in this order
 NOT_PORTED = (
-    (lambda c: c.ckpt_backend == "orbax", "ckpt_backend: orbax",
-     "ROADMAP queue 1, the remaining utils"),
     (lambda c: c.fsdp, "fsdp", _PARALLEL),
     (lambda c: (c.num_devices or 1) > 1, "num_devices > 1", _PARALLEL),
-    (lambda c: c.remat, "remat", _PARALLEL),
 )
+CKPT_BACKENDS = ("msgpack", "orbax")
 
 # regime → (the StepFns method the gate picks, the one it picks
 # otherwise) (cnsn_tpu/train/trainer.py:259-283); None: no gated step
@@ -72,6 +80,9 @@ def _check_ported(cfg: ExperimentConfig) -> None:
                 f"cnsn_tpu_torch ({item})")
     if cfg.regime not in _GATED:
         raise ValueError(cfg.regime)
+    if cfg.ckpt_backend not in CKPT_BACKENDS:
+        raise ValueError(f"ckpt_backend {cfg.ckpt_backend!r}: one of "
+                         f"{CKPT_BACKENDS}")
     if cfg.dataset not in ("cifar10", "cifar100", "imagenet"):
         raise ValueError(f"unknown dataset: {cfg.dataset}")
     if cfg.dataset == "imagenet" and cfg.no_jsd:
@@ -114,11 +125,14 @@ class Trainer:
         _check_ported(cfg)
         np.random.seed(cfg.seed)
 
+        model_kw = dict(pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
+                        cnsn_type=cfg.cnsn_type,
+                        dtype=DTYPES[cfg.compute_dtype])
+        if cfg.model.startswith("resnet"):
+            model_kw["remat"] = cfg.remat
         self.model = build_model(
             cfg.model, cfg.num_classes,
-            generator=torch.Generator().manual_seed(cfg.seed), pos=cfg.pos,
-            crop=cfg.crop, beta=cfg.beta, cnsn_type=cfg.cnsn_type,
-            dtype=DTYPES[cfg.compute_dtype])
+            generator=torch.Generator().manual_seed(cfg.seed), **model_kw)
 
         self.image_size = cfg.resolved_image_size
         augmix = "augmix" in cfg.regime
@@ -183,7 +197,10 @@ class Trainer:
 
         self.start_epoch = 0
         self.best_acc = 0.0
-        if cfg.resume and os.path.isfile(cfg.resume):
+        self.ckpt = self._preempt = self._staged = None
+        if cfg.ckpt_backend == "orbax":
+            self._init_orbax()
+        elif cfg.resume and os.path.isfile(cfg.resume):
             self.state, self.start_epoch, self.best_acc = restore_state(
                 cfg.resume, self.state)
             self.exp_dir = os.path.dirname(cfg.resume)
@@ -214,6 +231,38 @@ class Trainer:
             if cfg.dataset == "imagenet" else {})
         # seconds the step loop waited for each staged batch, last epoch
         self.data_wait = AverageMeter()
+
+    def _init_orbax(self) -> None:
+        """The experiment directory (``resume=`` when it is one), its
+        newest step restored, then the SIGTERM handler: installed only
+        once ``_epoch`` exists, which the handler reads."""
+        from ..utils.orbax_io import OrbaxCheckpointer, install_preemption_save
+        cfg = self.cfg
+        if cfg.resume and os.path.isdir(cfg.resume):
+            self.exp_dir = cfg.resume
+        else:
+            self.exp_dir = get_log_dir_path(cfg.exp_dir, cfg.exp_id)
+            os.makedirs(self.exp_dir, exist_ok=True)
+        self.ckpt = OrbaxCheckpointer(
+            os.path.join(os.path.abspath(self.exp_dir), "orbax"), keep=2)
+        self.state, step, extra = self.ckpt.restore(
+            self.state, extra_template={"epoch": 0, "best_acc": 0.0})
+        if step is not None:
+            self.start_epoch = int(extra["epoch"])
+            self.best_acc = float(extra["best_acc"])
+            print(f"=> restored orbax step {step} "
+                  f"(epoch {self.start_epoch})")
+        self._epoch = self.start_epoch
+        self._preempt = install_preemption_save(
+            lambda: (self.state.step, self.state), self.ckpt,
+            get_extra=lambda: {"epoch": self._epoch,
+                               "best_acc": self.best_acc},
+            exit_code=143, before_exit=self.close)
+
+    def _step_guard(self):
+        """The block of one step: a SIGTERM inside it is flushed after."""
+        return (self._preempt.step() if self._preempt is not None
+                else contextlib.nullcontext())
 
     def _load_pretrained(self, path: str) -> int:
         """A torch .pth (a bare state dict, or one under 'state_dict') into
@@ -252,19 +301,21 @@ class Trainer:
         # per-step losses stay on the device; resolving each at once would
         # make the host wait for every step
         pending = []
-        staged = device_prefetch(self.train_loader, batch_put(self.device),
-                                 depth=cfg.prefetch_depth)
-        for i, (im, lb) in enumerate(_timed(staged, self.data_wait)):
+        staged = self._staged = _timed(
+            device_prefetch(self.train_loader, batch_put(self.device),
+                            depth=cfg.prefetch_depth), self.data_wait)
+        for i, (im, lb) in enumerate(staged):
             if self.ondevice:
                 im = self.augmix_views(im)
             gate = (cfg.cn_prob is not None
                     and float(self._rng.rand(1)[0]) < cfg.cn_prob)
-            if gate and self._gated is not None:
-                self.state, metrics = getattr(self.steps, self._gated)(
-                    self.state, im, lb, generator=self._draws)
-            else:
-                self.state, metrics = getattr(self.steps, self._ungated)(
-                    self.state, im, lb)
+            with self._step_guard():
+                if gate and self._gated is not None:
+                    self.state, metrics = getattr(self.steps, self._gated)(
+                        self.state, im, lb, generator=self._draws)
+                else:
+                    self.state, metrics = getattr(self.steps, self._ungated)(
+                        self.state, im, lb)
             pending.append((metrics["loss"], int(lb.shape[-1])))
             if i % cfg.print_freq == 0:
                 _resolve(pending, losses)
@@ -290,15 +341,24 @@ class Trainer:
             f.write("epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1\n")
 
         for epoch in range(self.start_epoch, epochs):
+            self._epoch = epoch
             lr = float(self.schedule(self.state.step))
             t0 = time.time()
             train_loss = self.train_epoch()
             test_loss, test_acc = self.evaluate_clean()
             is_best = test_acc > self.best_acc
             self.best_acc = max(test_acc, self.best_acc)
-            save_checkpoint(self.state, type(self.state.model).__name__,
-                            self.exp_dir, epoch + 1, self.best_acc, is_best,
-                            keep_epoch_file=(cfg.dataset == "imagenet"))
+            if self.ckpt is not None:
+                # the write overlaps the next epoch's steps
+                self.ckpt.save(self.state.step, self.state,
+                               extra={"epoch": epoch + 1,
+                                      "best_acc": self.best_acc},
+                               metrics={"test_acc": float(test_acc)})
+            else:
+                save_checkpoint(self.state, type(self.state.model).__name__,
+                                self.exp_dir, epoch + 1, self.best_acc,
+                                is_best,
+                                keep_epoch_file=(cfg.dataset == "imagenet"))
             with open(self.log_file, "a") as f:
                 f.write(f"{epoch:d}\t{lr:g}\t{train_loss:2.2f}\t"
                         f"{100 - 100. * test_acc:2.2f}\t"
@@ -306,14 +366,26 @@ class Trainer:
             print(f"epoch {epoch}: loss {train_loss:.3f} "
                   f"err {100 - 100. * test_acc:.2f} "
                   f"({time.time() - t0:.1f}s)")
+        if self.ckpt is not None:
+            self.ckpt.wait_until_finished()
         return self.best_acc
 
     def close(self):
-        """Stop the loaders' worker pools (idempotent).  ``fit`` leaves
-        them running, so that a second ``fit`` keeps its AugMix workers;
-        the CLI closes the Trainer when it is done."""
+        """Stop the epoch's staging thread and the loaders' worker pools,
+        and finish a checkpoint write in flight (idempotent).  ``fit``
+        leaves the pools running, so that a second ``fit`` keeps its
+        AugMix workers; the CLI closes the Trainer when it is done, and a
+        SIGTERM flush before the process exits."""
+        if self._staged is not None:
+            try:
+                self._staged.close()
+            except ValueError:  # the flush runs inside the staging loop
+                pass
+            self._staged = None
         for ld in (self.train_loader, self.test_loader):
             ld.close()
+        if self.ckpt is not None:
+            self.ckpt.wait_until_finished()
 
     def test_corruptions(self) -> float:
         cfg = self.cfg

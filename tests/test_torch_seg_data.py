@@ -116,8 +116,16 @@ def test_rotation_matrix_is_opencvs():
 
 
 def test_wider_blur_is_not_ported():
-    with pytest.raises(NotImplementedError, match="5-tap"):
-        P.RandomGaussianBlur(radius=7)
+    """(The name predates the wider blur's port.)  A radius other than 5
+    builds and, at 7 taps, blurs as JAX's cv2 path within the linear
+    transforms' bound; an even radius raises when built, where cv2 raises
+    when called (``tests/test_torch_seg_blur.py`` holds every radius)."""
+    for seed in SEEDS[:3]:
+        got, want = _both(lambda M: M.RandomGaussianBlur(radius=7, p=1.0),
+                          seed)
+        assert float(np.abs(got[0] - want[0]).max()) <= LINEAR_TOL, seed
+    with pytest.raises(ValueError, match="odd"):
+        P.RandomGaussianBlur(radius=6)
 
 
 def _cfg(**kw):

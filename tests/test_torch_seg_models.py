@@ -220,10 +220,12 @@ def test_backbone_out_aux_match_jax(name, monkeypatch):
 
 
 def test_remat_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1, parallel"):
-        SegResNet(layers=(1, 1, 1, 1), remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        fcn_cnsn(19, remat="1_2")
+    """(The name predates remat's port.)  remat builds: True
+    rematerialises every stage's bottlenecks, a spec the listed stages
+    (JAX's ``remat_stages``; tests/test_torch_remat.py holds the steps)."""
+    assert SegResNet(layers=(1, 1, 1, 1), remat=True).remat_stages == {
+        1, 2, 3, 4}
+    assert SegResNet(layers=(1, 1, 1, 1), remat="1_2").remat_stages == {1, 2}
 
 
 def test_head_dropout_rate_and_eval_identity():

@@ -283,12 +283,39 @@ def test_psp_archs_build_and_step(arch, cls, tmp_path):
 
 @pytest.mark.parametrize("over,match", [
     (dict(fsdp=True), "parallel"), (dict(num_devices=2), "parallel"),
-    (dict(spatial=2), "parallel"), (dict(remat=True), "parallel"),
-    (dict(ckpt_backend="orbax"), "remaining utils")])
-def test_unported_knobs_raise(over, match, tmp_path):
-    cfg = SegConfig(save_path=str(tmp_path), snapshot=False, **over)
-    with pytest.raises(NotImplementedError, match=match):
-        SegTrainer(cfg, synthetic_seg_dataset(4, hw=(41, 41)), device="cpu")
+    (dict(spatial=2), "parallel"), (dict(remat=True), None),
+    (dict(ckpt_backend="orbax"), None)])
+def test_unported_knobs_raise(over, match, tmp_path, monkeypatch):
+    """fsdp, num_devices > 1 and spatial > 1 name ROADMAP's parallel
+    item.  remat and the orbax backend, which raised before they were
+    ported, build and take a step (an FCN-CNSN at layers (1, 1, 1, 1)):
+    every backbone stage rematerialised; a step checkpoint under
+    save_path/orbax."""
+    kw = dict(save_path=str(tmp_path), snapshot=False, **over)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            SegTrainer(SegConfig(**kw), synthetic_seg_dataset(
+                4, hw=(41, 41)), device="cpu")
+        return
+    cfg = SegConfig(train_h=33, train_w=33, batch_size=2, classes=5,
+                    print_freq=1, **kw)
+    monkeypatch.setattr(port_fcn, "seg_resnet50", lambda **k: SegResNet(
+        layers=(1, 1, 1, 1), **k))
+    trainer = SegTrainer(cfg, synthetic_seg_dataset(2, hw=(41, 41),
+                                                    classes=5), device="cpu")
+    try:
+        assert trainer.model.backbone.remat_stages == (
+            {1, 2, 3, 4} if over.get("remat") else set())
+        loss, _, _, _ = trainer.train_epoch(0)
+        assert trainer.state.step == 1 and np.isfinite(loss)
+        if over.get("ckpt_backend") == "orbax":
+            trainer.save_checkpoint(1)
+            trainer.ckpt.wait_until_finished()
+            assert trainer.ckpt.all_steps() == [1]
+            assert trainer.ckpt.directory == os.path.join(str(tmp_path),
+                                                          "orbax")
+    finally:
+        trainer.close()
 
 
 def test_trainer_defaults_to_cuda_and_cli_checks(tmp_path):

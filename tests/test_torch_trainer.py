@@ -303,23 +303,65 @@ def test_resume_restores_weights_momentum_and_step(small, tmp_path):
         assert torch.equal(v, r.state.model.state_dict()[k]), k
 
 
+# a ResNet-50 at 32², b=2: the ImageNet recipes' model, remat reaching it
+_R50_REMAT = dict(dataset="imagenet", model="resnet50", cnsn_type="sn",
+                  pos="post", image_size=32, batch_size=2, remat=True)
+
+
 @pytest.mark.parametrize("recipe,over,match", [
-    (CNSN, dict(ckpt_backend="orbax"), "orbax"),
+    (CNSN, dict(ckpt_backend="orbax"), None),
     (CNSN, dict(fsdp=True), "fsdp"),
     (CNSN, dict(num_devices=2), "num_devices"),
-    (CNSN, dict(remat=True), "remat"),
-    (CNSN, dict(dataset="imagenet", remat=True), "remat"),
+    (CNSN, dict(remat=True), None),
+    (CNSN, _R50_REMAT, None),
     ("cnsn-augmix.yaml", dict(fsdp=True), "fsdp"),
 ])
 def test_unported_knobs_raise_at_construction(recipe, over, match,
-                                              tmp_path):
-    """Each names its ROADMAP item, before anything is built or written,
-    on CIFAR, ImageNet and an AugMix recipe alike."""
-    cfg = load_config(os.path.join(_WRN, recipe), exp_dir=str(tmp_path),
-                      **over)
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
-        Trainer(cfg, device="cpu")
-    assert os.listdir(tmp_path) == []
+                                              tmp_path, monkeypatch):
+    """fsdp and num_devices > 1 name their ROADMAP item, before anything is
+    built or written, on CIFAR and an AugMix recipe alike.  The knobs this
+    name listed before they were ported build and take a step: orbax (its
+    checkpointer under the experiment directory), remat on WRN (ignored,
+    as JAX ignores it on a non-ResNet: cnsn_tpu/train/trainer.py:58-59)
+    and on an ImageNet ResNet-50 (every bottleneck rematerialised)."""
+    data = (dict(data_dir=_image_folder(tmp_path / "data"))
+            if over.get("dataset") == "imagenet"
+            else dict(synthetic_data=True))
+    exp = tmp_path / "exp"
+    cfg = load_config(os.path.join(_WRN, recipe), exp_dir=str(exp),
+                      snapshot=False, **data, **over)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
+            Trainer(cfg, device="cpu")
+        assert not exp.exists()
+        return
+    import cnsn_tpu_torch.models.remat as remat_mod
+    calls = []
+    checkpoint = remat_mod.checkpoint
+    monkeypatch.setattr(remat_mod, "checkpoint",
+                        lambda *a, **k: calls.append(1) or checkpoint(*a, **k))
+    t = Trainer(cfg, device="cpu")
+    try:
+        size = cfg.image_size or 32
+        rng = np.random.RandomState(0)
+        images = torch.from_numpy(rng.randn(cfg.batch_size, size, size, 3)
+                                  .astype(np.float32))
+        labels = torch.from_numpy(rng.randint(0, t.cfg.num_classes,
+                                              cfg.batch_size))
+        before = [p.detach().clone() for p in t.state.model.parameters()]
+        _, metrics = t.steps.plain(t.state, images, labels)
+        assert np.isfinite(float(metrics["loss"])) and t.state.step == 1
+        assert any(not torch.equal(p, q) for p, q in
+                   zip(t.state.model.parameters(), before))
+        resnet = over.get("model") == "resnet50"
+        assert getattr(t.model, "remat", False) is resnet
+        assert len(calls) == (16 if resnet else 0)
+        if over.get("ckpt_backend") == "orbax":
+            assert t.ckpt.save(t.state.step, t.state, wait=True)
+            assert t.ckpt.all_steps() == [1]
+            assert os.path.dirname(t.ckpt.directory) == t.exp_dir
+    finally:
+        t.close()
 
 
 def _image_folder(root):
