@@ -4,6 +4,15 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp-only [--ranks N]   # the data-parallel phases alone
+    python3 chip_smoke.py --dp-only --dp-seeds 0,1,2,3,4,5,6,7 \
+        --plant sums_bwd,gather_bwd,grads
+
+(``--ranks`` N > 2 needs N cards: one NCCL rank a card.  ``--dp-seeds``
+adds the reduced two-rank comparison at each input seed; ``--plant``
+plants each fault in fresh ranks, the backward of the BatchNorm sums'
+all-reduce or of SelfNorm's gather made the identity, or no gradient
+average, which every comparison must then put over its bound.)
 
 It builds the port's CUDA kernels (K1 instance statistics, K2 BatchNorm
 sums, K3 eval SelfNorm, K4 3×3 conv weight gradient) from the sources in
@@ -116,7 +125,22 @@ BatchNorm2d layer, K1 once per SelfNorm site and image statistics):
     b=128: the clean step bit for bit, a NaN pixel named, its cost;
   * serving (build_classifier → export_classifier → save_artifact →
     load_artifact → requests at b=1 and b=64), timed and profiled, after
-    the full-width eval forward is held against the CPU's.
+    the full-width eval forward is held against the CPU's;
+  * data parallelism across processes (``cnsn_tpu_torch/parallel/``):
+    two gloo ranks sharing the card (``RankPool``) against one process
+    in float32, the reduced ResNet-50+SN's three steps each against its
+    mask-replaying float64 twin (bound 8× the largest error of four
+    one-process witnesses), and at full width (global b=128) the
+    flagship's plain and cn_image steps and WRN-40-2 cnsn.yaml's cn step,
+    each against its mask-replaying float64 twin on the card (bound 8×
+    the one process's error), the running statistics equal on both
+    ranks, each rank's launches and collectives a step; the flagship's
+    plain step through an NCCL group of one rank equal bit for bit to
+    the step without a group; the flagship at b=128 bf16 on two ranks,
+    ms a step against one process, the collectives' wall time and the
+    peak a rank; ``cli train num_devices=2`` of WRN-40-2 cnsn.yaml and
+    ``cli seg-train num_devices=2`` of gtav_fcn50_cnsn.yaml at b=16 713²,
+    each read back by a one-process ``eval`` / ``seg-eval``.
 
 Weights and data are random, drawn from seeds.  Every phase prints one
 JSON line; any failure raises and exits non-zero.  The last lines are
@@ -268,6 +292,11 @@ CIFAR_RECIPES = tuple(
     os.path.join(ROOT, "cnsn_tpu", "configs", "cifar10", "wideresnet",
                  "cnsn-consist.yaml"),)
 CIFAR_GATED_STEPS = 3  # the gated step timed alone, before its profile
+# the timed windows of train_cifar_models, train_resnet_ibn_augmix and
+# train_cifar_augmix: two, where train and train_wrn time three, to keep
+# the whole run within its time (each step's launches are still checked)
+CIFAR_WINDOWS = 2
+CIFAR_STEPS = WARMUP + CIFAR_WINDOWS * WINDOW
 # a forward's train-mode forwards by step kind: plain, a cn step, and a
 # consistency step's clean and two CrossNorm forwards
 FORWARDS = {"plain": (False,), "cn": (True,),
@@ -322,7 +351,9 @@ SEG_DIR = os.path.join(ROOT, "cnsn_tpu", "configs", "segmentation")
 SEG_RECIPE = os.path.join(SEG_DIR, "gtav_fcn50_cnsn.yaml")
 SEG_BASE_RECIPE = os.path.join(SEG_DIR, "gtav_fcn50.yaml")
 SEG_BN, SEG_SN = 55, 16
-SEG_STEPS, SEG_BASE_STEPS, SEG_BF16_STEPS = 8, 4, 6
+# train_seg's epoch of 4 steps: the gate RandomState(1 + 17) opens the aug
+# step at the fourth
+SEG_STEPS, SEG_BASE_STEPS, SEG_BF16_STEPS = 4, 4, 6
 SEG_VAL_IMAGES = 16
 # PSPNet, PSANet and PSALite on the same recipe (arch=psp, psa, psa_lite):
 # the 'psp' dilation leaves every plane's size, so PSPNet's BatchNorm2d
@@ -744,8 +775,6 @@ def phase_k4_vs_plain(dev, flush):
 def phase_model_vs_cpu(dev):
     from cnsn_tpu_torch import build_classifier
     from cnsn_tpu_torch.ops.kernels import LAUNCHES
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(seed=0, pos="post", cnsn_type="sn")
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(4, IMAGE, IMAGE, 3, generator=gen)
@@ -754,7 +783,7 @@ def phase_model_vs_cpu(dev):
         want = cpu_model(images)
     del cpu_model
     model = build_classifier("resnet50", 1000, device=dev, **kw)
-    with torch.no_grad():
+    with torch.no_grad(), tf32_off():
         model(images.to(dev))  # warm-up: cuDNN picks its algorithms
         torch.cuda.synchronize()
         LAUNCHES.clear()
@@ -960,6 +989,22 @@ def train_flops_per_step(model, batch, image=IMAGE):
 
 
 @contextlib.contextmanager
+def tf32_off():
+    """cuDNN's and cuBLAS's float32 in full precision for a block (no
+    TF32), the flags restored after: a later phase, or ``cli`` run in
+    this process, computes as a user's process does."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@contextlib.contextmanager
 def env_vars(**values):
     """Environment variables set for a block, restored after."""
     old = {k: os.environ.get(k) for k in values}
@@ -1114,9 +1159,10 @@ def step_launches(step, per_step):
     return out
 
 
-def timed_windows(step):
-    """``step(i)`` for i in range(TRAIN_STEPS), timed as bench.py times
-    its loop: WARMUP steps, then WINDOWS windows of WINDOW steps, the host
+def timed_windows(step, windows=WINDOWS):
+    """``step(i)`` for i in range(WARMUP + windows · WINDOW), timed as
+    bench.py times its loop: WARMUP steps, then ``windows`` windows of
+    WINDOW steps, the host
     waiting for each window's last loss; the launches of each step
     (``step_launches``), the peak memory counted from the first window.
     Returns (launches per step, losses on the host, ms per step of each
@@ -1132,7 +1178,7 @@ def timed_windows(step):
     float(losses[-1])
     warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    for w in range(WINDOWS):
+    for w in range(windows):
         t0 = time.perf_counter()
         for i in range(WARMUP + w * WINDOW, WARMUP + (w + 1) * WINDOW):
             one(i)
@@ -2156,8 +2202,9 @@ def phase_train_cifar_models(dev):
     cnsn-consist.yaml (cn_consistency), and WRN-40-2's cnsn-consist.yaml:
     each at b=128 32² bf16 under CNSN_CONV3X3=pallas, gated by
     ``RandomState(GATE_SEED).rand() < cn_prob`` (the gated step or plain,
-    as ``cnsn_tpu/train/trainer.py:263-266`` picks), TRAIN_STEPS steps
-    timed as train_wrn times them (``timed_windows``), every step's
+    as ``cnsn_tpu/train/trainer.py:263-266`` picks), CIFAR_STEPS steps
+    timed as train_wrn times them (``timed_windows``, two windows),
+    every step's
     launches checked against ``expected_launches`` (K4 by kernel
     from the path rule at the model's shapes); the peak memory; a profile
     of one gated step (its K1 and K2 kernels checked); then one eval step
@@ -2181,7 +2228,7 @@ def phase_train_cifar_models(dev):
         labels = torch.randint(0, cfg.num_classes, (b,),
                                generator=gen).to(dev)
         draws = torch.Generator().manual_seed(cfg.seed)
-        gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < cfg.cn_prob
+        gates = np.random.RandomState(GATE_SEED).rand(CIFAR_STEPS) < cfg.cn_prob
         gated = getattr(steps, cfg.regime)
 
         def step(cn):
@@ -2195,7 +2242,7 @@ def phase_train_cifar_models(dev):
         torch.cuda.synchronize()
         LAUNCHES.clear()
         per_step, losses, window_ms, warmup_s = timed_windows(
-            lambda i: step(gates[i]))
+            lambda i: step(gates[i]), CIFAR_WINDOWS)
         counts = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         med = statistics.median(window_ms)
@@ -2204,7 +2251,7 @@ def phase_train_cifar_models(dev):
               "cnsn_type": cfg.cnsn_type, "crop": cfg.crop,
               "cn_prob": cfg.cn_prob, "active_num": cfg.active_num,
               "consist_wt": cfg.consist_wt, "conv3x3": "pallas", "batch": b,
-              "image": WRN_IMAGE, "dtype": "bfloat16", "steps": TRAIN_STEPS,
+              "image": WRN_IMAGE, "dtype": "bfloat16", "steps": CIFAR_STEPS,
               "gated_steps": int(gates.sum()),
               "gates": [int(g) for g in gates],
               "k4_per_forward_by_kernel": k4,
@@ -2258,7 +2305,7 @@ def phase_train_cifar_models(dev):
         check(ev["logits"].shape == (b, cfg.num_classes)
               and bool(torch.isfinite(ev["logits"]).all()),
               f"finite {name} eval logits")
-        out[name] = {"train": counts, "eval": k3, "steps": TRAIN_STEPS,
+        out[name] = {"train": counts, "eval": k3, "steps": CIFAR_STEPS,
                      "ms_per_step": med}
         del state, images, ev
         torch.cuda.empty_cache()
@@ -2473,7 +2520,7 @@ def time_loader(loader):
 def phase_imagenet_loader(root):
     """The ImageNet host loaders alone on a PIL-written folder
     (``write_fake_imagenet``): 'train' at b=128 (the recipes' batch) with
-    the recipes' 4 decode threads and with one a core, 'eval' at the
+    the recipes' 4 decode threads, 'eval' at the
     recipes' eval batch, 'train_augmix' at b=256 (the IBN-b recipe's)
     with os.cpu_count() − 1 worker processes.  Returns the paths and ms
     per batch."""
@@ -2492,8 +2539,6 @@ def phase_imagenet_loader(root):
     for name, loader in (
             (f"train_b{cfg.batch_size}_threads{cfg.workers}",
              ImageNetLoader(train, cfg.batch_size, workers=cfg.workers)),
-            (f"train_b{cfg.batch_size}_threads{ncpu}",
-             ImageNetLoader(train, cfg.batch_size, workers=ncpu)),
             (f"eval_b{cfg.eval_batch_size}_threads{cfg.workers}",
              ImageNetLoader(val, cfg.eval_batch_size, mode="eval",
                             workers=cfg.workers))):
@@ -2673,8 +2718,9 @@ def phase_train_resnet_ibn_augmix(dev, data_dir):
     """``imagenet/resnet50_ibn_b/cnsn-augmix.yaml`` (ResNet-50-IBN-b, SN
     at pos 'residual': 16 sites, an InstanceNorm stem, so 52 BatchNorms;
     cn_image_augmix gated at cn_prob 0.5, else augmix) at b=IBN_BATCH
-    224² bf16: TRAIN_STEPS steps of the step loop on pre-made (3, B)
-    views from seeds, timed as train_wrn (``timed_windows``), each step's
+    224² bf16: CIFAR_STEPS steps of the step loop on pre-made (3, B)
+    views from seeds, timed as train_wrn (``timed_windows``, two
+    windows), each step's
     launches against the count (K2 52, K1 16 each way, K1 one more on the
     gated step: the image statistics of the 3B batch), the peak memory;
     an eval step through K3 (16); then ``cli train`` of one epoch of 2
@@ -2711,7 +2757,7 @@ def phase_train_resnet_ibn_augmix(dev, data_dir):
     images3 = torch.randn(3, b, IMAGE, IMAGE, 3, generator=gen).to(dev)
     labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).to(dev)
     perm_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    gates = np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS) < cfg.cn_prob
+    gates = np.random.RandomState(GATE_SEED).rand(CIFAR_STEPS) < cfg.cn_prob
 
     def step(i):
         if gates[i]:
@@ -2724,7 +2770,8 @@ def phase_train_resnet_ibn_augmix(dev, data_dir):
     want = {False: plain, True: dict(plain, ins_stats=n_sn + 1)}
     torch.cuda.synchronize()
     LAUNCHES.clear()
-    per_step, losses, window_ms, warmup_s = timed_windows(step)
+    per_step, losses, window_ms, warmup_s = timed_windows(step,
+                                                          CIFAR_WINDOWS)
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     med = statistics.median(window_ms)
@@ -2736,7 +2783,7 @@ def phase_train_resnet_ibn_augmix(dev, data_dir):
     emit({"phase": "train_resnet_ibn_augmix",
           "recipe": os.path.relpath(IBN_RECIPE, ROOT), "regime": cfg.regime,
           "batch": b, "recipe_batch": cfg.batch_size, "views": 3,
-          "image": IMAGE, "dtype": "bfloat16", "steps": TRAIN_STEPS,
+          "image": IMAGE, "dtype": "bfloat16", "steps": CIFAR_STEPS,
           "gated_steps": int(gates.sum()), "gates": [int(g) for g in gates],
           "launches": counts, "expected_per_step": {
               "augmix": want[False], "cn_image_augmix": want[True]},
@@ -2798,7 +2845,7 @@ def phase_train_cifar_augmix(dev):
     gated at cn_prob 0.75 else augmix) of WRN-40-2 and DenseNet-40-12:
     ``cli train`` of one synthetic epoch (4 steps at b=128, the host
     AugMix in 4 worker processes) and ``cli eval resume=``
-    (``cli_train_eval``, CNSN_CONV3X3=pallas); then TRAIN_STEPS steps of
+    (``cli_train_eval``, CNSN_CONV3X3=pallas); then CIFAR_STEPS steps of
     the step loop on pre-made (3, 128) views, timed, each step's launches
     against ``expected_launches`` (a 3B forward, and two B forwards with
     CrossNorm on a gated step); then one ``no_jsd=true`` epoch of
@@ -2826,7 +2873,7 @@ def phase_train_cifar_augmix(dev):
             labels = torch.randint(0, cfg.num_classes, (b,),
                                    generator=gen).to(dev)
             draws = torch.Generator().manual_seed(cfg.seed)
-            gates = (np.random.RandomState(GATE_SEED).rand(TRAIN_STEPS)
+            gates = (np.random.RandomState(GATE_SEED).rand(CIFAR_STEPS)
                      < cfg.cn_prob)
 
             def step(i):
@@ -2840,7 +2887,8 @@ def phase_train_cifar_augmix(dev):
                     for kind in ("augmix", "augmix_cn")}
             torch.cuda.synchronize()
             LAUNCHES.clear()
-            per_step, losses, window_ms, warmup_s = timed_windows(step)
+            per_step, losses, window_ms, warmup_s = timed_windows(
+                step, CIFAR_WINDOWS)
             counts = dict(LAUNCHES)
             med = statistics.median(window_ms)
             expected = [want["augmix_cn" if g else "augmix"] for g in gates]
@@ -2849,7 +2897,7 @@ def phase_train_cifar_augmix(dev):
                   "regime": cfg.regime, "conv3x3": "pallas", "batch": b,
                   "views": 3, "dtype": "bfloat16", "cli_train_s": train_s,
                   "cli_log_rows": rows, "cli_eval_test_error": test_error,
-                  "steps": TRAIN_STEPS, "gated_steps": int(gates.sum()),
+                  "steps": CIFAR_STEPS, "gated_steps": int(gates.sum()),
                   "expected_per_step": want, "launches": counts,
                   "loss_first": losses[0].item(),
                   "loss_last": losses[-1].item(),
@@ -4755,6 +4803,584 @@ def phase_nan_guard(dev):
     torch.cuda.empty_cache()
 
 
+# ---- data parallelism across processes (parallel/) ------------------------
+
+DP_RANKS = 2            # gloo ranks sharing the card
+DP_BATCH = 128          # global batch of dp_card_vs_card and train_dp
+DP_DRAW_SEED = 11       # the CrossNorm steps' host generator, alike on ranks
+DP_WARMUP, DP_TIMED = 3, 10
+WRN_CNSN_RECIPE = WRN_CN_RECIPES[1]
+# (model, recipe, step) of dp_card_vs_card's full-width float32 steps
+DP_CASES = (("flagship", RECIPE, "plain"), ("flagship", RECIPE, "cn_image"),
+            ("wrn", WRN_CNSN_RECIPE, "cn"))
+
+
+def _dp_device():
+    from cnsn_tpu_torch.parallel import world
+    w = world()
+    return w.device if w is not None else torch.device("cuda", 0)
+
+
+def dp_state(recipe, dtype=None, float64=False):
+    """(cfg, dp, state, steps, images, labels): ``recipe``'s train state at
+    the global batch ``DP_BATCH`` in ``dtype`` (None: float32), or wholly
+    in ``float64``, on this process's device, built as the Trainer builds
+    it (the CrossNorm pairing in a block a rank: ``DP_RANKS`` blocks in
+    one process, the weights broadcast from rank 0), and this rank's rows
+    of seeded images and labels (every row in one process)."""
+    from cnsn_tpu_torch.config import load_config
+    from cnsn_tpu_torch.models import build_model
+    from cnsn_tpu_torch.parallel.mesh import DataParallel, make_mesh
+    from cnsn_tpu_torch.train import StepFns, cosine_lr, create_train_state
+    cfg = load_config(recipe)
+    dev = _dp_device()
+    dp = DataParallel(make_mesh())
+    # the ranks' count; in one process the width it stands in for
+    width = dp.num_shards if dp.num_shards > 1 else DP_RANKS
+    knobs = {"remat": False} if cfg.model.startswith("resnet") else {}
+    model = build_model(cfg.model, cfg.num_classes,
+                        generator=torch.Generator().manual_seed(cfg.seed),
+                        num_groups=width, pos=cfg.pos, crop=cfg.crop,
+                        beta=cfg.beta, cnsn_type=cfg.cnsn_type, dtype=dtype,
+                        **knobs)
+    if float64:
+        model.double()
+    state = create_train_state(model, cosine_lr(cfg.lr, 1000),
+                               momentum=cfg.momentum,
+                               weight_decay=cfg.weight_decay,
+                               nesterov=cfg.nesterov, device=dev)
+    dp.replicate(state.model)
+    steps = StepFns(active_num=cfg.active_num or 1,
+                    consist_wt=cfg.consist_wt or 0.0,
+                    image_crop=cfg.crop or "neither",
+                    image_beta=cfg.beta or 1.0, num_groups=width)
+    size = cfg.resolved_image_size
+    gen = torch.Generator().manual_seed(cfg.seed)
+    images = torch.randn(DP_BATCH, size, size, 3, generator=gen)
+    labels = torch.randint(0, cfg.num_classes, (DP_BATCH,), generator=gen)
+    if float64:
+        images = images.double()
+    return (cfg, dp, state, steps, dp.shard_batch(images).to(dev),
+            dp.shard_batch(labels).to(dev))
+
+
+def _dp_call(steps, state, kind, images, labels):
+    if kind == "plain":
+        return steps.plain(state, images, labels)
+    return getattr(steps, kind)(
+        state, images, labels,
+        generator=torch.Generator().manual_seed(DP_DRAW_SEED))
+
+
+def dp_step(recipe, kind, out=None, tape=False, replay=None, float64=False,
+            deterministic=False, keep=False):
+    """One ``kind`` step (TF32 off) of ``recipe``'s ``dp_state`` in this
+    process, or on this rank: float32, or the ``float64`` twin (K1's and
+    K2's plain versions, ``rounding.plain_kernels``).  Returns the global
+    loss, this process's K1-K4 launches and collectives, its peak GiB;
+    the step's loss and state (a ``rounding.Run``) are saved to ``out``
+    (``{rank}`` in it: the rank's), or returned under 'run' with
+    ``keep`` (in this process).  ``tape``: the ReLU masks and max-pool
+    choices recorded (``rounding._Tape``) and kept with them; ``replay``:
+    another run's tape, applied; ``deterministic``: cuDNN's deterministic
+    algorithms."""
+    import importlib
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.parallel import world
+    from cnsn_tpu_torch.parallel.distributed import COLLECTIVES
+    from cnsn_tpu_torch.train.rounding import (Run, _exact, _snapshot,
+                                               _Tape, plain_kernels)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        cfg, dp, state, steps, images, labels = dp_state(recipe,
+                                                         float64=float64)
+        record = _Tape(replay)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        COLLECTIVES.clear()
+        with contextlib.ExitStack() as stack:
+            if tape or replay is not None:
+                stack.enter_context(_exact(importlib.import_module(
+                    type(state.model).__module__), record))
+            if float64:
+                stack.enter_context(plain_kernels())
+            state, metrics = _dp_call(steps, state, kind, images, labels)
+        loss = float(dp.mean([metrics["loss"]])[0])
+        torch.cuda.synchronize()
+        res = {"loss": loss, "launches": dict(LAUNCHES),
+               "collectives": dict(COLLECTIVES),
+               "backend": getattr(world(), "backend", None),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        run = Run([loss], {1: _snapshot(state)},
+                  record.record if tape else [])
+        if keep:
+            res["run"] = run
+        elif out is not None:
+            torch.save({"losses": run.losses, "state": run.states[1],
+                        "tape": run.tape}, out.format(rank=dp.rank))
+        del state, steps, images, labels, record, run
+        torch.cuda.empty_cache()
+        return res
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def dp_rounding(seed):
+    """``train.rounding.run_steps`` on this rank's rows: three float32
+    steps of the reduced ResNet-50+SN from input ``seed``, the pairing
+    ``DP_PERM``."""
+    from cnsn_tpu_torch.train.rounding import DP_PERM, run_steps
+    run = run_steps(_dp_device(), torch.float32, perm=DP_PERM, seed=seed)
+    torch.cuda.empty_cache()
+    return run
+
+
+def _load_run(path):
+    from cnsn_tpu_torch.train.rounding import Run
+    payload = torch.load(path, weights_only=True)
+    return Run(payload["losses"], {1: payload["state"]}, payload["tape"])
+
+
+def _running(run):
+    return {k: v for k, v in run.states[1].items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def phase_dp_card_vs_card(dev, pool):
+    """Two gloo ranks sharing the card against one process, in float32,
+    each run against its float64 twin that replays its ReLU masks and
+    max-pool choices (``train/rounding.py``; the ranks' tapes
+    concatenated), the ranks' error at most ``CARD_VS_CPU_ROUNDING`` times
+    the one process's.
+
+    (a) ``train_card_vs_cpu``'s three steps of the reduced ResNet-50+SN
+    (b=4, 2 a rank, the cn_image pairing within each rank's rows), the
+    twins on the CPU.  (b) At full width, global b=128 (64 a rank): the
+    flagship's plain and cn_image steps and WRN-40-2 cnsn.yaml's cn step,
+    from the same weights and draws, the twins on the card; the running
+    statistics equal on both ranks; each rank's launches equal the one
+    process's, and its collectives a step (K2's sums all-reduced forward
+    and backward, SelfNorm's BatchNorm1d gathered, one gradient
+    bucket)."""
+    reduced = dp_reduced_vs_twins(dev, pool)
+    rows = dp_full_width(pool)
+    check(reduced["ranks_alike"], "the two ranks' reduced runs differ")
+    check(not reduced["over"], "two ranks vs float64 over the bound: "
+          f"{reduced['over']}")
+    check_full_width(rows)
+    return rows
+
+
+def check_full_width(rows):
+    """``dp_full_width``'s rows within their bounds, the running
+    statistics alike, the launches and collectives as they should be."""
+    for case, row in rows.items():
+        check(not row["over"], f"{case}: the ranks vs their float64 twin "
+              f"over {CARD_VS_CPU_ROUNDING} x the one process's: "
+              f"{row['over']}")
+        check(row["running_stats_equal"], f"{case}: running statistics "
+              "differ between the ranks")
+        check(all(r == row["launches_one_process"]
+                  for r in row["launches_by_rank"]),
+              f"{case}: launches {row['launches_by_rank']}, one process "
+              f"{row['launches_one_process']}")
+        c, k = row["collectives_per_rank"], row["launches_one_process"]
+        check(c.get("bn_sums") == k.get("bn_sums")
+              and c.get("bn_sums_bwd") == k.get("bn_sums_bwd")
+              and c.get("gather") == c.get("gather_bwd")
+              == k.get("ins_stats_bwd", 0) and c.get("grads") == 1,
+              f"{case}: collectives {c}, launches {k}")
+
+
+def dp_reduced_vs_twins(dev, pool, seed=3):
+    """``phase_dp_card_vs_card``'s (a) from input ``seed``, on two ranks:
+    each quantity of the two ranks' run against its float64 twin, beside
+    ``CARD_VS_CPU_ROUNDING`` times the largest error of four one-process
+    float32 witnesses against theirs (the card's with K2, as
+    ``train_card_vs_cpu``, and, as ``train_card_vs_cpu_seeds``, with
+    torch's and with exact BatchNorm sums, and the CPU's): step 3's
+    quantities move ~10x with the order of the sums' additions, so one
+    witness is no bound there (the card's alone read 1.2e-5 and 4.9e-5 at
+    step 3's loss in two calls).  Returns the quantities over their
+    bound and whether the ranks' runs are alike."""
+    from cnsn_tpu_torch.ops.kernels.bn_stats import bn_sums_reference
+    from cnsn_tpu_torch.train.rounding import (DP_PERM, compare_runs,
+                                               exact_bn_sums, merge_tapes,
+                                               run_steps, seed_bounds)
+    f32, f64 = torch.float32, torch.float64
+
+    def vs_twin(run, tape=None):
+        return compare_runs(run, run_steps(
+            "cpu", f64, replay=tape or run.tape, perm=DP_PERM, seed=seed))
+
+    def one(device, sums=None):
+        return run_steps(device, f32, perm=DP_PERM, sums=sums, seed=seed)
+
+    two = pool.run(dp_rounding, seed)
+    alike = (all(torch.equal(v, two[1].states[s][k])
+                 for s in two[0].states
+                 for k, v in two[0].states[s].items())
+             and two[0].losses == two[1].losses)
+    row = {"card": vs_twin(two[0], merge_tapes([r.tape for r in two])),
+           "card_one_process": vs_twin(one(dev)),
+           "card_torch_sums": vs_twin(one(dev, bn_sums_reference)),
+           "card_exact_bn_sums": vs_twin(one(dev, exact_bn_sums)),
+           "cpu": vs_twin(one("cpu"))}
+    witnesses = ("card_one_process", "card_torch_sums",
+                 "card_exact_bn_sums", "cpu")
+    bounds = seed_bounds(row, CARD_VS_CPU_ROUNDING, ROUNDING_FLOOR,
+                         witnesses)
+    over = [q for q in bounds if not q[1] <= q[2]]
+    emit({"phase": "dp_card_vs_card", "part": "reduced resnet50 (1,1,1,1) "
+          "sn post, b=4 64^2, 3 steps", "ranks": 2, "seed": seed,
+          "losses_two_ranks": two[0].losses,
+          "vs_replaying_float64": row,
+          "vs_card_one_process": {
+              q: g / b for q, g, b in seed_bounds(
+                  row, 1.0, ROUNDING_FLOOR, ("card_one_process",))},
+          "bound": f"two ranks <= {CARD_VS_CPU_ROUNDING} x max(one-process "
+                   f"card, card torch sums, card exact sums, cpu, "
+                   f"{ROUNDING_FLOOR})",
+          "worst_share": max(g / b for _, g, b in bounds),
+          "ranks_alike": alike, "over": over})
+    return {"over": over, "ranks_alike": alike,
+            "worst_share": max(g / b for _, g, b in bounds)}
+
+
+def dp_full_width(pool):
+    """``phase_dp_card_vs_card``'s (b), on the pool's ranks (``DP_RANKS``
+    blocks of pairing): its rows, by case, each with the quantities of
+    the ranks' run over their bound."""
+    from cnsn_tpu_torch.train.rounding import (compare_runs, merge_tapes,
+                                               seed_bounds)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, recipe, kind in DP_CASES:
+            path = os.path.join(tmp, f"{model}_{kind}_" + "{rank}.pt")
+            ref = dp_step(recipe, kind, tape=True, keep=True)
+            one = ref.pop("run")
+            ranks = pool.run(dp_step, recipe, kind, out=path, tape=True)
+            runs = [_load_run(path.format(rank=r))
+                    for r in range(pool.world_size)]
+            twins = {name: dp_step(recipe, kind, replay=tape, float64=True,
+                                   keep=True)["run"]
+                     for name, tape in (("one", one.tape), ("ranks",
+                                        merge_tapes([r.tape for r in runs])))}
+            errs = {"ranks": compare_runs(runs[0], twins["ranks"]),
+                    "one_process": compare_runs(one, twins["one"])}
+            bounds = seed_bounds(
+                {"card": {k: v for k, v in errs["ranks"].items()
+                          if k in errs["one_process"]},
+                 "one": errs["one_process"]},
+                CARD_VS_CPU_ROUNDING, ROUNDING_FLOOR, ("one",))
+            over = [q for q in bounds if not q[1] <= q[2]]
+            same_stats = all(torch.equal(v, _running(runs[r])[k])
+                             for r in range(1, pool.world_size)
+                             for k, v in _running(runs[0]).items())
+            del one, runs, twins
+            row = {"model": model, "recipe": os.path.relpath(recipe, ROOT),
+                   "step": kind, "batch": DP_BATCH, "dtype": "float32",
+                   "ranks": pool.world_size, "backend": ranks[0]["backend"],
+                   "loss_ranks": ranks[0]["loss"],
+                   "loss_one_process": ref["loss"],
+                   "vs_replaying_float64": errs,
+                   "bound": f"ranks <= {CARD_VS_CPU_ROUNDING} x max(one "
+                            f"process, {ROUNDING_FLOOR})",
+                   "worst_share": max(g / b for _, g, b in bounds),
+                   "over": over, "running_stats_equal": same_stats,
+                   "launches_per_rank": ranks[0]["launches"],
+                   "launches_by_rank": [r["launches"] for r in ranks],
+                   "launches_one_process": ref["launches"],
+                   "collectives_per_rank": ranks[0]["collectives"],
+                   "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+                   "peak_gib_one_process": ref["peak_gib"]}
+            emit({"phase": "dp_card_vs_card", **row})
+            out[f"{model}_{kind}"] = row
+    return out
+
+
+# --plant: faults that dp_card_vs_card's bounds must catch
+DP_FAULTS = ("sums_bwd", "gather_bwd", "grads")
+
+
+def dp_plant_fault(fault):
+    """Plant ``fault`` in this rank's process (its pool serves nothing
+    else): 'sums_bwd', the identity as the backward of the BatchNorm
+    sums' all-reduce (``_SumFn``: each rank's cotangent of the global sums
+    holds its own loss's share only); 'gather_bwd', SelfNorm's gathered
+    statistics give each rank its rows of its own cotangent back
+    (``_GatherRows``, no all-reduce); 'grads', no gradient average (each
+    rank steps on its own rows' gradient)."""
+    from cnsn_tpu_torch.parallel import distributed
+    from cnsn_tpu_torch.train import steps
+    if fault == "sums_bwd":
+        distributed._SumFn.backward = staticmethod(
+            lambda ctx, *grads: (None, *grads))
+    elif fault == "gather_bwd":
+        distributed._GatherRows.backward = staticmethod(
+            lambda ctx, g: g.narrow(0, ctx.rank * ctx.rows, ctx.rows))
+    elif fault == "grads":
+        steps.average_gradients = lambda params: None
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def dp_plant(dev, faults):
+    """``--plant``: each of ``faults`` planted in a fresh pool's ranks
+    (``dp_plant_fault``), then ``phase_dp_card_vs_card``'s comparisons:
+    each must put its reduced run and every full-width case over its
+    bound."""
+    from cnsn_tpu_torch.parallel import RankPool
+    caught = {}
+    for fault in faults:
+        with RankPool(DP_RANKS, device="cuda", timeout=600,
+                      threads=0) as pool:
+            pool.run(dp_plant_fault, fault)
+            reduced = dp_reduced_vs_twins(dev, pool)
+            rows = dp_full_width(pool)
+        caught[fault] = {
+            "reduced": {"over": len(reduced["over"]),
+                        "worst_share": reduced["worst_share"]},
+            **{case: {"over": len(row["over"]),
+                      "worst_share": row["worst_share"]}
+               for case, row in rows.items()}}
+        emit({"phase": "dp_plant", "fault": fault, **caught[fault]})
+    missed = [(f, part) for f, parts in caught.items()
+              for part, c in parts.items() if not c["over"]]
+    check(not missed, f"planted faults within the bounds: {missed}")
+
+
+def dp_seeds(dev, pool, seeds):
+    """``--dp-seeds``: ``phase_dp_card_vs_card``'s (a) at each input seed:
+    the worst share of its bound by seed."""
+    shares = {}
+    for seed in seeds:
+        res = dp_reduced_vs_twins(dev, pool, seed)
+        check(res["ranks_alike"] and not res["over"],
+              f"seed {seed}: two ranks vs float64 over the bound: "
+              f"{res['over']}")
+        shares[seed] = res["worst_share"]
+    emit({"phase": "dp_reduced_seeds", "seeds": list(seeds),
+          "worst_share_by_seed": shares})
+
+
+def phase_nccl_world1(dev):
+    """The flagship's float32 plain step (cuDNN deterministic) in one
+    process that is the only rank of an NCCL group, first with the group
+    set aside (a single-process run), then through it: the loss, the
+    parameters, the running statistics and the momentum equal bit for bit
+    (every collective of the path runs, and at one rank changes
+    nothing).  Both in one process: cuDNN may pick other algorithms in
+    another process (a first run compared across processes differed)."""
+    from cnsn_tpu_torch.parallel import RankPool
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "r{rank}.pt")
+        with RankPool(1, device="cuda", timeout=300) as pool:
+            [(alone, grouped, backend)] = pool.run(dp_alone_then_grouped,
+                                                  RECIPE, "plain", path)
+        a = torch.load(path.format(rank="alone"), weights_only=True)
+        b = torch.load(path.format(rank=0), weights_only=True)
+    diff = [k for k, v in a["state"].items()
+            if not torch.equal(v, b["state"][k])]
+    emit({"phase": "nccl_world1", "backend": backend, "step": "plain",
+          "batch": DP_BATCH, "dtype": "float32",
+          "loss_alone": alone["loss"], "loss_grouped": grouped["loss"],
+          "collectives_alone": alone["collectives"],
+          "collectives": grouped["collectives"],
+          "tensors_differing": len(diff), "tensors": len(a["state"])})
+    check(backend == "nccl", f"backend {backend}")
+    check(not alone["collectives"] and grouped["collectives"].get("grads")
+          == 1, f"collectives {alone['collectives']} / "
+          f"{grouped['collectives']}")
+    check(a["losses"] == b["losses"] and not diff,
+          f"NCCL world 1 vs no group: losses {a['losses']} {b['losses']}, "
+          f"{len(diff)} tensors differ: {diff[:5]}")
+
+
+def dp_alone_then_grouped(recipe, kind, path):
+    """``dp_step`` on this rank with its group set aside (``alone``, after
+    an untimed first step), then through the group: both results and the
+    backend."""
+    from cnsn_tpu_torch.parallel import distributed
+    w = distributed._WORLD
+    distributed._WORLD = None
+    try:
+        dp_step(recipe, kind, deterministic=True)  # the process's first
+        alone = dp_step(recipe, kind, out=path.replace("{rank}", "alone"),
+                        deterministic=True)
+    finally:
+        distributed._WORLD = w
+    grouped = dp_step(recipe, kind, out=path, deterministic=True)
+    return alone, grouped, w.backend
+
+
+def dp_train(recipe):
+    """The flagship's bf16 steps on this rank at global b=128, gated as
+    ``phase_train`` gates them: ``DP_WARMUP`` steps, then ``DP_TIMED``
+    timed (host wall to the card's end), with the launches, the
+    collectives and the host's wall seconds in them over the timed
+    steps, and the peak GiB."""
+    from cnsn_tpu_torch.ops.kernels import LAUNCHES
+    from cnsn_tpu_torch.parallel import distributed
+    from cnsn_tpu_torch.parallel.distributed import (COLLECTIVE_SECONDS,
+                                                     COLLECTIVES)
+    cfg, dp, state, steps, images, labels = dp_state(recipe, torch.bfloat16)
+    gates = np.random.RandomState(GATE_SEED).rand(
+        DP_WARMUP + DP_TIMED) < cfg.cn_prob
+    gen = torch.Generator().manual_seed(DP_DRAW_SEED)
+
+    def step(i):
+        if gates[i]:
+            return getattr(steps, cfg.regime)(state, images, labels,
+                                              generator=gen)
+        return steps.plain(state, images, labels)
+
+    for i in range(DP_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    COLLECTIVES.clear()
+    COLLECTIVE_SECONDS.clear()
+    t0 = time.perf_counter()
+    losses = [step(i)[1]["loss"]
+              for i in range(DP_WARMUP, DP_WARMUP + DP_TIMED)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DP_TIMED
+    out = {"ms_per_step": ms, "cn_steps": int(gates[DP_WARMUP:].sum()),
+           "backend": getattr(distributed.world(), "backend", None),
+           "launches": dict(LAUNCHES), "collectives": dict(COLLECTIVES),
+           "collective_s": dict(COLLECTIVE_SECONDS),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss_last": float(dp.mean([losses[-1]])[0])}
+    del state, steps, images, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_dp(dev, pool):
+    """The flagship at b=128 bf16 on the pool's ranks (two gloo ranks
+    sharing the card: 64 a rank), ms a step against the same steps in one
+    process on the whole batch (timed alike, in this call): the
+    collectives' host wall time a step and the peak GiB a rank."""
+    one = dp_train(RECIPE)
+    one_ms = one["ms_per_step"]
+    ranks = pool.run(dp_train, RECIPE)
+    ms = max(r["ms_per_step"] for r in ranks)
+    coll = {k: sum(r["collective_s"].get(k, 0) for r in ranks)
+            / pool.world_size * 1e3 / DP_TIMED
+            for k in ranks[0]["collective_s"]}
+    n_cn = ranks[0]["cn_steps"]
+    want = {"bn_sums": BN_LAYERS * DP_TIMED,
+            "bn_sums_bwd": BN_LAYERS * DP_TIMED,
+            "ins_stats": SN_SITES * DP_TIMED + n_cn,
+            "ins_stats_bwd": SN_SITES * DP_TIMED}
+    emit({"phase": "train_dp", "recipe": os.path.relpath(RECIPE, ROOT),
+          "ranks": pool.world_size, "backend": ranks[0]["backend"],
+          "batch": DP_BATCH,
+          "dtype": "bfloat16", "steps": DP_TIMED, "cn_image_steps": n_cn,
+          "ms_per_step_ranks": ms,
+          "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
+          "ms_per_step_one_process": one_ms, "ratio": ms / one_ms,
+          "peak_gib_one_process": one["peak_gib"],
+          "collective_ms_per_step_by_kind": coll,
+          "collective_ms_per_step": sum(coll.values()),
+          "collectives_per_step": {k: v / DP_TIMED for k, v in
+                                   ranks[0]["collectives"].items()},
+          "launches_per_rank": ranks[0]["launches"], "expected": want,
+          "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+          "loss_last": ranks[0]["loss_last"], "card": nvidia_smi_name_power()})
+    check(all(r["launches"] == want for r in ranks),
+          f"train_dp launches {[r['launches'] for r in ranks]}, want {want}")
+    check(math.isfinite(ranks[0]["loss_last"]), "train_dp loss")
+    return ranks[0]["launches"]
+
+
+def _cli_process(argv, log, timeout=600):
+    """``python -m cnsn_tpu_torch.cli argv`` in a new process (its ranks
+    start their own), its output appended to ``log`` and returned; a
+    non-zero exit fails the phase."""
+    proc = subprocess.run([sys.executable, "-m", "cnsn_tpu_torch.cli",
+                           *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    with open(log, "a") as f:
+        f.write(f"$ cli {' '.join(argv)}\n{proc.stdout}\n{proc.stderr}")
+    check(proc.returncode == 0, f"cli {argv[0]} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def phase_dp_cli(dev):
+    """``cli train num_devices=2`` of WRN-40-2 cnsn.yaml (synthetic, one
+    epoch of 4 steps at b=128, bf16): the ranks share the card over gloo,
+    rank 0 alone writes the experiment directory and log.txt, and
+    ``cli eval resume=`` in one process prints its last Test Error
+    exactly.  Then ``cli seg-train num_devices=2`` of gtav_fcn50_cnsn.yaml
+    at b=16 713² float32 (8 a rank, 2 steps) and ``cli seg-eval resume=``
+    in one process printing the mIoU that training logged.  Each eval
+    runs in a process of its own (the cli's defaults, TF32 on as in the
+    ranks) at a rank's batch (eval_batch_size 256 → 128 over the 512
+    synthetic test images, batch_size_val 8 → 4 over the 8 validation
+    images), so that its forwards are the ranks' forwards: under TF32
+    cuDNN's result for a row depends on the rows beside it, and another
+    batch size may take another algorithm."""
+    out_dir = os.path.join(ROOT, "chiprun_out", "dp_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = os.path.join(out_dir, "cli.txt")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp")
+        common = ["--config", WRN_CNSN_RECIPE, "--device", "cuda",
+                  "synthetic_data=true", "compute_dtype=bf16",
+                  "eval_batch_size=256", "print_freq=1", "snapshot=false"]
+        t0 = time.perf_counter()
+        printed = _cli_process(["train", *common, "num_devices=2",
+                                "epochs=1", f"exp_dir={exp}"], log)
+        res["train_s"] = time.perf_counter() - t0
+        [run] = glob.glob(os.path.join(exp, "*", "*"))
+        files = sorted(os.listdir(run))
+        rows = open(os.path.join(run, "log.txt")).read().splitlines()
+        check(rows[-1].count("\t") == 4 and printed.count("epoch 0:") == 1
+              and "process group: gloo" in printed,
+              f"cli train num_devices=2 printed {printed[-500:]!r}, log.txt "
+              f"{rows}")
+        check(rows.count("epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1")
+              == 1, f"log.txt written more than once: {rows}")
+        ckpt = os.path.join(run, "WideResNet_last_ckpt")
+        printed = _cli_process(["eval", *common, "eval_batch_size=128",
+                                f"resume={ckpt}"], log)
+        m = re.search(r"Test Error (\S+)", printed)
+        check(m is not None and m.group(1) == rows[-1].split("\t")[3],
+              f"cli eval printed {printed!r}, log.txt {rows[-1]!r}")
+        res.update(files=files, log_row=rows[-1], eval_test_error=m.group(1))
+        save = os.path.join(tmp, "seg")
+        seg = ["--config", SEG_RECIPE, "--device", "cuda",
+               "synthetic_data=true", "epochs=1", "print_freq=1",
+               "snapshot=false", f"save_path={save}"]
+        t0 = time.perf_counter()
+        printed = _cli_process(["seg-train", *seg, "num_devices=2"], log)
+        res["seg_train_s"] = time.perf_counter() - t0
+        lines = re.findall(r"val result: mIoU/mAcc/allAcc (\S+)", printed)
+        check(len(lines) == 1, f"seg-train num_devices=2 printed {lines}")
+        printed = _cli_process(["seg-eval", *seg, "batch_size_val=4",
+                                f"resume={os.path.join(save, 'seg_ckpt_1')}"],
+                               log)
+        again = re.findall(r"val result: mIoU/mAcc/allAcc (\S+)", printed)
+        check(again == lines, f"seg-eval printed {again}, the two ranks "
+              f"logged {lines}")
+        res.update(seg_val_line=lines[0], seg_files=sorted(os.listdir(save)))
+    emit({"phase": "dp_cli", "ranks": 2, **res})
+
+
 def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
               per="main-path training step"):
     """A kernel's line: ms, plain, bound and library time per main-path
@@ -4779,6 +5405,46 @@ def summarize(rows, name, route, source, replaces, launches, steps, n_cn,
             "per": f"{per} (mean over {steps})"}
 
 
+def dp_only(dev, ranks, seeds=(), faults=()):
+    """``--dp-only``: the build, then the data-parallel phases alone, at
+    ``ranks`` ranks (2: two gloo ranks sharing the card, every dp phase;
+    N > 2: one NCCL rank a card, the full-width comparison and
+    ``train_dp``); then, at two ranks, the reduced comparison at each of
+    ``seeds`` (``--dp-seeds 0,1,...``) and each of ``faults`` planted
+    (``--plant sums_bwd,...``, ``DP_FAULTS``)."""
+    global DP_RANKS
+    from cnsn_tpu_torch.parallel import RankPool
+    DP_RANKS = ranks
+    start = time.perf_counter()
+    phase_build()
+    seconds = {"build": time.perf_counter() - start}
+    start = time.perf_counter()
+    with RankPool(ranks, device="cuda", timeout=600, threads=0) as pool:
+        if ranks == 2:
+            phase_dp_card_vs_card(dev, pool)
+        else:
+            check_full_width(dp_full_width(pool))
+        seconds["dp_card_vs_card"] = time.perf_counter() - start
+        start = time.perf_counter()
+        phase_train_dp(dev, pool)
+        seconds["train_dp"] = time.perf_counter() - start
+        if ranks == 2 and seeds:
+            start = time.perf_counter()
+            dp_seeds(dev, pool, seeds)
+            seconds["dp_seeds"] = time.perf_counter() - start
+    if ranks == 2 and faults:
+        start = time.perf_counter()
+        dp_plant(dev, faults)
+        seconds["dp_plant"] = time.perf_counter() - start
+    if ranks == 2:
+        for name, fn in (("nccl_world1", phase_nccl_world1),
+                         ("dp_cli", phase_dp_cli)):
+            start = time.perf_counter()
+            fn(dev)
+            seconds[name] = time.perf_counter() - start
+    emit({"phase": "total", "seconds_by_phase": seconds})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4794,6 +5460,21 @@ def main():
           "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "host_cpus": os.cpu_count(), "host_loadavg": os.getloadavg()})
+    if "--dp-only" in sys.argv:
+        def arg(flag, default):
+            return (sys.argv[sys.argv.index(flag) + 1]
+                    if flag in sys.argv else default)
+        faults = [f for f in arg("--plant", "").split(",") if f]
+        check(set(faults) <= set(DP_FAULTS), f"--plant {faults}: "
+              f"one of {DP_FAULTS}")
+        dp_only(dev, int(arg("--ranks", DP_RANKS)),
+                [int(s) for s in arg("--dp-seeds", "").split(",") if s],
+                faults)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     t0 = time.perf_counter()
     seconds = {}
 
@@ -4893,6 +5574,15 @@ def main():
     timed("seg_cli", phase_seg_cli, dev)
     timed("model_vs_cpu", phase_model_vs_cpu, dev)
     counts = timed("serving", phase_serving, dev)
+    # this slice: data parallelism, two gloo ranks sharing the card, and
+    # one NCCL rank
+    from cnsn_tpu_torch.parallel import RankPool
+    torch.cuda.empty_cache()
+    with RankPool(DP_RANKS, device="cuda", timeout=600, threads=0) as pool:
+        dp_rows = timed("dp_card_vs_card", phase_dp_card_vs_card, dev, pool)
+        dp_train = timed("train_dp", phase_train_dp, dev, pool)
+    timed("nccl_world1", phase_nccl_world1, dev)
+    timed("dp_cli", phase_dp_cli, dev)
 
     def per_forward(batch, key, model="resnet50"):
         """K3 per bf16 forward of ``model`` at ``batch``: each shape's time
@@ -5065,7 +5755,7 @@ def main():
         k["resnet50_cnsn_consist"] = r50_consist.get(k["name"], 0)
         # the ImageNet and AugMix paths: cli train of resnet50/cnsn.yaml on
         # the fake folder (10 steps and an eval), the IBN-b AugMix step
-        # loop (35 steps), the CIFAR AugMix step loops (35 steps each)
+        # loop and the CIFAR AugMix step loops (CIFAR_STEPS steps each)
         k["imagenet_augmix_paths"] = {
             "imagenet_cli_train": imagenet_counts.get(k["name"], 0),
             "resnet50_ibn_b_augmix": ibn_counts_.get(k["name"], 0),
@@ -5195,6 +5885,18 @@ def main():
             "one step of each kind: flagship b=128 and IBN-b b=192 "
             "(remat_card_vs_card), IBN-b b=256 (train_remat), "
             "gtav_fcn50_cnsn.yaml b=16 713² float32 (train_remat)")
+    # each kernel's launches a rank on the data-parallel paths: a step of
+    # each dp_card_vs_card case (float32, 64 a rank) and train_dp's timed
+    # steps (bf16), two gloo ranks sharing the card
+    for k in [k3, k3_v1] + kernels:
+        k["data_parallel"] = {
+            **{case: row["launches_per_rank"].get(k["name"], 0)
+               for case, row in dp_rows.items()},
+            "train_dp": dp_train.get(k["name"], 0),
+            "train_dp_steps": DP_TIMED,
+            "per": f"one rank of {DP_RANKS} sharing the card: a step of "
+                   f"each case at global b={DP_BATCH}; train_dp's "
+                   f"{DP_TIMED} flagship steps"}
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "seconds_by_phase": seconds})
     # compact: the line carries every kernel's paths and stays one line

@@ -7,7 +7,8 @@ train``: ResNet-50 and ResNet-50-IBN-b on ImageNet image folders, and the
 four CIFAR models, WRN-40-2, AllConvNet, DenseNet-40-12 and ResNeXt-29,
 host AugMix included, and the GTAV→Cityscapes FCN-ResNet50 ± CNSN
 segmenter through ``cli seg-train``/``seg-eval``, on the hand-written
-Hopper kernels of ``ops/kernels`` (``csrc/*.cu``).
+Hopper kernels of ``ops/kernels`` (``csrc/*.cu``), on one card or on N
+data-parallel ranks (``parallel/``, ``num_devices=N``).
 """
 from .models import build_classifier, build_model
 

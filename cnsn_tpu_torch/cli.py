@@ -13,6 +13,14 @@ Usage:
       [resume=<seg_ckpt> | weight=<seg_ckpt>] [--seed 0] [arch=psp ...]
 
 Everything runs on the card unless ``--device cpu`` asks for the CPU.
+``train`` and ``seg-train`` with ``num_devices=N`` (N > 1) start N ranks
+(``parallel/launch.py::spawn``, the reference's ``mp.spawn``): each
+rank on ``cuda:(rank % cards)`` over NCCL where every rank has a card,
+over gloo where they share one (or ``--device cpu``); under ``torchrun
+--nproc-per-node N`` each process joins the launch's group instead.  A
+rank that raises stops the others and the launch exits non-zero; only
+rank 0 prints and writes.  ``eval`` and ``seg-eval`` run in one process
+whatever ``num_devices`` says, and read a checkpoint of any width.
 ``remat=true`` rematerialises the ResNets' bottlenecks (``seg-train``: or
 a stage spec, ``remat=1_2``); ``ckpt_backend=orbax`` keeps step
 checkpoints with a SIGTERM flush, ``resume=`` then naming the experiment
@@ -146,6 +154,8 @@ def _seg_main(args):
     unknown = set(data) - config_fields()
     if unknown:
         raise ValueError(f"unknown seg config keys: {sorted(unknown)}")
+    if args.command == "seg-eval":
+        data["num_devices"] = None  # one process, a checkpoint of any width
     cfg = SegConfig(**data)
     if synthetic:
         train_ds = synthetic_seg_dataset(32, hw=(cfg.train_h + 16,
@@ -160,7 +170,8 @@ def _seg_main(args):
         cross_ds = (make_list_dataset(data_root, cross_list)
                     if cross_list else None)
     trainer = SegTrainer(cfg, train_ds, val_ds, cross_ds, device=args.device)
-    restore = _install_tee(cfg.save_path) if cfg.snapshot else None
+    restore = (_install_tee(cfg.save_path)
+               if cfg.snapshot and trainer.dp.is_writer else None)
     try:
         if args.command == "seg-train":
             trainer.fit()
@@ -170,6 +181,36 @@ def _seg_main(args):
         trainer.close()
         if restore is not None:
             restore()
+
+
+def _rank_main(argv):
+    """One rank of a ``num_devices`` launch: ``main`` again, inside the
+    group (only rank 0's standard output is kept)."""
+    from .parallel import distributed
+    if distributed.world().rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    main(argv)
+
+
+def _ranks(args, num_devices) -> bool:
+    """Run ``args`` on the ranks it asks for: True where this call did
+    (a launch of N > 1 ranks, or a torchrun process, from a process of no
+    group); False where the caller runs it here."""
+    from .parallel import distributed, launch
+    if distributed.world() is not None:
+        return False
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:  # torchrun
+        distributed.initialize(device=args.device)
+        try:
+            _rank_main(args.argv)
+        finally:
+            distributed.shutdown()
+        return True
+    if (num_devices or 1) <= 1:
+        return False
+    launch.spawn(_rank_main, int(num_devices), args=(args.argv,),
+                 device=args.device)
+    return True
 
 
 def main(argv=None):
@@ -190,9 +231,13 @@ def main(argv=None):
     # positional overrides may follow options (older argparse cannot mix
     # them in one parse_args)
     args = parser.parse_intermixed_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
 
     if args.command == "seg-export":
         return _seg_export_main(args)
+    if args.command == "seg-train" and _ranks(
+            args, _seg_data(args).get("num_devices")):
+        return None
     if args.command.startswith("seg-"):
         return _seg_main(args)
     cfg = load_config(args.config)
@@ -200,11 +245,16 @@ def main(argv=None):
         cfg = apply_overrides(cfg, args.overrides)
     if args.command == "export":
         return _export_main(cfg, args)
+    if args.command == "train" and _ranks(args, cfg.num_devices):
+        return None
+    if args.command == "eval":
+        cfg.num_devices = None  # one process reads a checkpoint of any width
 
     from .train.trainer import Trainer
 
     trainer = Trainer(cfg, device=args.device)
-    restore = _install_tee(trainer.exp_dir) if cfg.snapshot else None
+    restore = (_install_tee(trainer.exp_dir)
+               if cfg.snapshot and trainer.dp.is_writer else None)
     try:
         if args.command == "train":
             trainer.fit()

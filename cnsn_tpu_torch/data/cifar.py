@@ -22,7 +22,9 @@ import numpy as np
 
 from .augmix import augmix
 from .transforms import (cifar_eval_transform, cifar_train_geom,
-                         cifar_train_transform, normalize)
+                         cifar_train_transform, normalize, skip_cifar_train,
+                         skip_cifar_train_geom)
+from ..parallel.distributed import shard_range
 from .workers import PrefetchPool
 
 __all__ = ["CifarData", "load_cifar", "load_cifar_c", "CifarLoader",
@@ -44,6 +46,19 @@ class CifarData:
     images: np.ndarray  # (N, 32, 32, 3) uint8
     labels: np.ndarray  # (N,) int32
     num_classes: int
+
+
+def pad_rows(images: np.ndarray, labels: np.ndarray, rows: int,
+             label: int):
+    """``images`` and ``labels`` padded to ``rows`` rows with zero images
+    and ``label`` (a rank's share of a short last batch)."""
+    n = rows - len(labels)
+    if n <= 0:
+        return images, labels
+    return (np.concatenate([images, np.zeros((n,) + images.shape[1:],
+                                             images.dtype)]),
+            np.concatenate([labels, np.full((n,) + labels.shape[1:], label,
+                                            labels.dtype)]))
 
 
 def _load_pickle(path: str) -> dict:
@@ -123,15 +138,26 @@ class CifarLoader:
     worker processes (``PrefetchPool``), one batch ahead, with the same
     bits as ``workers`` = 0; the pool lives until ``close()``, after which
     the loader builds them serially.
+
+    ``shard`` = (rank, ranks): the loader of one rank of data
+    parallelism, yielding that rank's rows of each batch the loader of
+    one process yields, bit for bit: it makes every row's draws and
+    transforms its own rows only.  A training batch must divide by the
+    ranks; 'eval' pads its last batch to a multiple of them, with zero
+    images and label −1 (``evaluation/classify.py``).
     """
 
     def __init__(self, data: CifarData, batch_size: int, mode: str = "train",
                  seed: int = 0, aug_severity: float = 3,
                  mixture_width: int = 3, mixture_depth: int = -1,
                  all_ops: bool = False, drop_last: Optional[bool] = None,
-                 workers: int = 0):
+                 workers: int = 0, shard: Optional[Tuple[int, int]] = None):
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}: one of {_MODES}")
+        if shard is not None and mode != "eval" and batch_size % shard[1]:
+            raise ValueError(f"batch {batch_size} not divisible by "
+                             f"{shard[1]} ranks")
+        self.shard = shard
         self.data = data
         self.batch_size = batch_size
         self.mode = mode
@@ -172,6 +198,8 @@ class CifarLoader:
             for s in range(0, stop, b):
                 sel = idx[s:s + b]
                 seeds = rng.randint(0, 2**31, len(sel))
+                lo, hi, _ = self._rows(len(sel))
+                sel, seeds = sel[lo:hi], seeds[lo:hi]
                 yield (list(zip(self.data.images[sel], seeds)),
                        self.data.labels[sel])
 
@@ -195,17 +223,34 @@ class CifarLoader:
         if self.mode.startswith("train_augmix"):
             yield from self._augmix_batches(rng, idx, stop)
             return
+        shape = self.data.images.shape[1:3]
         for s in range(0, stop, b):
             sel = idx[s:s + b]
+            lo, hi, rows = self._rows(len(sel))
             imgs = self.data.images[sel]
-            labels = self.data.labels[sel]
+            labels = self.data.labels[sel[lo:hi]]
             if self.mode == "train":
-                batch = np.stack([cifar_train_transform(rng, im)
-                                  for im in imgs])
+                batch = np.stack([
+                    cifar_train_transform(rng, im) if lo <= i < hi
+                    else skip_cifar_train(rng, shape)
+                    for i, im in enumerate(imgs)][lo:hi])
             elif self.mode == "train_geom":
-                yield np.stack([cifar_train_geom(rng, im) for im in imgs]), \
-                    labels
+                yield np.stack([
+                    cifar_train_geom(rng, im) if lo <= i < hi
+                    else skip_cifar_train_geom(rng, shape)
+                    for i, im in enumerate(imgs)][lo:hi]), labels
                 continue
             else:
-                batch = np.stack([cifar_eval_transform(im) for im in imgs])
+                batch = np.stack([cifar_eval_transform(im)
+                                  for im in imgs[lo:hi]] or
+                                 [np.zeros(imgs.shape[1:], np.float32)])[
+                    :hi - lo]
+                if hi - lo < rows:
+                    batch, labels = pad_rows(batch, labels, rows, -1)
             yield batch.astype(np.float32), labels
+
+    def _rows(self, n: int):
+        """(start, stop, rows) of this loader's rows of a batch of n."""
+        if self.shard is None:
+            return 0, n, n
+        return shard_range(n, *self.shard)

@@ -22,7 +22,9 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 from PIL import Image
 
+from ..parallel.distributed import shard_range
 from .augmix import augmix
+from .cifar import pad_rows
 from .transforms import (center_crop_resize, imagenet_normalize,
                          random_resized_crop)
 from .workers import PrefetchPool
@@ -110,6 +112,11 @@ class ImageNetLoader:
     PIL op chain holds the GIL), one batch ahead, with the same bits.  The
     pool lives until ``close()``, after which the threads build the
     views.
+
+    ``shard`` = (rank, ranks): one rank's rows of each batch, bit for bit
+    (every row's draws made, its own rows decoded and transformed); a
+    training batch must divide by the ranks, and 'eval' pads its last
+    batch to a multiple of them with zero images and label −1.
     """
 
     def __init__(self, data: ImageFolderData, batch_size: int,
@@ -117,9 +124,13 @@ class ImageNetLoader:
                  workers: int = 8, aug_severity: float = 1,
                  mixture_width: int = 3, mixture_depth: int = -1,
                  all_ops: bool = False, drop_last: Optional[bool] = None,
-                 mp_workers: int = 0):
+                 mp_workers: int = 0, shard: Optional[Tuple[int, int]] = None):
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}: one of {_MODES}")
+        if shard is not None and mode != "eval" and batch_size % shard[1]:
+            raise ValueError(f"batch {batch_size} not divisible by "
+                             f"{shard[1]} ranks")
+        self.shard = shard
         self.data = data
         self.batch_size = batch_size
         self.mode = mode
@@ -172,6 +183,8 @@ class ImageNetLoader:
             for s in range(0, stop, b):
                 sel = idx[s:s + b]
                 seeds = rng.randint(0, 2**31, len(sel))
+                lo, hi, _ = self._rows(len(sel))
+                sel, seeds = sel[lo:hi], seeds[lo:hi]
                 yield ([(self.data.samples[i][0], sd)
                         for i, sd in zip(sel, seeds)], self._labels(sel))
 
@@ -202,10 +215,20 @@ class ImageNetLoader:
         with ThreadPoolExecutor(self.workers) as pool:
             for s in range(0, stop, b):
                 sel = idx[s:s + b]
-                paths = [self.data.samples[i][0] for i in sel]
                 rngs = [np.random.RandomState(rng.randint(2**31))
                         for _ in sel]
-                batch = np.stack(list(pool.map(fn, rngs, paths)))
+                lo, hi, rows = self._rows(len(sel))
+                sel, rngs = sel[lo:hi], rngs[lo:hi]
+                paths = [self.data.samples[i][0] for i in sel]
+                batch = (np.stack(list(pool.map(fn, rngs, paths))) if paths
+                         else np.zeros((0, self.image_size, self.image_size,
+                                        3), np.float32))
                 if self.mode != "train_geom":  # which stays uint8
                     batch = batch.astype(np.float32)
-                yield batch, self._labels(sel)
+                yield pad_rows(batch, self._labels(sel), rows, -1)
+
+    def _rows(self, n: int):
+        """(start, stop, rows) of this loader's rows of a batch of n."""
+        if self.shard is None:
+            return 0, n, n
+        return shard_range(n, *self.shard)

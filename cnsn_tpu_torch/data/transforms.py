@@ -18,7 +18,8 @@ import numpy as np
 from PIL import Image
 
 __all__ = ["normalize", "random_crop_pad", "random_hflip",
-           "cifar_train_transform", "cifar_train_geom",
+           "cifar_train_transform", "cifar_train_geom", "skip_cifar_train",
+           "skip_cifar_train_geom",
            "cifar_eval_transform", "random_resized_crop",
            "center_crop_resize", "imagenet_normalize", "IMAGENET_MEAN",
            "IMAGENET_STD"]
@@ -67,6 +68,23 @@ def cifar_train_geom(rng: np.random.RandomState,
     (cifar.py:321-323). Returns uint8 HWC."""
     img = random_hflip(rng, img)
     return np.ascontiguousarray(random_crop_pad(rng, img))
+
+
+def skip_cifar_train(rng: np.random.RandomState, shape=(32, 32)) -> None:
+    """The draws of ``cifar_train_transform`` on an image of ``shape``
+    (H, W), without the image: a rank's loader makes them for the rows
+    of other ranks."""
+    rng.randint(0, shape[0] + 8 - 32 + 1)
+    rng.randint(0, shape[1] + 8 - 32 + 1)
+    rng.rand()
+
+
+def skip_cifar_train_geom(rng: np.random.RandomState,
+                          shape=(32, 32)) -> None:
+    """The draws of ``cifar_train_geom``, without the image."""
+    rng.rand()
+    rng.randint(0, shape[0] + 8 - 32 + 1)
+    rng.randint(0, shape[1] + 8 - 32 + 1)
 
 
 def cifar_eval_transform(img: np.ndarray) -> np.ndarray:

@@ -31,51 +31,60 @@ ALEXNET_ERR = (
 
 
 def evaluate(eval_step: Callable, state, loader: Iterable,
-             prefetch_depth: int = 2) -> Tuple[float, float]:
+             prefetch_depth: int = 2, dp=None) -> Tuple[float, float]:
     """Returns (avg loss over dataset, accuracy).
 
-    ``eval_step`` is the summing step (``StepFns.eval_sum``): the per-batch
-    results stay on the model's device and add up there, so the whole
+    ``eval_step`` is the summing step (``StepFns.eval_sum``): each batch's
+    (loss sum, hits, rows) stay on the model's device, so the whole
     loader costs ONE host sync.  Batches go to the device through
     ``device_prefetch``; a short last batch runs at its own size (the
     port's forward takes any batch), and its mean equals the JAX
     package's masked mean over the padded batch.
+
+    Across ranks (``dp`` a ``parallel.DataParallel`` of a process group)
+    the loader yields each rank's rows, its last batch padded with label
+    −1 to a multiple of the ranks (``CifarLoader``/``ImageNetLoader``
+    ``shard``), as JAX pads it: each rank evaluates its rows (K3 on the
+    card), and one all-reduce of the batches' sums gives the global
+    batches' means.
     """
     put = batch_put(next(state.model.parameters()).device)
-    total_loss = total_correct = total = None
+    rows = []
     for im, lb in device_prefetch(loader, put, depth=prefetch_depth):
         out = eval_step(state, im, lb)
-        if total_loss is None:
-            total_loss, total_correct, total = (out["loss"], out["correct"],
-                                                out["n"])
-        else:  # device-side accumulation: no per-batch host sync
-            total_loss = total_loss + out["loss"]
-            total_correct = total_correct + out["correct"]
-            total = total + out["n"]
-    if total_loss is None:
+        n = out["n"].double()
+        rows.append(torch.stack([out["loss"].double() * n,
+                                 out["correct"].double(), n]))
+    if not rows:
         return 0.0, 0.0
-    total_loss, total_correct, total = torch.stack(
-        [total_loss.double(), total_correct.double(),
-         total.double()]).tolist()
-    n = max(int(total), 1)
+    sums = torch.stack(rows)                                  # (batches, 3)
+    if dp is not None:
+        sums = dp.sum(sums)
+    sums = sums.cpu()
+    n = max(int(sums[:, 2].sum()), 1)
     # reference: total of per-batch mean losses / len(dataset)
-    return total_loss / n, int(total_correct) / n
+    batch_loss = sums[:, 0] / sums[:, 2].clamp(min=1)
+    return float(batch_loss.sum()) / n, int(sums[:, 1].sum()) / n
 
 
 def evaluate_cifar_c(eval_step: Callable, state, corrupt_dir: str,
                      num_classes: int, batch_size: int = 1000,
                      corruptions: Sequence[str] = CORRUPTIONS,
-                     verbose: bool = True,
-                     prefetch_depth: int = 2) -> Tuple[float, Dict[str, float]]:
+                     verbose: bool = True, prefetch_depth: int = 2,
+                     dp=None) -> Tuple[float, Dict[str, float]]:
     """Mean accuracy over the corruption suite; prints per-corruption
-    error like the reference."""
+    error like the reference.  ``dp``: as ``evaluate``'s, each rank
+    reading its rows of every batch."""
+    from ..parallel import distributed
+    w = distributed.world() if dp is not None else None
+    shard = (w.rank, w.size) if w is not None else None
     accs = {}
     for corruption in corruptions:
         images, labels = load_cifar_c(corrupt_dir, corruption)
         data = CifarData(images, labels, num_classes)
-        loader = CifarLoader(data, batch_size, mode="eval")
+        loader = CifarLoader(data, batch_size, mode="eval", shard=shard)
         loss, acc = evaluate(eval_step, state, loader,
-                             prefetch_depth=prefetch_depth)
+                             prefetch_depth=prefetch_depth, dp=dp)
         accs[corruption] = acc
         if verbose:
             print(f"{corruption}\n\tTest Loss {loss:.3f} | "

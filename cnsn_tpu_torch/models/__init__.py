@@ -8,6 +8,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from ..nn.cnsn import set_num_groups
 from ..utils.device import resolve_device
 from .allconv import AllConvNet
 from .densenet import DenseNet, densenet
@@ -26,16 +27,24 @@ _RESNETS = {"resnet50": resnet50, "resnet50_ibn_a": resnet50_ibn_a,
 
 def build_model(name: str, num_classes: int,
                 generator: Optional[torch.Generator] = None,
-                **knobs: Any) -> nn.Module:
+                num_groups: int = 1, **knobs: Any) -> nn.Module:
     """Build a model by reference-script name on the CPU.
 
     knobs: pos, crop, beta, cnsn_type, dtype, and ``layers`` and
     ``remat`` for resnet50, resnet50_ibn_a and resnet50_ibn_b; None
     values take the model's defaults, as in the JAX registry.
+    ``num_groups``: the CrossNorm sites pair within that many contiguous
+    blocks of the global batch (the data-parallel width, one block a
+    rank; ``nn/cnsn.py::set_num_groups``).
     ``wideresnet`` is WRN-40-2 without dropout, ``densenet``
     DenseNet-40-12 and ``resnext`` ResNeXt-29 4×32d, as there; AllConvNet
     takes ``pos`` as an int (the recipes write '1').
     """
+    return set_num_groups(_build(name, num_classes, generator, knobs),
+                          num_groups)
+
+
+def _build(name, num_classes, generator, knobs):
     knobs = {k: v for k, v in knobs.items() if v is not None}
     if name == "wideresnet":
         return WideResNet(depth=40, widen_factor=2, num_classes=num_classes,

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..nn.cnsn import CNSN
 from ..nn.norm import BatchNorm, gelu_sig
+from ..parallel.distributed import local_rows
 from .common import Conv2d, Linear, site_gates
 
 __all__ = ["AllConvNet", "allconv_key_map"]
@@ -76,6 +77,8 @@ class Dropout(nn.Module):
             return x
         keep = 1.0 - self.rate
         xh = x.permute(0, 2, 3, 1)
+        # across ranks a given mask is the global batch's
+        mask = local_rows(mask, x.shape[0])
         if mask is None:
             mask = torch.rand(xh.shape, device=x.device) < keep
         return torch.where(mask.to(x.device), xh / keep,

@@ -27,7 +27,7 @@ from ..ops.kernels.selfnorm import selfnorm_infer
 from ..ops.stats import instance_mean_std
 from .norm import BatchNorm1dStats
 
-__all__ = ["CrossNorm", "SelfNorm", "CNSN"]
+__all__ = ["CrossNorm", "SelfNorm", "CNSN", "set_num_groups"]
 
 # CrossNorm's statistics eps (``ops/crossnorm.py``), which the fused CNSN
 # path's algebra removes again (``nn/cnsn.py:187``)
@@ -44,8 +44,11 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 class CrossNorm(nn.Module):
     """One CrossNorm site (``nn/cnsn.py:38-71``) with the knobs the models
-    set, ``crop`` and ``beta`` (lam, chan and bbx_thres keep the defaults
-    the JAX models leave them at; one card pairs the whole batch).  The
+    set, ``crop`` and ``beta``, and ``num_groups``, which
+    ``set_num_groups`` sets (the pairing stays within each of
+    ``num_groups`` contiguous blocks of the global batch, one a rank under
+    data parallelism; lam, chan and bbx_thres keep the defaults the JAX
+    models leave them at).  The
     implementation is read from ``CNSN_CN_IMPL`` when the site is built,
     as JAX reads it: 'fma' (the default) is ``cross_norm_fma``, 'cond' is
     ``cross_norm_2ins``.
@@ -61,7 +64,7 @@ class CrossNorm(nn.Module):
             raise ValueError(f"CrossNorm impl must be 'fma' or 'cond', got "
                              f"{impl!r}")
         self.impl = impl
-        self.kw = dict(crop=crop, beta=beta)
+        self.kw = dict(crop=crop, beta=beta, num_groups=1)
 
     def forward(self, x: torch.Tensor, active: Optional[bool] = None,
                 draws: Optional[dict] = None,
@@ -200,7 +203,8 @@ class CNSN(nn.Module):
         ct = torch.promote_types(x.dtype, torch.float32)
         if active:
             kw = self.crossnorm.kw
-            d = draw(xh, kw["crop"], beta=kw["beta"], generator=generator,
+            d = draw(xh, kw["crop"], beta=kw["beta"],
+                     num_groups=kw["num_groups"], generator=generator,
                      **draws)
             (s_mean, s_std), (cm, cs) = pair_stats(xh, kw["crop"], d,
                                                    EPS_CN, out_dtype=ct)
@@ -220,3 +224,15 @@ class CNSN(nn.Module):
         xf = xh.to(ct)
         out = xf * (scale * g) + shift * g if active else xf * g
         return _nchw(out.to(x.dtype))
+
+
+def set_num_groups(model: nn.Module, num_groups: int) -> nn.Module:
+    """Every CrossNorm site of ``model`` pairs within ``num_groups``
+    contiguous blocks of the global batch (the JAX models' ``num_groups``
+    knob, which their constructors pass to each site; the builders,
+    ``build_model`` and ``build_seg_model``, take it); returns
+    ``model``."""
+    for m in model.modules():
+        if isinstance(m, CrossNorm):
+            m.kw["num_groups"] = num_groups
+    return model

@@ -23,6 +23,8 @@ from torch import nn
 
 from ..ops.kernels.bn_stats import BnSums
 from ..ops.recompute import recomputing, replayed
+from ..parallel.distributed import (all_gather_rows, all_reduce_sum,
+                                    global_rows, local_rows)
 
 __all__ = ["BatchNorm", "BatchNorm1dStats", "IBN", "InstanceNorm",
            "gelu_sig"]
@@ -91,6 +93,15 @@ class BatchNorm(_NormStats):
     way the output is computed in at least fp32 and cast to x's type
     (``:181-195``).
 
+    Across ranks (``parallel/``: SyncBatchNorm, as JAX's ``groups=1``
+    under ``DataParallel``) the statistics are the global batch's: K2's
+    per-rank (s1, s2), or the plain sums of 'two' and 'one', all-reduced
+    in the forward and their cotangents in the backward, n the global
+    count; ``stats_sample`` takes the leading rows of the global batch,
+    of which a rank may hold none; ``groups`` adds each rank's rows into
+    the (g, C) sums of their groups, all-reduced, so a group may span
+    ranks.  Every rank's running statistics stay equal.
+
     The defaults come from the environment: ``groups`` from
     ``CNSN_BN_GROUPS`` and ``stats_sample`` from ``CNSN_BN_SAMPLE`` when
     the layer is built (JAX reads them when ``norm.py`` is imported),
@@ -116,29 +127,42 @@ class BatchNorm(_NormStats):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         g = self.groups
-        if g > 1 and x.shape[0] % g == 0:
-            return self._grouped(x, g)
+        n_global, start = global_rows(x.shape[0])
+        if g > 1 and n_global % g == 0:
+            return self._grouped(x, g, start, n_global // g)
         s = self.stats_sample
-        xs = x[:s] if 0 < s < x.shape[0] else x
-        n = xs.numel() // self.features
+        if 0 < s < n_global:
+            # the leading s rows of the (global) batch: this rank's share
+            # of them, which may be none
+            xs = x[:min(max(s - start, 0), x.shape[0])]
+        else:
+            xs, s = x, n_global
+        n = s * x.shape[2] * x.shape[3]
         var_impl = self.var_impl or os.environ.get("CNSN_BN_VAR", "shifted")
         if var_impl == "shifted":
             # the shift: a copy, since the running mean is updated in place
             # below while the backward still needs the value used here; a
             # recomputation takes the first run's
             m0 = replayed(self.running_mean.clone)
-            s1, s2 = BnSums.apply(xs.permute(0, 2, 3, 1), m0)
+            s1, s2 = all_reduce_sum(*BnSums.apply(xs.permute(0, 2, 3, 1),
+                                                  m0), kind="bn_sums")
             mean_d = s1 / n
             var = torch.clamp(s2 / n - mean_d.square(), min=0.0)
             mean = m0 + mean_d
-        elif var_impl in ("two", "one"):
+        elif var_impl == "two":
             xf = xs.to(_stat_dtype(x))
-            mean = xf.mean(dim=(0, 2, 3))
-            if var_impl == "two":
-                var = (xf - mean.reshape(1, -1, 1, 1)).square().mean(
-                    dim=(0, 2, 3))
-            else:
-                var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            (total,) = all_reduce_sum(xf.sum(dim=(0, 2, 3)), kind="bn_stats")
+            mean = total / n
+            (dev,) = all_reduce_sum((xf - mean.reshape(1, -1, 1, 1)).square()
+                                    .sum(dim=(0, 2, 3)), kind="bn_stats")
+            var = dev / n
+        elif var_impl == "one":
+            xf = xs.to(_stat_dtype(x))
+            total, sq = all_reduce_sum(xf.sum(dim=(0, 2, 3)),
+                                       xf.square().sum(dim=(0, 2, 3)),
+                                       kind="bn_stats")
+            mean = total / n
+            var = sq / n - mean.square()
         else:
             raise ValueError(f"BatchNorm var_impl {var_impl!r}: one of "
                              "'shifted', 'two', 'one'")
@@ -149,31 +173,43 @@ class BatchNorm(_NormStats):
                * inv.reshape(shape) + self.bias.reshape(shape))
         return out.to(x.dtype)
 
-    def _grouped(self, x: torch.Tensor, g: int) -> torch.Tensor:
+    def _grouped(self, x: torch.Tensor, g: int, start: int,
+                 rows: int) -> torch.Tensor:
         """Per-group two-pass statistics (``cnsn_tpu/nn/norm.py:122-129,
-        181-188``), plain torch; each row normalized by its group's."""
+        181-188``), plain torch; each row normalized by its group's.  x
+        holds rows [start, start + N) of the (global) batch, each group
+        ``rows`` rows of it: the rows are added into the (g, C) sums of
+        their groups, all-reduced across ranks (a group a rank does not
+        touch gets zeros from it), once for the mean and once for the
+        centred squares; every rank holds group 0's statistics."""
         xf = x.to(_stat_dtype(x))
-        rows = x.shape[0] // g
-        xg = xf.reshape((g, rows) + x.shape[1:])
-        mean = xg.mean(dim=(1, 3, 4))                            # (g, C)
-        var = (xg - mean[:, None, :, None, None]).square().mean(
-            dim=(1, 3, 4))
-        self._update_running(mean[0], var[0],
-                             rows * x.shape[2] * x.shape[3])
+        gid = torch.div(torch.arange(start, start + x.shape[0],
+                                     device=x.device), rows,
+                        rounding_mode="floor")
+        n = rows * x.shape[2] * x.shape[3]
+
+        def group_sums(t):  # (N, C, H, W) → (g, C), each row to its group
+            return torch.zeros((g, self.features), dtype=t.dtype,
+                               device=t.device).index_add(
+                0, gid, t.sum(dim=(2, 3)))
+
+        (total,) = all_reduce_sum(group_sums(xf), kind="bn_stats")
+        mean = total / n                                         # (g, C)
+        d = xf - mean[gid][:, :, None, None]
+        (dev,) = all_reduce_sum(group_sums(d.square()), kind="bn_stats")
+        var = dev / n
+        self._update_running(mean[0], var[0], n)
         inv = torch.rsqrt(var + self.eps) * self.weight
-
-        def per_row(t):  # (g, C) → (N, C, 1, 1), each group's rows
-            return t.repeat_interleave(rows, dim=0)[:, :, None, None]
-
-        out = ((xf - per_row(mean)) * per_row(inv)
-               + self.bias.reshape(1, -1, 1, 1))
+        out = d * inv[gid][:, :, None, None] + self.bias.reshape(1, -1, 1, 1)
         return out.to(x.dtype)
 
 
 class BatchNorm1dStats(_NormStats):
     """torch.nn.BatchNorm1d over (N, C) per-channel scalars: the BN inside
     SelfNorm (``cnsn_tpu/nn/norm.py:198-235``).  Train: two-pass batch
-    statistics in plain torch (the input is only (N, C))."""
+    statistics in plain torch (the input is only (N, C)), across ranks
+    over the global batch: the ranks' (N, C) gathered
+    (``parallel/distributed.py::all_gather_rows``)."""
 
     def folded_affine(self):
         """``(a, b)`` with  BN(y) = a·y + b:  a = scale/sqrt(rv+eps),
@@ -184,14 +220,18 @@ class BatchNorm1dStats(_NormStats):
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         yf = y.to(_stat_dtype(y))
         if self.training:
+            # across ranks the gathered global (N, C), normalized as one
+            # process normalizes it (the same graph: at one rank the same
+            # bits), of which the rank keeps its rows
+            yf = all_gather_rows(yf)
             mean = yf.mean(dim=0)
             var = (yf - mean).square().mean(dim=0)
-            self._update_running(mean, var, y.shape[0])
+            self._update_running(mean, var, yf.shape[0])
         else:
             mean, var = self.running_mean, self.running_var
         out = (yf - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
-        return out.to(y.dtype)
+        return local_rows(out, y.shape[0]).to(y.dtype)
 
 
 class InstanceNorm(nn.Module):

@@ -13,7 +13,13 @@ Every draw can come from the caller: ``perm`` (the partner of each
 instance), ``style_box`` and ``content_box`` ((h1, h2, w1, w2) Python
 ints) and ``chan_perm``; what is not given is drawn from ``generator``
 (``ops/bbox.py`` for the boxes, which need a CPU generator).  A draw made
-on the host reaches the card by a pinned, non-blocking copy.
+on the host reaches the card by a pinned, non-blocking copy.  Across
+ranks (``parallel/``) every rank draws, or is given, the global batch's
+pairing and takes its block, so that no pair crosses ranks where
+``num_groups`` is a multiple of the rank count; where a rank's rows are
+not one block of the batch the pairing is over (``rows``: AugMix's
+views), the pairing stays whole and the partners' statistics are
+gathered from every rank.
 
 The unmasked statistics go through ``instance_mean_std`` (K1 on the card)
 and are taken once per call where JAX takes them twice (``:103``,
@@ -25,6 +31,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..parallel.distributed import all_gather_rows, global_rows, local_rows
 from .bbox import sample_bbox
 from .recompute import replayed
 from .stats import instance_mean_std, masked_instance_mean_std, region_mask
@@ -78,25 +85,39 @@ def draw(x: torch.Tensor, crop: str = "neither", *, beta: float = 1.0,
          style_box: Optional[Sequence[int]] = None,
          content_box: Optional[Sequence[int]] = None,
          chan_perm: Optional[torch.Tensor] = None,
+         rows: Optional[torch.Tensor] = None,
          generator: Optional[torch.Generator] = None) -> dict:
     """The draws one CrossNorm call on the NHWC ``x`` uses: of those
     ``crop`` and ``chan`` need, the given ones, and the missing ones
     drawn from ``generator`` (in the order perm, style box, content box,
     channel permutation), the permutations on x's device; None for the
-    rest.  A recomputation (``ops/recompute.py``) gets the first run's
-    draws back and draws nothing."""
+    rest.  ``rows``: on a rank of a group, the index of each of x's rows
+    in the global batch the pairing is over, where the ranks' rows
+    interleave in it; the pairing is then kept whole (``pair_stats``
+    gathers the partners' statistics), else the rank takes its block.  A
+    recomputation (``ops/recompute.py``) gets the first run's draws back
+    and draws nothing."""
     return replayed(lambda: _draw(
         x, crop, beta, bbx_thres, chan, num_groups, perm, style_box,
-        content_box, chan_perm, generator))
+        content_box, chan_perm, rows, generator))
 
 
 def _draw(x, crop, beta, bbx_thres, chan, num_groups, perm, style_box,
-          content_box, chan_perm, generator) -> dict:
+          content_box, chan_perm, rows, generator) -> dict:
     if crop not in CROP_MODES:
         raise ValueError(f"crop must be one of {CROP_MODES}, got {crop!r}")
     n, h, w, c = x.shape
+    n_global, start = global_rows(n)
     if perm is None:
-        perm = grouped_permutation(n, num_groups, generator)
+        perm = grouped_permutation(n_global, num_groups, generator)
+    if perm.shape[0] != n and rows is None:
+        # across ranks: this rank's block of the global pairing
+        perm = local_rows(perm, n) - start
+        if perm.device.type == "cpu" and (perm.min() < 0
+                                          or perm.max() >= n):
+            raise ValueError(
+                f"a CrossNorm pair crosses ranks: num_groups {num_groups} "
+                "must be a multiple of the rank count")
     if crop in ("style", "both") and style_box is None:
         style_box = sample_bbox(h, w, beta, bbx_thres, generator)
     if crop in ("content", "both") and content_box is None:
@@ -108,7 +129,8 @@ def _draw(x, crop, beta, bbx_thres, chan, num_groups, perm, style_box,
             "style_box": style_box if crop in ("style", "both") else None,
             "content_box": (content_box if crop in ("content", "both")
                             else None),
-            "chan_perm": _to_device(chan_perm, x.device) if chan else None}
+            "chan_perm": _to_device(chan_perm, x.device) if chan else None,
+            "rows": None if rows is None else _to_device(rows, x.device)}
 
 
 def pair_stats(x, crop, d, eps, out_dtype=None):
@@ -124,10 +146,24 @@ def pair_stats(x, crop, d, eps, out_dtype=None):
         masked_instance_mean_std(x, d[f"{role}_box"], eps=eps,
                                  out_dtype=out_dtype)
         if masked[role] else whole for role in ("style", "content"))
-    style = tuple(s.index_select(0, d["perm"]) for s in style)
+    if d["rows"] is None:
+        style = tuple(s.index_select(0, d["perm"]) for s in style)
+    else:
+        style = _partners_across_ranks(style, d["perm"], d["rows"])
     if d["chan_perm"] is not None:
         style = tuple(s.index_select(3, d["chan_perm"]) for s in style)
     return style, content
+
+
+def _partners_across_ranks(stats, perm, rows):
+    """Each of this rank's rows (global index ``rows``) takes the
+    statistics of its partner ``perm[rows]``, from the statistics and row
+    indices of every rank, gathered."""
+    where = torch.empty_like(perm)
+    where[all_gather_rows(rows)] = torch.arange(perm.numel(),
+                                                device=perm.device)
+    pick = where.index_select(0, perm.index_select(0, rows))
+    return tuple(all_gather_rows(s).index_select(0, pick) for s in stats)
 
 
 def _content_mask(x, d):
@@ -146,7 +182,8 @@ def cross_norm_2ins(x: torch.Tensor, *, crop: str = "neither",
     (``cnsn_tpu/ops/crossnorm.py:66-125``), in x's type:
     x_aug = (x − μ_c)/σ_c · σ_s[perm] + μ_s[perm], kept inside the content
     box only for crop 'content'/'both', then mixed with x by ``lam``.
-    ``draws``: any of perm, style_box, content_box, chan_perm."""
+    ``draws``: any of perm, style_box, content_box, chan_perm, and
+    ``rows`` (``draw``)."""
     d = draw(x, crop, beta=beta, bbx_thres=bbx_thres, chan=chan,
              num_groups=num_groups, generator=generator, **draws)
     (s_mean, s_std), (c_mean, c_std) = pair_stats(x, crop, d, eps)

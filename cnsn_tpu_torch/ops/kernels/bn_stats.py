@@ -228,18 +228,27 @@ def _launch_bwd(x, m0, g1, g2, chunks: int = 0):
 
 class BnSums(torch.autograd.Function):
     """(s1, s2) = BnSums.apply(x, m0), each (C,) fp32, with the
-    elementwise backward into x; m0 gets no gradient."""
+    elementwise backward into x; m0 gets no gradient.  An x of no rows
+    gives zero sums and launches nothing."""
 
     @staticmethod
     def forward(ctx, x, m0):
-        on_cpu = x.device.type == "cpu"
-        s1, s2 = (bn_sums_reference if on_cpu else bn_sums_cuda)(x, m0)
         ctx.save_for_backward(x, m0)
-        return s1, s2
+        if x.numel() == 0:
+            # a rank that holds none of a stats_sample's rows: zero sums,
+            # no launch (the all-reduce after it adds the other ranks')
+            z = torch.zeros(x.shape[-1], device=x.device,
+                            dtype=torch.promote_types(x.dtype,
+                                                      torch.float32))
+            return z, z.clone()
+        on_cpu = x.device.type == "cpu"
+        return (bn_sums_reference if on_cpu else bn_sums_cuda)(x, m0)
 
     @staticmethod
     def backward(ctx, g1, g2):
         x, m0 = ctx.saved_tensors
+        if x.numel() == 0:
+            return torch.zeros_like(x), None
         bwd = (bn_sums_bwd_reference if x.device.type == "cpu"
                else bn_sums_bwd_cuda)
         return bwd(x, m0, g1.contiguous(), g2.contiguous()), None

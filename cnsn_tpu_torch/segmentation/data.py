@@ -45,6 +45,8 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import shard_range
+
 __all__ = [
     "SegSample", "SegDataset", "SegLoader", "Compose", "Resize", "RandScale",
     "Crop", "RandRotate", "RandomHorizontalFlip", "RandomVerticalFlip",
@@ -268,6 +270,10 @@ def _reflect101(n: int, pad: int) -> torch.Tensor:
 
 # ---- paired transforms (callable(rng, image f32 HWC, label i32 HW)) -----
 
+# Each transform's ``skip(rng, hw)`` makes the draws its call makes on an
+# image of size hw and returns the size of its output, without the image:
+# a rank's loader makes them for the rows of other ranks.
+
 class Compose:
     def __init__(self, transforms: Sequence):
         self.transforms = transforms
@@ -277,10 +283,18 @@ class Compose:
             image, label = t(rng, image, label)
         return image, label
 
+    def skip(self, rng, hw):
+        for t in self.transforms:
+            hw = t.skip(rng, hw)
+        return hw
+
 
 class Resize:
     def __init__(self, size: Tuple[int, int]):
         self.size = size  # (h, w)
+
+    def skip(self, rng, hw):
+        return self.size
 
     def __call__(self, rng, image, label):
         h, w = self.size
@@ -294,7 +308,7 @@ class RandScale:
         self.scale = scale
         self.aspect_ratio = aspect_ratio
 
-    def __call__(self, rng, image, label):
+    def _factors(self, rng):
         s = self.scale[0] + (self.scale[1] - self.scale[0]) * rng.rand()
         ar_h = ar_w = 1.0
         if self.aspect_ratio is not None:
@@ -302,10 +316,17 @@ class RandScale:
                   + (self.aspect_ratio[1] - self.aspect_ratio[0]) * rng.rand())
             ar = ar ** 0.5
             ar_h, ar_w = ar, 1.0 / ar
-        fx, fy = s * ar_w, s * ar_h
+        return s * ar_w, s * ar_h
+
+    def __call__(self, rng, image, label):
+        fx, fy = self._factors(rng)
         h, w = label.shape
         return _resize(image, label, _out_size(h, fy), _out_size(w, fx),
                        1.0 / fy, 1.0 / fx)
+
+    def skip(self, rng, hw):
+        fx, fy = self._factors(rng)
+        return _out_size(hw[0], fy), _out_size(hw[1], fx)
 
 
 class Crop:
@@ -343,6 +364,14 @@ class Crop:
         return (image[y:y + ch, x:x + cw],
                 np.ascontiguousarray(label[y:y + ch, x:x + cw]))
 
+    def skip(self, rng, hw):
+        ch, cw = self.size
+        h, w = max(hw[0], ch), max(hw[1], cw)
+        if self.crop_type == "rand":
+            rng.randint(0, h - ch + 1)
+            rng.randint(0, w - cw + 1)
+        return ch, cw
+
 
 class RandRotate:
     def __init__(self, rotate: Tuple[float, float],
@@ -362,6 +391,11 @@ class RandRotate:
             label = _warp_nearest(label, minv, self.ignore_label)
         return image, label
 
+    def skip(self, rng, hw):
+        if rng.rand() < self.p:
+            rng.rand()
+        return hw
+
 
 class RandomHorizontalFlip:
     def __init__(self, p: float = 0.5):
@@ -373,6 +407,10 @@ class RandomHorizontalFlip:
                     np.ascontiguousarray(label[:, ::-1]))
         return image, label
 
+    def skip(self, rng, hw):
+        rng.rand()
+        return hw
+
 
 class RandomVerticalFlip:
     def __init__(self, p: float = 0.5):
@@ -383,6 +421,10 @@ class RandomVerticalFlip:
             return (np.ascontiguousarray(image[::-1]),
                     np.ascontiguousarray(label[::-1]))
         return image, label
+
+    def skip(self, rng, hw):
+        rng.rand()
+        return hw
 
 
 class RandomGaussianBlur:
@@ -399,6 +441,10 @@ class RandomGaussianBlur:
             image = _gaussian_blur(image, self.radius)
         return image, label
 
+    def skip(self, rng, hw):
+        rng.rand()
+        return hw
+
 
 class Normalize:
     def __init__(self, mean: Sequence[float], std: Optional[Sequence[float]] = None):
@@ -410,6 +456,9 @@ class Normalize:
         if self.std is not None:
             image = image / self.std
         return image, label
+
+    def skip(self, rng, hw):
+        return hw
 
 
 # ---- datasets -----------------------------------------------------------
@@ -426,6 +475,12 @@ class SegDataset:
 
     def __len__(self):
         return len(self.samples)
+
+    def size(self, i: int) -> Tuple[int, int]:
+        """(H, W) of sample i, read from its label's header."""
+        from PIL import Image
+        with Image.open(self.samples[i].label_path) as im:
+            return im.size[1], im.size[0]
 
     def load(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
         from PIL import Image
@@ -458,6 +513,9 @@ class _SyntheticSegDataset(SegDataset):
         super().__init__([SegSample("", "")] * n)
         self.n, self.hw, self.classes, self.seed = n, hw, classes, seed
 
+    def size(self, i):
+        return tuple(self.hw)
+
     def load(self, i):
         rng = np.random.RandomState(self.seed * 100003 + i)
         image = rng.randint(0, 256, (*self.hw, 3)).astype(np.float32)
@@ -472,11 +530,24 @@ def synthetic_seg_dataset(n: int = 8, hw=(97, 113), classes: int = 19,
 
 
 class SegLoader:
-    """Batch iterator: transform pairs → (B,H,W,3) float32 + (B,H,W) int32."""
+    """Batch iterator: transform pairs → (B,H,W,3) float32 + (B,H,W) int32.
+
+    ``shard`` = (rank, ranks): one rank's rows of each batch, bit for bit:
+    the transforms' draws of the other rows are made by their ``skip``
+    (on the sizes the dataset reads from the files' headers), and a
+    short last batch is padded to a multiple of the ranks with zero
+    images labelled ``pad_label`` throughout."""
 
     def __init__(self, dataset: SegDataset, batch_size: int,
                  transform: Callable, seed: int = 0, shuffle: bool = True,
-                 drop_last: bool = True):
+                 drop_last: bool = True,
+                 shard: Optional[Tuple[int, int]] = None,
+                 pad_label: int = 255):
+        if shard is not None and drop_last and batch_size % shard[1]:
+            raise ValueError(f"batch {batch_size} not divisible by "
+                             f"{shard[1]} ranks")
+        self.shard = shard
+        self.pad_label = pad_label
         self.dataset = dataset
         self.batch_size = batch_size
         self.transform = transform
@@ -497,11 +568,29 @@ class SegLoader:
         b = self.batch_size
         stop = (n // b) * b if self.drop_last else n
         for s in range(0, stop, b):
+            sel = idx[s:s + b]
+            lo, hi, rows = ((0, len(sel), len(sel)) if self.shard is None
+                            else shard_range(len(sel), *self.shard))
             images, labels = [], []
-            for i in idx[s:s + b]:
+            for k, i in enumerate(sel):
+                if not lo <= k < hi:
+                    self.transform.skip(rng, self.dataset.size(int(i)))
+                    continue
                 img, lab = self.dataset.load(int(i))
                 img, lab = self.transform(rng, img, lab)
                 images.append(img)
                 labels.append(lab)
+            if rows > hi - lo:  # a rank's padding of a short last batch
+                shape = self._shape(sel)
+                images += [np.zeros(shape + (3,), np.float32)] * (
+                    rows - (hi - lo))
+                labels += [np.full(shape, self.pad_label, np.int32)] * (
+                    rows - (hi - lo))
             yield (np.stack(images).astype(np.float32),
                    np.stack(labels).astype(np.int32))
+
+    def _shape(self, sel):
+        """The size the transform gives the batch's first image: the
+        padding rows' (the validation transforms draw nothing)."""
+        return tuple(self.transform.skip(np.random.RandomState(0),
+                                         self.dataset.size(int(sel[0]))))

@@ -29,6 +29,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel import distributed
+from ..parallel.mesh import average_gradients
 from ..train.schedules import poly_lr
 from ..train.steps import TrainState, sample_cn_mask
 from ..utils.device import resolve_device
@@ -156,11 +158,20 @@ class SegStepFns:
                                           False))
 
     def _ce(self, logits, labels):
+        """The mean CE over the valid pixels; across ranks this rank's
+        share of the global batch's (its NLL sum over the global count,
+        times the ranks: averaging the gradients gives the global
+        mean's, as JAX's sharded step computes it)."""
         if self.lowres_ce:
             s, n = upsample_nll_sum(logits, labels, self.ignore_label,
                                     self.align_corners)
+        else:
+            s, n = masked_nll_sum(logits, labels, self.ignore_label)
+        w = distributed.world()
+        if w is None:
             return s / n.clamp(min=1)
-        return masked_cross_entropy(logits, labels, self.ignore_label)
+        n = distributed.all_reduce_(n.clone(), "loss_count")
+        return s * w.size / n.clamp(min=1)
 
     def _pred(self, logits, labels):
         if self.lowres_ce:
@@ -185,6 +196,8 @@ class SegStepFns:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        average_gradients(p for group in state.optimizer.param_groups
+                          for p in group["params"])
         state.optimizer.step()
         state.step += 1
 

@@ -1,6 +1,10 @@
-"""Host-side segmentation trainer, single card: port of
+"""Host-side segmentation trainer: port of
 ``cnsn_tpu/segmentation/trainer.py`` (reference segmentation/tool/
-train_cnsn.py:83-451).
+train_cnsn.py:83-451), on one card or, with ``num_devices`` = N > 1, on
+the N ranks of a process group (``parallel/``; ``cli seg-train
+num_devices=N``): each rank's loader yields its rows of each batch, the
+cross-entropy is the global batch's mean over its valid pixels, the
+metrics and the validation's sums are all-reduced, rank 0 writes.
 
 The loader's batches are staged onto the card ahead of the step
 (``utils/prefetch.py``); the per-iteration poly LR with 10× head groups
@@ -35,6 +39,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..nn.cnsn import set_num_groups
+from ..parallel import distributed
+from ..parallel.mesh import DataParallel, make_mesh
 from ..utils.checkpoint import load_checkpoint, restore_state
 from ..utils.checkpoint import save_checkpoint as _save
 from ..utils.device import resolve_device
@@ -50,13 +57,12 @@ from .train_seg import SegStepFns, create_seg_train_state
 __all__ = ["SegConfig", "SegTrainer", "build_seg_model",
            "default_train_transform", "NOT_PORTED"]
 
-_PARALLEL = "ROADMAP queue 1, parallel"
 ARCHS = ("fcn", "fcn_cnsn", "psp", "psa", "psa_lite")
 # (what is set, the ROADMAP item that ports it), checked in this order
 NOT_PORTED = (
-    (lambda c: c.fsdp, "fsdp", _PARALLEL),
-    (lambda c: (c.num_devices or 1) > 1, "num_devices > 1", _PARALLEL),
-    (lambda c: (c.spatial or 1) > 1, "spatial > 1", _PARALLEL),
+    (lambda c: c.fsdp, "fsdp", "ROADMAP queue 1, item 4b: parallel/fsdp.py"),
+    (lambda c: (c.spatial or 1) > 1, "spatial > 1",
+     "ROADMAP queue 1, item 4c: parallel/tensor.py"),
 )
 CKPT_BACKENDS = ("msgpack", "orbax")
 # compute_dtype as the JAX SegConfig names it (jnp.dtype); params stay fp32
@@ -143,12 +149,19 @@ def _check_ported(cfg: SegConfig) -> None:
 
 
 def build_seg_model(cfg: SegConfig,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    num_groups: int = 1):
     """The model of ``cfg.arch`` (JAX ``trainer.py:109-130``), its
     initializers drawn from ``generator``: 'fcn', 'fcn_cnsn', 'psp',
     'psa' (with the PSA knobs) or 'psa_lite'; PSANet and PSALite are
-    built for (train_h, train_w) images."""
+    built for (train_h, train_w) images.  ``num_groups``: the CrossNorm
+    sites pair within that many contiguous blocks of the global batch
+    (the data-parallel width; ``nn/cnsn.py::set_num_groups``)."""
     _check_ported(cfg)
+    return set_num_groups(_build_seg(cfg, generator), num_groups)
+
+
+def _build_seg(cfg, generator):
     dtype = DTYPES[cfg.compute_dtype]
     if cfg.arch == "fcn":
         return fcn_baseline(classes=cfg.classes, dtype=dtype,
@@ -198,30 +211,41 @@ class SegTrainer:
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
         _check_ported(cfg)
-        self.device = resolve_device(device)
+        # the ranks of a process group (cli seg-train num_devices=N)
+        self.dp = DataParallel(make_mesh(cfg.num_devices))
+        w = distributed.world()
+        self.device = w.device if w is not None else resolve_device(device)
+        width = self.dp.num_shards
+        if cfg.batch_size % width != 0:
+            raise ValueError(f"batch_size {cfg.batch_size} must be "
+                             f"divisible by the data-parallel width {width}")
+        shard = (self.dp.rank, width) if w is not None else None
         np.random.seed(cfg.seed)
         self.model = build_seg_model(
-            cfg, generator=torch.Generator().manual_seed(cfg.seed))
+            cfg, generator=torch.Generator().manual_seed(cfg.seed),
+            num_groups=width)
 
         self.train_loader = SegLoader(train_dataset, cfg.batch_size,
                                       default_train_transform(cfg),
-                                      seed=cfg.seed)
+                                      seed=cfg.seed, shard=shard)
         val_tf = Compose([Crop((cfg.train_h, cfg.train_w), "center",
                                padding=cfg.mean,
                                ignore_label=cfg.ignore_label),
                           Normalize(cfg.mean, cfg.std)])
         bval = cfg.batch_size_val or cfg.batch_size
-        self.val_loader = (SegLoader(val_dataset, bval, val_tf,
-                                     shuffle=False, drop_last=False)
+        val_kw = dict(shuffle=False, drop_last=False, shard=shard,
+                      pad_label=cfg.ignore_label)
+        self.val_loader = (SegLoader(val_dataset, bval, val_tf, **val_kw)
                            if val_dataset else None)
         self.cross_loader = (SegLoader(cross_domain_dataset, bval, val_tf,
-                                       shuffle=False, drop_last=False)
+                                       **val_kw)
                              if cross_domain_dataset else None)
 
         max_iter = cfg.epochs * len(self.train_loader)
         self.state = create_seg_train_state(
             self.model, cfg.base_lr, max_iter, cfg.power, cfg.momentum,
             cfg.weight_decay, device=self.device)
+        self.dp.replicate(self.state.model)
         self.steps = SegStepFns(self.model, num_classes=cfg.classes,
                                 active_num=cfg.active_num,
                                 aux_weight=cfg.aux_weight,
@@ -233,12 +257,16 @@ class SegTrainer:
         self._draws = torch.Generator().manual_seed(cfg.seed + 23)
         # the gates of the steps taken, in order (True: the aug step)
         self.gates = []
-        os.makedirs(cfg.save_path, exist_ok=True)
-        if cfg.snapshot:
+        # rank 0 writes the snapshot, the metrics and the checkpoints
+        if self.dp.is_writer:
+            os.makedirs(cfg.save_path, exist_ok=True)
+        if cfg.snapshot and self.dp.is_writer:
             from ..utils.provenance import snapshot_experiment
             snapshot_experiment(cfg.save_path, cfg, tee=False)
         self.writer = MetricWriter(os.path.join(cfg.save_path, "metrics"),
-                                   tensorboard=cfg.tensorboard)
+                                   tensorboard=cfg.tensorboard,
+                                   enabled=self.dp.is_writer)
+        distributed.barrier()
         self._epoch = cfg.start_epoch
         self.ckpt = self._preempt = None
         if cfg.ckpt_backend == "orbax":
@@ -250,7 +278,7 @@ class SegTrainer:
             self._preempt = install_preemption_save(
                 lambda: (self.state.step, self.state), self.ckpt,
                 get_extra=lambda: {"epoch": self._epoch}, exit_code=143,
-                before_exit=self.close)
+                before_exit=self.close, writer=self.dp.is_writer)
         if cfg.weight and os.path.isfile(cfg.weight):
             # init-only load (reference --weight vs --resume,
             # train_cnsn.py:179-204): weights and statistics, no optimizer
@@ -287,10 +315,20 @@ class SegTrainer:
                 return
             keys = ("main_loss", "aux_loss", "loss")
             scalars = torch.stack([torch.stack([m[k] for k in keys])
-                                   for m, _, _ in pending]).tolist()
+                                   for m, _, _ in pending])
             hists = torch.stack([torch.stack([m["intersection"], m["union"],
                                               m["target"]])
-                                 for m, _, _ in pending]).cpu().numpy()
+                                 for m, _, _ in pending])
+            if distributed.world() is not None:
+                # the global batches': the ranks' loss shares averaged,
+                # their histograms summed, in one all-reduce
+                both = self.dp.sum(torch.cat(
+                    [scalars.double().flatten() / self.dp.num_shards,
+                     hists.double().flatten()]))
+                scalars = both[:scalars.numel()].view(scalars.shape)
+                hists = both[scalars.numel():].view(hists.shape)
+            scalars = scalars.tolist()
+            hists = hists.cpu().numpy()
             for (_, n, step), vals, h in zip(pending, scalars, hists):
                 for name, v in zip(("main", "aux", "loss"), vals):
                     meters[name].update(v, n)
@@ -312,7 +350,7 @@ class SegTrainer:
                 else:
                     self.state, m = self.steps.plain(self.state, im, lb)
             step = epoch * len(self.train_loader) + i + 1
-            pending.append((m, int(im.shape[0]), step))
+            pending.append((m, int(im.shape[0]) * self.dp.num_shards, step))
             if (i + 1) % cfg.print_freq == 0:
                 drain()
                 miou, _, _ = _summarize(*sums)
@@ -333,12 +371,15 @@ class SegTrainer:
         zeros labelled all ``ignore_label``, which add nothing to the loss
         or the histograms, so every batch has one shape.  The sums stay on
         the card (the histograms in float64) until the loader is done.
-        The loss is the mean over the valid pixels."""
+        The loss is the mean over the valid pixels.  Across ranks each
+        evaluates its rows, a full batch being its share of the global
+        one (the tail's share padded by the loader, then to that), and
+        the sums are all-reduced once."""
         loader = loader or self.val_loader
         if loader is None:
             return None
         cfg = self.cfg
-        full = loader.batch_size
+        full = -(-loader.batch_size // self.dp.num_shards)
         put = batch_put(self.device)
 
         def pad(batch):
@@ -360,6 +401,13 @@ class SegTrainer:
                 k: totals[k] + out[k] for k in totals}
         if totals is None:
             return None
+        if distributed.world() is not None:
+            keys = sorted(totals)
+            flat = self.dp.sum(torch.cat([totals[k].reshape(-1)
+                                          for k in keys]))
+            parts = flat.split([totals[k].numel() for k in keys])
+            totals = {k: p.view(totals[k].shape)
+                      for k, p in zip(keys, parts)}
         totals = {k: v.cpu().numpy() for k, v in totals.items()}
         inter, union, target = (totals["intersection"], totals["union"],
                                 totals["target"])
@@ -396,6 +444,8 @@ class SegTrainer:
         orbax an asynchronous save of the step, the newest ``keep_last``
         steps kept."""
         cfg = self.cfg
+        if not self.dp.is_writer:
+            return os.path.join(cfg.save_path, f"seg_ckpt_{epoch}")
         if self.ckpt is not None:
             self.ckpt.save(self.state.step, self.state,
                            extra={"epoch": epoch})
@@ -419,6 +469,7 @@ class SegTrainer:
                   f"{miou:.4f}/{macc:.4f}/{aacc:.4f}")
             if (epoch + 1) % cfg.save_freq == 0 or epoch + 1 == end:
                 self.save_checkpoint(epoch + 1)
+                distributed.barrier()
             if (epoch + 1) % cfg.eval_freq == 0:
                 if self.val_loader:
                     self.validate()

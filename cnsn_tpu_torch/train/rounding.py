@@ -77,7 +77,9 @@ from ..models.wideresnet import WideResNet
 from ..ops.bbox import sample_bbox
 from ..ops.crossnorm import grouped_permutation
 from ..ops.kernels import bn_stats as _bn_stats
+from ..ops.kernels import ins_stats as _ins_stats
 from ..ops.kernels.bn_stats import bn_sums_reference as _plain_sums
+from ..parallel.mesh import DataParallel, make_mesh
 from ..segmentation import backbone as _seg_backbone
 from ..segmentation import fcn as _seg_fcn
 from ..segmentation import pspnet as _seg_psp
@@ -87,14 +89,16 @@ from ..utils.device import resolve_device
 from .schedules import cosine_lr
 from .steps import StepFns, create_train_state
 
-__all__ = ["CN_KNOBS", "CN_MASK", "CONSIST", "KINDS", "Run", "WITNESSES",
-           "cn_draws", "compare_runs", "compare_traces", "exact_bn_sums",
+__all__ = ["CN_KNOBS", "CN_MASK", "CONSIST", "DP_PERM", "KINDS", "Run",
+           "WITNESSES", "cn_draws", "compare_runs", "compare_traces",
+           "exact_bn_sums", "merge_tapes", "plain_kernels",
            "run_augmix_step", "run_cn_step", "run_consist_step",
            "run_seg_step", "run_steps", "seed_bounds", "seed_spread"]
 
 KINDS = ("plain", "cn_image", "plain")
 BATCH, SIZE, CLASSES = 4, 64, 10  # 64² leaves layer4 at 2x2
 PERM = (2, 0, 3, 1)  # the cn_image step's partner of each instance
+DP_PERM = (1, 0, 3, 2)  # a pairing within each half: two ranks' blocks
 # the cn step: a WRN of one block per group (3 sites: 32², 16², 8²), sites
 # 1 and 3 on, and the knob sets of cn.yaml, cnsn.yaml and the fused site
 CN_BATCH, CN_SIZE = 8, 32
@@ -234,6 +238,25 @@ def _patched_sums(sums: Optional[Callable]):
         for k, fn in saved.items():
             setattr(_bn_stats, k, fn)
 
+@contextlib.contextmanager
+def plain_kernels():
+    """K1's and K2's CUDA entry points, forward and backward, taken by
+    their plain versions while the block runs: a float64 twin on the card
+    (the kernels take float32 and bfloat16)."""
+    swaps = ((_bn_stats, "bn_sums_cuda", "bn_sums_reference"),
+             (_bn_stats, "bn_sums_bwd_cuda", "bn_sums_bwd_reference"),
+             (_ins_stats, "ins_stats_cuda", "ins_stats_reference"),
+             (_ins_stats, "ins_stats_bwd_cuda", "ins_stats_bwd_reference"))
+    saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+    for m, k, plain in swaps:
+        setattr(m, k, getattr(m, plain))
+    try:
+        yield
+    finally:
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+
+
 def exact_bn_sums(x: torch.Tensor, m0: torch.Tensor):
     """K2's sums correctly rounded: the float32 differences x − m0 and
     their rounded squares, as the kernel and the plain version form them,
@@ -247,13 +270,20 @@ def exact_bn_sums(x: torch.Tensor, m0: torch.Tensor):
 
 def run_steps(device: str | torch.device, dtype: torch.dtype, *,
               replay: Optional[list] = None, trace: bool = False,
-              seed: int = 3, sums: Optional[Callable] = None) -> Run:
+              seed: int = 3, sums: Optional[Callable] = None,
+              perm=PERM) -> Run:
     """The three steps on ``device`` (TF32 off) in ``dtype`` (float32 or
     float64, the whole model), on images and labels drawn from ``seed``.
     ``replay``: the tape of another run, whose ReLU masks and max-pool
     choices this run applies.  ``sums``: a function (x, m0) -> (s1, s2)
     that takes the place of K2's forward and of its plain version for
-    this run's BatchNorm sums."""
+    this run's BatchNorm sums.  ``perm``: the cn_image step's pairing.
+
+    On a rank of a process group (``parallel/``) the run takes the
+    rank's rows of each batch (``perm`` then pairs within the ranks'
+    blocks, ``DP_PERM``), its losses are the global batch's, and its tape
+    holds the rank's rows: the ranks' tapes concatenated
+    (``merge_tapes``) are the whole batch's."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     images = torch.randn(len(KINDS), BATCH, SIZE, SIZE, 3, generator=gen)
@@ -264,26 +294,34 @@ def run_steps(device: str | torch.device, dtype: torch.dtype, *,
     state = create_train_state(model.to(dtype), cosine_lr(0.05, 4),
                                momentum=0.9, weight_decay=1e-4,
                                nesterov=False, device=device)
-    steps, tape, traced = StepFns(), _Tape(replay), {}
+    dp = DataParallel(make_mesh())
+    steps, tape, traced = StepFns(num_groups=dp.num_shards), _Tape(replay), {}
     handles = _trace_hooks(state.model, traced) if trace else []
     losses, states = [], {}
     with _patched_sums(sums):
         with _exact(_resnet, tape):
             for i, kind in enumerate(KINDS):
-                x = images[i].to(device, dtype)
-                y = labels[i].to(device)
+                x = dp.shard_batch(images[i]).to(device, dtype)
+                y = dp.shard_batch(labels[i]).to(device)
                 if kind == "plain":
                     state, metrics = steps.plain(state, x, y)
                 else:
                     state, metrics = steps.cn_image(
-                        state, x, y, perm=torch.tensor(PERM, device=device))
-                losses.append(float(metrics["loss"]))
+                        state, x, y, perm=torch.tensor(perm))
+                losses.append(float(dp.mean([metrics["loss"]])[0]))
                 for h in handles:
                     h.remove()
                 handles = []
                 if i in (0, len(KINDS) - 1):
                     states[i + 1] = _snapshot(state)
     return Run(losses, states, tape.record, traced)
+
+
+def merge_tapes(tapes: list) -> list:
+    """The tapes of the ranks of one run (rank order), as the tape of the
+    whole batch: each ReLU mask and max-pool choice concatenated on the
+    batch axis."""
+    return [torch.cat(parts) for parts in zip(*tapes)]
 
 
 def cn_draws(seed: int = 0) -> list:
@@ -551,20 +589,21 @@ def seed_spread(seeds, baseline=None) -> list:
 WITNESSES = ("cpu", "card_torch_sums", "card_exact_bn_sums")
 
 
-def seed_bounds(row: dict, factor: float, floor: float) -> list:
+def seed_bounds(row: dict, factor: float, floor: float,
+                witnesses=WITNESSES) -> list:
     """Each quantity of the card's run in one ``seed_spread`` row (the loss of
     each step; after steps 1 and 3 the worst state and momentum tensor)
     beside its bound: ``factor`` times the largest error of the
-    ``WITNESSES`` at that quantity, at least ``factor · floor``.  Returns
+    ``witnesses`` at that quantity, at least ``factor · floor``.  Returns
     [(quantity, error, bound)]; the run is within bound where every error
     is at most its bound."""
     out = []
     for key, got in row["card"].items():
         if key == "loss_rel_err":
-            items = [(f"{key}[{i}]", g, [row[w][key][i] for w in WITNESSES])
+            items = [(f"{key}[{i}]", g, [row[w][key][i] for w in witnesses])
                      for i, g in enumerate(got)]
         else:
-            items = [(key, got[0], [row[w][key][0] for w in WITNESSES])]
+            items = [(key, got[0], [row[w][key][0] for w in witnesses])]
         out += [(name, g, factor * max(max(refs), floor))
                 for name, g, refs in items]
     return out

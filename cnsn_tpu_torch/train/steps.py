@@ -45,6 +45,8 @@ import torch
 from torch import nn
 
 from ..ops.crossnorm import cross_norm_2ins
+from ..parallel.distributed import global_rows, world
+from ..parallel.mesh import average_gradients
 from ..utils.device import resolve_device
 from .losses import cross_entropy, error_topk, jsd_consistency, softmax_probs
 
@@ -97,24 +99,32 @@ class StepFns:
     ``cn_num``; ``consist_wt``, the JSD's weight in a consistency step
     and of the CrossNorm JSD in an ``augmix_cn`` step; ``image_crop`` and
     ``image_beta`` for image-space CrossNorm; ``jsd_wt``, the AugMix JSD's
-    weight (the reference hard-codes 12: cifar.py:246, imagenet.py:373).
-    One card pairs instances over the whole batch: the per-shard pairing
-    of data parallelism comes with the parallel slice (ROADMAP queue 1)."""
+    weight (the reference hard-codes 12: cifar.py:246, imagenet.py:373);
+    ``num_groups``, the blocks of the global batch image-space CrossNorm
+    pairs within (the data-parallel width; the in-network sites take
+    theirs from the model).
+
+    Across ranks (``parallel/``) each rank runs a step on its rows of the
+    global batch, with the draws of the whole batch (every rank's
+    generator seeded alike): the losses are the means over its rows, and
+    averaging the gradients over the ranks gives the global batch's."""
 
     def __init__(self, *, active_num: int = 1, consist_wt: float = 0.0,
                  image_crop: str = "neither", image_beta: float = 1.0,
-                 jsd_wt: float = 12.0):
+                 jsd_wt: float = 12.0, num_groups: int = 1):
         self.active_num = active_num
         self.consist_wt = consist_wt
         self.image_crop = image_crop
         self.image_beta = image_beta
         self.jsd_wt = jsd_wt
+        self.num_groups = num_groups
 
     @staticmethod
     def _sgd(state: TrainState, loss: torch.Tensor) -> None:
         """Back-propagate ``loss`` and take one SGD update at
         lr = schedule(step); a parameter the loss does not reach gets a
-        zero gradient (JAX's), not none."""
+        zero gradient (JAX's), not none.  Across ranks the gradients are
+        averaged before the update (``parallel/mesh.py``)."""
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for group in state.optimizer.param_groups:
@@ -122,6 +132,8 @@ class StepFns:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        average_gradients(p for group in state.optimizer.param_groups
+                          for p in group["params"])
         state.optimizer.step()
         state.step += 1
 
@@ -207,8 +219,8 @@ class StepFns:
         with torch.no_grad():
             images = cross_norm_2ins(
                 images, crop=self.image_crop, beta=self.image_beta,
-                perm=perm, style_box=style_box, content_box=content_box,
-                generator=generator)
+                num_groups=self.num_groups, perm=perm, style_box=style_box,
+                content_box=content_box, generator=generator)
         return self.plain(state, images, labels)
 
     def cn_image_consist(self, state: TrainState, images: torch.Tensor,
@@ -225,6 +237,7 @@ class StepFns:
         with torch.no_grad():
             augmented = [cross_norm_2ins(
                 images, crop=self.image_crop, beta=self.image_beta,
+                num_groups=self.num_groups,
                 generator=generator, **d) for d in draws]
         return self._consistency(state, labels,
                                  [(images, {})] + [(a, {}) for a in augmented])
@@ -291,12 +304,22 @@ class StepFns:
         CrossNorm draw at crop ``image_crop`` over the whole 3B batch (no
         gradient flows into it; reference imagenet.py:357-358), ``perm``
         and the boxes as ``cn_image`` takes them, then ``augmix``'s
-        update."""
+        update.  Across ranks the pairing is JAX's, within
+        ``num_groups`` blocks of the flattened global 3B batch (view
+        major), which interleave the ranks' rows: the partners'
+        statistics are gathered from every rank (``rows``)."""
+        rows = None
+        if world() is not None:
+            views, b = images3.shape[:2]
+            n, start = global_rows(b)
+            rows = (torch.arange(views)[:, None] * n + start
+                    + torch.arange(b)).reshape(-1)
         with torch.no_grad():
             images_all = cross_norm_2ins(
                 images3.flatten(0, 1), crop=self.image_crop,
-                beta=self.image_beta, perm=perm, style_box=style_box,
-                content_box=content_box, generator=generator)
+                beta=self.image_beta, num_groups=self.num_groups, perm=perm,
+                style_box=style_box, content_box=content_box, rows=rows,
+                generator=generator)
         return self._augmix_update(state, images_all, labels)
 
     def eval_step(self, state: TrainState, images: torch.Tensor,

@@ -14,6 +14,19 @@ the card unless the caller asks for the CPU.  The loaders' worker pools
 live until ``close()``, so a second ``fit()`` keeps them.  What the port
 does not have yet raises when the Trainer is built (``NOT_PORTED``).
 
+``num_devices`` = N > 1 trains on N ranks, one process each, in a group
+that ``parallel/`` set up (``cli train num_devices=N`` spawns them, or
+``torchrun``); each rank runs the step JAX's ``DataParallel`` runs over N
+devices, on its rows of each global batch: its loaders yield those rows
+bit for bit (``shard``), BatchNorm's statistics are the global batch's,
+CrossNorm pairs within the rank's rows (``num_groups`` = N), the
+gradients are averaged; the loss meter reads the global means every
+``print_freq`` steps; the evaluation pads the last batch to a multiple
+of N with label −1 and all-reduces its sums; rank 0 names and makes the
+experiment directory and alone writes log.txt and the checkpoints (which
+load into one process); under ``ckpt_backend: orbax`` a SIGTERM to any
+rank is flushed by every rank at the same step.
+
 ``remat`` reaches only the ResNet models, as in JAX (``cnsn_tpu/train/
 trainer.py:58-59``): on the CIFAR models it is ignored, not refused.
 ``ckpt_backend: orbax`` (JAX ``trainer.py:153-185,323-343``) keeps step
@@ -41,6 +54,8 @@ from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..evaluation.classify import (CORRUPTIONS, compute_mce, evaluate,
                                    evaluate_cifar_c)
 from ..models import build_model
+from ..parallel import distributed
+from ..parallel.mesh import DataParallel, make_mesh
 from ..utils.checkpoint import restore_state, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.meters import AverageMeter, get_log_dir_path
@@ -52,11 +67,9 @@ __all__ = ["Trainer", "NOT_PORTED"]
 
 DTYPES = {"fp32": None, "bf16": torch.bfloat16}
 
-_PARALLEL = "ROADMAP queue 1, parallel"
 # (what is set, the ROADMAP item that ports it), checked in this order
 NOT_PORTED = (
-    (lambda c: c.fsdp, "fsdp", _PARALLEL),
-    (lambda c: (c.num_devices or 1) > 1, "num_devices > 1", _PARALLEL),
+    (lambda c: c.fsdp, "fsdp", "ROADMAP queue 1, item 4b: parallel/fsdp.py"),
 )
 CKPT_BACKENDS = ("msgpack", "orbax")
 
@@ -121,8 +134,19 @@ class Trainer:
     def __init__(self, cfg: ExperimentConfig,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg = cfg.infer()
-        self.device = resolve_device(device)
         _check_ported(cfg)
+        # the ranks of a process group (cli train num_devices=N, torchrun):
+        # this rank's device, its rows of each batch
+        self.dp = DataParallel(make_mesh(cfg.num_devices))
+        w = distributed.world()
+        self.device = w.device if w is not None else resolve_device(device)
+        width = self.dp.num_shards
+        if cfg.batch_size % width != 0:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must be divisible by the "
+                f"data-parallel width {width} (set num_devices to control "
+                "it)")
+        shard = (self.dp.rank, width) if w is not None else None
         np.random.seed(cfg.seed)
 
         model_kw = dict(pos=cfg.pos, crop=cfg.crop, beta=cfg.beta,
@@ -132,7 +156,8 @@ class Trainer:
             model_kw["remat"] = cfg.remat
         self.model = build_model(
             cfg.model, cfg.num_classes,
-            generator=torch.Generator().manual_seed(cfg.seed), **model_kw)
+            generator=torch.Generator().manual_seed(cfg.seed),
+            num_groups=width, **model_kw)
 
         self.image_size = cfg.resolved_image_size
         augmix = "augmix" in cfg.regime
@@ -149,11 +174,11 @@ class Trainer:
                 scan_image_folder(os.path.join(cfg.data_dir, "train")),
                 cfg.batch_size, mode=mode, seed=cfg.seed, workers=cfg.workers,
                 image_size=self.image_size, mp_workers=cfg.augmix_workers,
-                **aug_kw)
+                shard=shard, **aug_kw)
             self.test_loader = ImageNetLoader(
                 scan_image_folder(os.path.join(cfg.data_dir, "validation")),
                 cfg.eval_batch_size, mode="eval", workers=cfg.workers,
-                image_size=self.image_size)
+                image_size=self.image_size, shard=shard)
         else:
             mode = "train"
             if self.ondevice:
@@ -166,9 +191,10 @@ class Trainer:
                                         synthetic=cfg.synthetic_data)
             self.train_loader = CifarLoader(
                 self.train_data, cfg.batch_size, mode=mode, seed=cfg.seed,
-                workers=cfg.augmix_workers, **aug_kw)
+                workers=cfg.augmix_workers, shard=shard, **aug_kw)
             self.test_loader = CifarLoader(self.test_data,
-                                           cfg.eval_batch_size, mode="eval")
+                                           cfg.eval_batch_size, mode="eval",
+                                           shard=shard)
 
         steps_per_epoch = len(self.train_loader)
         if cfg.schedule == "cosine":
@@ -183,6 +209,7 @@ class Trainer:
             self.model, sched, momentum=cfg.momentum,
             weight_decay=cfg.weight_decay, nesterov=cfg.nesterov,
             device=self.device)
+        self.dp.replicate(self.state.model)
         if cfg.pretrained and os.path.isfile(cfg.pretrained):
             unmatched = self._load_pretrained(cfg.pretrained)
             print(f"loaded pretrained '{cfg.pretrained}' "
@@ -190,7 +217,7 @@ class Trainer:
         self.steps = StepFns(active_num=cfg.active_num or 1,
                              consist_wt=cfg.consist_wt or 0.0,
                              image_crop=cfg.crop or "neither",
-                             image_beta=cfg.beta or 1.0)
+                             image_beta=cfg.beta or 1.0, num_groups=width)
         self._gated, self._ungated = (
             _NO_JSD if cfg.regime == "cn_augmix" and cfg.no_jsd
             else _GATED[cfg.regime])
@@ -207,10 +234,9 @@ class Trainer:
             print(f"=> loaded checkpoint '{cfg.resume}' "
                   f"(epoch {self.start_epoch})")
         else:
-            self.exp_dir = get_log_dir_path(cfg.exp_dir, cfg.exp_id)
-            os.makedirs(self.exp_dir, exist_ok=True)
+            self.exp_dir = self._new_exp_dir()
         self.log_file = os.path.join(self.exp_dir, "log.txt")
-        if cfg.snapshot:
+        if cfg.snapshot and self.dp.is_writer:
             # provenance snapshot (train_cnsn.sh: cp script+config into
             # the exp dir); the CLI adds the log tee
             from ..utils.provenance import snapshot_experiment
@@ -241,8 +267,7 @@ class Trainer:
         if cfg.resume and os.path.isdir(cfg.resume):
             self.exp_dir = cfg.resume
         else:
-            self.exp_dir = get_log_dir_path(cfg.exp_dir, cfg.exp_id)
-            os.makedirs(self.exp_dir, exist_ok=True)
+            self.exp_dir = self._new_exp_dir()
         self.ckpt = OrbaxCheckpointer(
             os.path.join(os.path.abspath(self.exp_dir), "orbax"), keep=2)
         self.state, step, extra = self.ckpt.restore(
@@ -257,10 +282,22 @@ class Trainer:
             lambda: (self.state.step, self.state), self.ckpt,
             get_extra=lambda: {"epoch": self._epoch,
                                "best_acc": self.best_acc},
-            exit_code=143, before_exit=self.close)
+            exit_code=143, before_exit=self.close,
+            writer=self.dp.is_writer)
+
+    def _new_exp_dir(self) -> str:
+        """A new experiment directory, named by rank 0 (the name reads the
+        clock) and made there; every rank gets its path."""
+        cfg = self.cfg
+        path = None
+        if self.dp.is_writer:
+            path = get_log_dir_path(cfg.exp_dir, cfg.exp_id)
+            os.makedirs(path, exist_ok=True)
+        return distributed.broadcast_object(path)
 
     def _step_guard(self):
-        """The block of one step: a SIGTERM inside it is flushed after."""
+        """The block of one step: a SIGTERM inside it is flushed after
+        (across ranks, at the first step's end where any rank had one)."""
         return (self._preempt.step() if self._preempt is not None
                 else contextlib.nullcontext())
 
@@ -290,9 +327,13 @@ class Trainer:
 
     def augmix_views(self, images_u8: torch.Tensor) -> torch.Tensor:
         """The (3, B, H, W, 3) views of a staged uint8 batch, built on its
-        device (``cnsn_tpu/train/trainer.py:234-257``)."""
-        return apply_augmix(images_u8, self.augmix_draws(len(images_u8)),
-                            **self._augmix_norm)
+        device (``cnsn_tpu/train/trainer.py:234-257``); across ranks from
+        the global batch's draws, of which the rank takes its rows."""
+        n = len(images_u8)
+        draws = self.augmix_draws(distributed.global_rows(n)[0])
+        draws = {k: distributed.local_rows(v, n, axis=1)
+                 for k, v in draws.items()}
+        return apply_augmix(images_u8, draws, **self._augmix_norm)
 
     def train_epoch(self) -> float:
         cfg = self.cfg
@@ -316,29 +357,48 @@ class Trainer:
                 else:
                     self.state, metrics = getattr(self.steps, self._ungated)(
                         self.state, im, lb)
-            pending.append((metrics["loss"], int(lb.shape[-1])))
+            pending.append((metrics["loss"],
+                            int(lb.shape[-1]) * self.dp.num_shards))
             if i % cfg.print_freq == 0:
-                _resolve(pending, losses)
-                print(f"Train Loss {losses.avg:.3f}")
-        _resolve(pending, losses)
+                _resolve(pending, losses, self.dp)
+                if self.dp.is_writer:
+                    print(f"Train Loss {losses.avg:.3f}")
+        _resolve(pending, losses, self.dp)
         return losses.avg
 
     # ---- full run --------------------------------------------------------
 
     def evaluate_clean(self):
         return evaluate(self.steps.eval_sum, self.state, self.test_loader,
-                        prefetch_depth=self.cfg.prefetch_depth)
+                        prefetch_depth=self.cfg.prefetch_depth, dp=self.dp)
+
+    def _save(self, epoch: int, test_acc: float, is_best: bool) -> None:
+        if self.ckpt is not None:
+            # the write overlaps the next epoch's steps
+            self.ckpt.save(self.state.step, self.state,
+                           extra={"epoch": epoch + 1,
+                                  "best_acc": self.best_acc},
+                           metrics={"test_acc": float(test_acc)})
+        else:
+            save_checkpoint(self.state, type(self.state.model).__name__,
+                            self.exp_dir, epoch + 1, self.best_acc, is_best,
+                            keep_epoch_file=(self.cfg.dataset == "imagenet"))
+
+    def _log(self, text: str) -> None:
+        """Append to log.txt (rank 0 only)."""
+        if self.dp.is_writer:
+            with open(self.log_file, "a") as f:
+                f.write(text)
 
     def fit(self, epochs: Optional[int] = None) -> float:
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
-        with open(self.log_file, "a") as f:
-            f.write(f"dataset: {cfg.dataset}\n")
-            f.write(f"batch size: {cfg.batch_size}\n")
-            f.write(f"lr: {cfg.lr}\n")
-            f.write(f"momentum: {cfg.momentum}\n")
-            f.write(f"weight_decay: {cfg.weight_decay}\n")
-            f.write("epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1\n")
+        self._log(f"dataset: {cfg.dataset}\n"
+                  f"batch size: {cfg.batch_size}\n"
+                  f"lr: {cfg.lr}\n"
+                  f"momentum: {cfg.momentum}\n"
+                  f"weight_decay: {cfg.weight_decay}\n"
+                  "epoch\tlr\tTrain Loss\tTest Err1\tBest Test Err1\n")
 
         for epoch in range(self.start_epoch, epochs):
             self._epoch = epoch
@@ -348,24 +408,16 @@ class Trainer:
             test_loss, test_acc = self.evaluate_clean()
             is_best = test_acc > self.best_acc
             self.best_acc = max(test_acc, self.best_acc)
-            if self.ckpt is not None:
-                # the write overlaps the next epoch's steps
-                self.ckpt.save(self.state.step, self.state,
-                               extra={"epoch": epoch + 1,
-                                      "best_acc": self.best_acc},
-                               metrics={"test_acc": float(test_acc)})
-            else:
-                save_checkpoint(self.state, type(self.state.model).__name__,
-                                self.exp_dir, epoch + 1, self.best_acc,
-                                is_best,
-                                keep_epoch_file=(cfg.dataset == "imagenet"))
-            with open(self.log_file, "a") as f:
-                f.write(f"{epoch:d}\t{lr:g}\t{train_loss:2.2f}\t"
-                        f"{100 - 100. * test_acc:2.2f}\t"
-                        f"{100 - 100. * self.best_acc:2.2f}\n")
-            print(f"epoch {epoch}: loss {train_loss:.3f} "
-                  f"err {100 - 100. * test_acc:.2f} "
-                  f"({time.time() - t0:.1f}s)")
+            if self.dp.is_writer:
+                self._save(epoch, test_acc, is_best)
+            self._log(f"{epoch:d}\t{lr:g}\t{train_loss:2.2f}\t"
+                      f"{100 - 100. * test_acc:2.2f}\t"
+                      f"{100 - 100. * self.best_acc:2.2f}\n")
+            if self.dp.is_writer:
+                print(f"epoch {epoch}: loss {train_loss:.3f} "
+                      f"err {100 - 100. * test_acc:.2f} "
+                      f"({time.time() - t0:.1f}s)")
+            distributed.barrier()
         if self.ckpt is not None:
             self.ckpt.wait_until_finished()
         return self.best_acc
@@ -394,7 +446,8 @@ class Trainer:
         mean_acc, _ = evaluate_cifar_c(
             self.steps.eval_sum, self.state, cfg.corrupt_data_dir,
             cfg.num_classes, cfg.eval_batch_size,
-            prefetch_depth=cfg.prefetch_depth)
+            prefetch_depth=cfg.prefetch_depth, dp=self.dp,
+            verbose=self.dp.is_writer)
         print(f"Mean Corruption Error: {100 - 100. * mean_acc:.3f}")
         return mean_acc
 
@@ -411,9 +464,11 @@ class Trainer:
                 loader = ImageNetLoader(
                     scan_image_folder(imagenet_c_dir(
                         cfg.corrupt_data_dir, corruption, severity)),
-                    cfg.eval_batch_size, mode="eval", workers=cfg.workers)
+                    cfg.eval_batch_size, mode="eval", workers=cfg.workers,
+                    shard=self.test_loader.shard)
                 _, acc = evaluate(self.steps.eval_sum, self.state, loader,
-                                  prefetch_depth=cfg.prefetch_depth)
+                                  prefetch_depth=cfg.prefetch_depth,
+                                  dp=self.dp)
                 accs.append(acc)
             corruption_accs[corruption] = accs
             print(f"{corruption}: avg err "
@@ -426,11 +481,12 @@ class Trainer:
         return mce
 
 
-def _resolve(pending, meter: AverageMeter) -> None:
-    """Bring the pending (loss, batch) pairs to the host with one wait and
-    add them to ``meter`` in order."""
+def _resolve(pending, meter: AverageMeter, dp: DataParallel) -> None:
+    """Bring the pending (loss, batch) pairs to the host with one wait
+    (across ranks, one all-reduce: the global batches' means) and add
+    them to ``meter`` in order."""
     if pending:
-        values = torch.stack([v for v, _ in pending]).tolist()
+        values = dp.mean([v for v, _ in pending]).tolist()
         for v, (_, m) in zip(values, pending):
             meter.update(v, m)
         pending.clear()

@@ -14,7 +14,14 @@ __all__ = ["MetricWriter"]
 
 
 class MetricWriter:
-    def __init__(self, log_dir: str, tensorboard: bool = False):
+    """``enabled=False`` writes nothing and makes no file: the writer of a
+    rank other than 0 under data parallelism."""
+
+    def __init__(self, log_dir: str, tensorboard: bool = False,
+                 enabled: bool = True):
+        self._f = self._tb = None
+        if not enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "scalars.jsonl")
         self._f = open(self.path, "a", buffering=1)
@@ -27,6 +34,8 @@ class MetricWriter:
                 pass
 
     def scalar(self, tag: str, value: float, step: int):
+        if self._f is None:
+            return
         self._f.write(json.dumps({"tag": tag, "value": float(value),
                                   "step": int(step),
                                   "wall_time": time.time()}) + "\n")
@@ -36,4 +45,5 @@ class MetricWriter:
     def close(self):
         if self._tb is not None:
             self._tb.close()
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

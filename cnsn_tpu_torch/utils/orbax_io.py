@@ -38,6 +38,8 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ..parallel import distributed
+
 __all__ = ["OrbaxCheckpointer", "PreemptionSave", "install_preemption_save"]
 
 _FILE = "state.pt"
@@ -148,23 +150,31 @@ class PreemptionSave:
     """The SIGTERM handler of ``install_preemption_save``: a synchronous
     save of ``get_state()`` = (step, state) with ``get_extra()``, at a step
     boundary, then ``before_exit()`` and ``os._exit(exit_code)``.  Wrap
-    every call that mutates the state in ``step()``."""
+    every call that mutates the state in ``step()``.
+
+    Across ranks (``parallel/``) each step's end asks the ranks whether
+    any has the signal (a host all-reduce), so that every rank flushes
+    after the same step: ``writer`` (rank 0) saves, the ranks wait for
+    it, and each exits with ``exit_code``.  A signal outside a step then
+    waits for the next step's end."""
 
     def __init__(self, get_state: Callable, checkpointer: OrbaxCheckpointer,
                  get_extra: Optional[Callable] = None,
                  exit_code: Optional[int] = None,
-                 before_exit: Optional[Callable] = None):
+                 before_exit: Optional[Callable] = None,
+                 writer: bool = True):
         self.get_state = get_state
         self.checkpointer = checkpointer
         self.get_extra = get_extra
         self.exit_code = exit_code
         self.before_exit = before_exit
+        self.writer = writer
         self._in_step = False
         self._pending = False
         self._done = False
 
     def handler(self, signum, frame) -> None:
-        if self._in_step:
+        if self._in_step or distributed.world() is not None:
             self._pending = True
         else:
             self.flush()
@@ -178,7 +188,7 @@ class PreemptionSave:
             yield
         finally:
             self._in_step = False
-        if self._pending:
+        if distributed.any_rank(self._pending):
             self.flush()
 
     def flush(self) -> None:
@@ -187,7 +197,9 @@ class PreemptionSave:
         self._done = True
         step, state = self.get_state()
         extra = self.get_extra() if self.get_extra is not None else None
-        self.checkpointer.save(int(step), state, extra=extra, wait=True)
+        if self.writer:
+            self.checkpointer.save(int(step), state, extra=extra, wait=True)
+        distributed.barrier()
         if self.before_exit is not None:
             self.before_exit()
         if self.exit_code is not None:
@@ -200,13 +212,13 @@ def install_preemption_save(get_state: Callable,
                             checkpointer: OrbaxCheckpointer,
                             get_extra: Optional[Callable] = None,
                             exit_code: Optional[int] = None,
-                            before_exit: Optional[Callable] = None
-                            ) -> PreemptionSave:
+                            before_exit: Optional[Callable] = None,
+                            writer: bool = True) -> PreemptionSave:
     """SIGTERM → a final synchronous save, then (with ``exit_code``) the
     process ends: the preemption contract (SLURM and GKE send SIGTERM,
     then SIGKILL after a grace period), so a run never resumes on a
     half-done step.  Returns the installed ``PreemptionSave``."""
     guard = PreemptionSave(get_state, checkpointer, get_extra, exit_code,
-                           before_exit)
+                           before_exit, writer)
     signal.signal(signal.SIGTERM, guard.handler)
     return guard

@@ -73,7 +73,7 @@ def small(monkeypatch):
         return JaxResNet(layers=LAYERS, num_classes=num_classes,
                          stem="conv", **_knobs(kw))
 
-    def port_build(name, num_classes, generator=None, **kw):
+    def port_build(name, num_classes, generator=None, num_groups=1, **kw):
         return _F64ResNet(layers=LAYERS, num_classes=num_classes,
                           generator=generator, **_knobs(kw))
 

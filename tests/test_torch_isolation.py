@@ -81,9 +81,9 @@ def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
         from cnsn_tpu_torch.models.wideresnet import WideResNet
         from cnsn_tpu_torch.utils import (checkpoint, meters, metrics_io,
                                           prefetch, provenance)
-        trainer_mod.build_model = lambda name, classes, **kw: WideResNet(
-            depth=10, widen_factor=1, num_classes=classes,
-            **{k: v for k, v in kw.items() if v is not None})
+        trainer_mod.build_model = lambda name, classes, num_groups=1, **kw: (
+            WideResNet(depth=10, widen_factor=1, num_classes=classes,
+                       **{k: v for k, v in kw.items() if v is not None}))
         cfg = load_config("cnsn_tpu/configs/cifar10/wideresnet/cnsn.yaml",
                           synthetic_data=True, batch_size=16, snapshot=False,
                           exp_dir=sys.argv[1], print_freq=100)
@@ -112,6 +112,9 @@ def test_port_runs_without_jax_in_a_fresh_process(tmp_path):
             torch.from_numpy(label)[None].repeat(2, 1, 1),
             generator=torch.Generator().manual_seed(0))
         assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+        from cnsn_tpu_torch.parallel import (DataParallel, RankPool,
+                                             initialize, make_mesh)
+        assert make_mesh().size == 1
         from cnsn_tpu_torch.segmentation import pspnet as seg_psp
         from cnsn_tpu_torch.segmentation import vis as seg_vis
         from cnsn_tpu_torch.serving import export_segmenter, load_artifact
@@ -167,6 +170,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files.append(os.path.join(_ROOT, "chip_smoke.py"))
     assert len(files) > 15
     assert any(os.sep + "segmentation" + os.sep in f for f in files)
+    assert any(os.sep + "parallel" + os.sep in f for f in files)
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in _FORBIDDEN, (path, mod)

@@ -76,7 +76,7 @@ def small(monkeypatch):
         return JaxWideResNet(depth=DEPTH, widen_factor=WIDEN,
                              num_classes=num_classes, **_knobs(kw))
 
-    def port_build(name, num_classes, generator=None, **kw):
+    def port_build(name, num_classes, generator=None, num_groups=1, **kw):
         return _F64WideResNet(depth=DEPTH, widen_factor=WIDEN,
                               num_classes=num_classes, generator=generator,
                               **_knobs(kw))
@@ -247,7 +247,7 @@ def test_one_imagenet_step_builds_views_on_the_batch(monkeypatch, tmp_path):
     batch under the ImageNet statistics, the views carry the Trainer's
     draws, the step moves the weights; ``all_ops`` does not reach the
     chain (the nine default ops, as in JAX)."""
-    def port_build(name, num_classes, generator=None, **kw):
+    def port_build(name, num_classes, generator=None, num_groups=1, **kw):
         return ResNet(layers=(1, 1, 1, 1), num_classes=num_classes,
                       generator=generator, **_knobs(kw))
 

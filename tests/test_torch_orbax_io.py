@@ -221,7 +221,7 @@ def _trainer(exp_dir):
     from cnsn_tpu_torch.config import load_config
     from cnsn_tpu_torch.models.wideresnet import WideResNet
 
-    def small(name, num_classes, generator=None, **kw):
+    def small(name, num_classes, generator=None, num_groups=1, **kw):
         kw = {k: v for k, v in kw.items() if v is not None}
         return WideResNet(depth=10, widen_factor=1, num_classes=num_classes,
                           generator=generator, **kw)

@@ -86,7 +86,8 @@ def test_trainer_pool_outlives_fit_and_stops_at_close(monkeypatch,
     steps stubbed: the pool serves two fit() calls (one epoch each), the
     same pool both times, and close() stops it."""
     monkeypatch.setattr(trainer_mod, "build_model",
-                        lambda name, classes, generator=None, **kw:
+                        lambda name, classes, generator=None, num_groups=1,
+                        **kw:
                         WideResNet(depth=10, widen_factor=1,
                                    num_classes=classes, generator=generator,
                                    **{k: v for k, v in kw.items()

@@ -95,7 +95,7 @@ def small(monkeypatch):
     class Build:
         f64 = False
 
-        def __call__(self, cfg, generator=None):
+        def __call__(self, cfg, generator=None, num_groups=1):
             cls = _F64FCN if self.f64 else FCNCNSN
             return cls(classes=cfg.classes, generator=generator,
                        **_model_kw(cfg))
@@ -282,18 +282,23 @@ def test_psp_archs_build_and_step(arch, cls, tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(fsdp=True), "parallel"), (dict(num_devices=2), "parallel"),
+    (dict(fsdp=True), "parallel"),
+    (dict(num_devices=2), (ValueError, "num_devices=2 .* launch")),
     (dict(spatial=2), "parallel"), (dict(remat=True), None),
     (dict(ckpt_backend="orbax"), None)])
 def test_unported_knobs_raise(over, match, tmp_path, monkeypatch):
-    """fsdp, num_devices > 1 and spatial > 1 name ROADMAP's parallel
-    item.  remat and the orbax backend, which raised before they were
+    """fsdp and spatial > 1 name their ROADMAP items (parallel/fsdp.py,
+    parallel/tensor.py); num_devices > 1 in a process of no group says
+    how to launch the ranks (ported: tests/test_torch_dp_seg.py).  remat
+    and the orbax backend, which raised before they were
     ported, build and take a step (an FCN-CNSN at layers (1, 1, 1, 1)):
     every backbone stage rematerialised; a step checkpoint under
     save_path/orbax."""
     kw = dict(save_path=str(tmp_path), snapshot=False, **over)
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
+        exc, pattern = (match if isinstance(match, tuple)
+                        else (NotImplementedError, match))
+        with pytest.raises(exc, match=pattern):
             SegTrainer(SegConfig(**kw), synthetic_seg_dataset(
                 4, hw=(41, 41)), device="cpu")
         return

@@ -58,7 +58,7 @@ def small(monkeypatch):
         return JaxWideResNet(depth=DEPTH, widen_factor=WIDEN,
                              num_classes=num_classes, **_knobs(kw))
 
-    def port_build(name, num_classes, generator=None, **kw):
+    def port_build(name, num_classes, generator=None, num_groups=1, **kw):
         return WideResNet(depth=DEPTH, widen_factor=WIDEN,
                           num_classes=num_classes, generator=generator,
                           **_knobs(kw))
@@ -108,7 +108,7 @@ def test_plain_epoch_matches_jax_in_float64(small, monkeypatch, tmp_path):
     running statistic and every momentum buffer, at the float64 bounds of
     tests/test_torch_train.py."""
     monkeypatch.setattr(trainer_mod, "build_model",
-                        lambda *a, **kw: _F64WideResNet(
+                        lambda *a, num_groups=1, **kw: _F64WideResNet(
                             depth=DEPTH, widen_factor=WIDEN,
                             num_classes=a[1], generator=kw.get("generator"),
                             **_knobs(kw)))
@@ -311,15 +311,17 @@ _R50_REMAT = dict(dataset="imagenet", model="resnet50", cnsn_type="sn",
 @pytest.mark.parametrize("recipe,over,match", [
     (CNSN, dict(ckpt_backend="orbax"), None),
     (CNSN, dict(fsdp=True), "fsdp"),
-    (CNSN, dict(num_devices=2), "num_devices"),
+    (CNSN, dict(num_devices=2), (ValueError, "num_devices=2 .* launch")),
     (CNSN, dict(remat=True), None),
     (CNSN, _R50_REMAT, None),
     ("cnsn-augmix.yaml", dict(fsdp=True), "fsdp"),
 ])
 def test_unported_knobs_raise_at_construction(recipe, over, match,
                                               tmp_path, monkeypatch):
-    """fsdp and num_devices > 1 name their ROADMAP item, before anything is
-    built or written, on CIFAR and an AugMix recipe alike.  The knobs this
+    """fsdp names its ROADMAP item, before anything is built or written,
+    on CIFAR and an AugMix recipe alike; num_devices > 1 in a process of
+    no group says how to launch the ranks, before anything is built or
+    written (ported: tests/test_torch_dp_trainer.py).  The knobs this
     name listed before they were ported build and take a step: orbax (its
     checkpointer under the experiment directory), remat on WRN (ignored,
     as JAX ignores it on a non-ResNet: cnsn_tpu/train/trainer.py:58-59)
@@ -331,7 +333,9 @@ def test_unported_knobs_raise_at_construction(recipe, over, match,
     cfg = load_config(os.path.join(_WRN, recipe), exp_dir=str(exp),
                       snapshot=False, **data, **over)
     if match is not None:
-        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
+        exc, pattern = (match if isinstance(match, tuple)
+                        else (NotImplementedError, f"{match}.*ROADMAP"))
+        with pytest.raises(exc, match=pattern):
             Trainer(cfg, device="cpu")
         assert not exp.exists()
         return
